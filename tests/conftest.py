@@ -11,6 +11,11 @@ from repro.core.store import ModelStore
 from repro.data.corpus import DataIndex, make_corpus
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def small_cfg():
     return LDAConfig(n_topics=8, vocab_size=200, alpha=0.5, eta=0.05,
