@@ -9,11 +9,14 @@ Phases, each of which fails the run if anything in it fails:
 
 1. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (first use builds them; the build time is printed);
-2. kernels — call every kernel of the query path on the card at the main
-   path's shapes and at edge shapes, hold each against its plain PyTorch
+2. kernels — call every kernel of the query paths on the card at the main
+   paths' shapes and at edge shapes, hold each against its plain PyTorch
    version at the stated tolerance, and time the kernel, the plain
    version and (where one exists) a single PyTorch call computing the
-   same function, beside the least time the card could take;
+   same function, beside the least time the card could take.  The Gibbs
+   samplers' plain versions add the conditional in the kernels' warp-scan
+   order, so every draw and count must be equal, and the counts must be
+   conserved;
 3. main path — at the default ``LDAConfig`` widths (K = 100, V = 8192)
    build 32 window models with ``train_range`` on the ``"device"``
    backend, answer a covered ``submit`` (merge only), a ``submit`` with
@@ -23,7 +26,21 @@ Phases, each of which fails the run if anything in it fails:
    with rows summing to 1, and the covered β must match the ``"host"``
    backend over the same store;
 4. routes — a gap query on the ``"host"`` backend and a gap replayed on
-   it after an injected device loss must both launch the E-step kernel.
+   it after an injected device loss must both launch the E-step kernel;
+5. the ``"gs"`` path — the same corpus and widths with collapsed Gibbs
+   and the DSGS prior: 16 windows by ``train_range`` and the gaps of a
+   ``submit`` with half-window edges train with the blocked sweep kernel,
+   a covered ``submit`` and a ``submit_many`` merge, and a ``"host"`` gap
+   query and a replay on ``"host"`` after an injected device loss train
+   with the exact-scan kernel; the same checks as phase 3, and the
+   covered β must fit the corpus better than uniform topics.
+
+The launch counts reported for a kernel are those of the paths that run
+it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path),
+each counter set to 0 just before its path and read just after:
+``launches_by_path`` holds each path's count and ``launches`` their sum
+(the merges run on both paths).  The batched merge is on neither path
+(it is the ragged merge's retired parity reference) and reports 0.
 
 The second-to-last line of output is the kernel table as JSON, the line
 before it the card's name and power limit; the last line is
@@ -50,6 +67,9 @@ MERGE_TOL = 1e-5
 ESTEP_TOL = 2e-4
 TRAIN_BUDGET_S = 300.0     # seconds the main path may spend in VB training
 N_WINDOWS = 32
+GS_TRAIN_BUDGET_S = 120.0  # seconds the gs path may spend in train_range
+GS_WINDOWS = 16
+T_START = time.perf_counter()
 
 
 def log(*args) -> None:
@@ -91,9 +111,13 @@ def main() -> int:
     from repro_torch.core.lda import log_predictive_probability
     from repro_torch.data.corpus import doc_term_matrix, make_corpus
     from repro_torch.kernels import common
+    from repro_torch.core.gibbs import blocked_layout
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
+    from repro_torch.kernels.gibbs_sweep.ref import (
+        cgs_sweep_exact_ref, gibbs_sweep_ref)
     from repro_torch.kernels.merge_topics import ops as merge_ops
     from repro_torch.kernels.merge_topics.ref import (
-        merge_topics_ref, merge_topics_segments_ref)
+        merge_topics_batched_ref, merge_topics_ref, merge_topics_segments_ref)
     from repro_torch.kernels.vb_estep import ops as estep_ops
     from repro_torch.kernels.vb_estep.ref import vb_estep_ref
 
@@ -142,6 +166,7 @@ def main() -> int:
         return float(err.max())
 
     rng = np.random.default_rng(0)
+    cfg0 = LDAConfig()
     report = {}
 
     # merge_topics
@@ -242,6 +267,151 @@ def main() -> int:
         replaces="src/repro/kernels/vb_estep/vb_estep.py:76",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+    # merge_topics_batch (b merges of n rows in one launch)
+    errs = []
+    for b, n, k, v in [(4, 8, 100, 8192), (3, 2, 6, 150)]:
+        st = torch.tensor(rng.gamma(1.0, 1.0, (b, n, k, v)),
+                          dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.uniform(0.2, 2.0, (b, n)), dtype=torch.float32,
+                         device=dev)
+        for bias in (0.0, 0.01):               # the gs and the vb merge
+            got = merge_ops.merge_topics_batch(st, w, bias, bias)
+            errs.append(close(got, merge_topics_batched_ref(st, w, bias, bias),
+                              MERGE_TOL))
+        log(f"[kernels] merge_topics_batch b={b} n={n} K={k} V={v}: max abs "
+            f"err {max(errs[-2:]):.3g} (tol {MERGE_TOL})")
+        if (b, n) == (4, 8):
+            # bias = base = 0 (the gs merge): one einsum is the same function
+            ms = time_ms(lambda: merge_ops.merge_topics_batch(st, w), 20)
+            plain = time_ms(lambda: merge_topics_batched_ref(st, w), 20)
+            lib = time_ms(lambda: torch.einsum("bn,bnkv->bkv", w, st), 20)
+            b_ms, b_by = bound_ms(4 * (b * n * k * v + b * n + b * k * v),
+                                  2 * b * n * k * v)
+    report["merge_topics_batch"] = dict(
+        name="merge_topics_batch", route="cuda",
+        source="src/repro_torch/kernels/csrc/merge_topics.cu",
+        replaces="src/repro/kernels/merge_topics/merge_topics.py:66",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
+
+    # gibbs_sweep: one blocked sweep of a 1,000-document window at the
+    # main path's widths, then an edge shape (K = 6, a ragged last block)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = []
+    t_sweep_s = None
+    for n_docs, k, v, mean_len, bd in [(1000, 100, 8192, 60, 64),
+                                       (90, 6, 150, 12, 16)]:
+        win, _ = make_corpus(n_docs, v, k, mean_doc_len=mean_len, seed=2)
+        words, ldoc, mask = (torch.tensor(a, device=dev) for a in
+                             blocked_layout(win.tokens, win.doc_ids,
+                                            win.n_docs, bd))
+        nb, t = words.shape
+        z = torch.randint(0, k, (nb, t), generator=gen, device=dev,
+                          dtype=torch.int32)
+        u = torch.rand((nb, t), generator=gen, device=dev)
+        nkd = torch.zeros((nb, bd, k), device=dev)
+        blk = torch.arange(nb, device=dev)[:, None].expand(nb, t)
+        nkd.index_put_((blk.reshape(-1), ldoc.reshape(-1).long(),
+                        z.reshape(-1).long()), mask.reshape(-1),
+                       accumulate=True)
+        nkv = torch.zeros((k, v), device=dev)
+        nkv.index_put_((z.reshape(-1).long(), words.reshape(-1).long()),
+                       mask.reshape(-1), accumulate=True)
+        glob = torch.tensor(rng.integers(0, 4, (k, v)), dtype=torch.float32,
+                            device=dev)             # a store's summed counts
+        prior = nkv + glob + cfg0.eta
+        prior_k = nkv.sum(1) + glob.sum(1) + v * cfg0.eta
+        args = (words, ldoc, mask, u, z, nkd, prior, prior_k, cfg0.alpha)
+        z1, nkd1, nkv1 = gibbs_ops.gibbs_sweep(*args)
+        z2, nkd2, nkv2 = gibbs_sweep_ref(*args)
+        torch.cuda.synchronize()
+        bad = int((z1 != z2).sum())
+        real = int(mask.sum())
+        doc_len = torch.zeros((nb, bd), device=dev)
+        doc_len.index_put_((blk.reshape(-1), ldoc.reshape(-1).long()),
+                           mask.reshape(-1), accumulate=True)
+        if float(nkv1.sum()) != real or not torch.equal(nkd1.sum(2),
+                                                        doc_len):
+            raise AssertionError("gibbs_sweep lost or invented tokens")
+        if bad or not (torch.equal(nkd1, nkd2) and torch.equal(nkv1, nkv2)):
+            raise AssertionError(f"gibbs_sweep: {bad} of {real} draws "
+                                 f"differ from the plain version")
+        errs.append(float((nkv1 - nkv2).abs().max()))
+        log(f"[kernels] gibbs_sweep docs={n_docs} K={k} V={v} BD={bd} "
+            f"blocks={nb} T_max={t}: {bad} of {real} draws differ from the "
+            f"plain version (tol 0), counts conserved")
+        if k == 100:
+            ms = time_ms(lambda: gibbs_ops.gibbs_sweep(*args), 5)
+            plain = time_ms(lambda: gibbs_sweep_ref(*args), 1)
+            t_sweep_s = ms * 1e-3
+            # bytes: the (B, T) inputs, n_kd in and out, the snapshot,
+            # z out and n_kv out once; operations: ~8 per topic per token
+            n_bytes = 4 * (6 * nb * t + 2 * nb * bd * k + 2 * k * v + k)
+            b_ms, b_by = bound_ms(n_bytes, 8 * k * real)
+    report["gibbs_sweep"] = dict(
+        name="gibbs_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/gibbs_sweep.cu",
+        replaces="src/repro/kernels/gibbs_sweep/gibbs_sweep.py:88",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
+    # cgs_sweep_exact: one sweep of the exact scan over a 1,000-document
+    # gap at the main path's widths (~58,000 tokens, the shape of the gs
+    # path's host gaps), and the edge shape
+    errs = []
+    t_token_s = None
+    for n_docs, k, v, mean_len in [(1000, 100, 8192, 60), (40, 6, 150, 12)]:
+        part, _ = make_corpus(n_docs, v, k, mean_doc_len=mean_len, seed=3)
+        toks = torch.tensor(part.tokens, device=dev)
+        docs = torch.tensor(part.doc_ids, device=dev)
+        t = toks.shape[0]
+        z = torch.randint(0, k, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        u = torch.rand((t,), generator=gen, device=dev)
+        ones = torch.ones(t, device=dev)
+        nkd = torch.zeros((part.n_docs, k), device=dev)
+        nkd.index_put_((docs.long(), z.long()), ones, accumulate=True)
+        nkv = torch.zeros((k, v), device=dev)
+        nkv.index_put_((z.long(), toks.long()), ones, accumulate=True)
+        glob = torch.tensor(rng.integers(0, 4, (k, v)), dtype=torch.float32,
+                            device=dev)
+        args = (toks, docs, u, z, nkd, nkv, nkv.sum(1), glob, glob.sum(1),
+                cfg0.alpha, cfg0.eta)
+        z1, nkd1, nkv1, nk1 = gibbs_ops.cgs_sweep_exact(*args)
+        # the plain version at this size is ~30 small launches a token,
+        # tens of seconds: its one comparison call is also its timing
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
+        z2, nkd2, nkv2, nk2 = cgs_sweep_exact_ref(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        bad = int((z1 != z2).sum())
+        if float(nkv1.sum()) != t or not torch.equal(nkd1.sum(1), nkd.sum(1)) \
+                or not torch.equal(nk1, nkv1.sum(1)):
+            raise AssertionError("cgs_sweep_exact lost or invented tokens")
+        if bad or not (torch.equal(nkd1, nkd2) and torch.equal(nkv1, nkv2)
+                       and torch.equal(nk1, nk2)):
+            raise AssertionError(f"cgs_sweep_exact: {bad} of {t} draws "
+                                 f"differ from the plain version")
+        errs.append(float((nkv1 - nkv2).abs().max()))
+        log(f"[kernels] cgs_sweep_exact docs={n_docs} K={k} V={v} T={t}: "
+            f"{bad} of {t} draws differ from the plain version (tol 0), "
+            f"counts conserved")
+        if k == 100:
+            ms = time_ms(lambda: gibbs_ops.cgs_sweep_exact(*args), 5)
+            plain = ev[0].elapsed_time(ev[1])
+            t_token_s = ms * 1e-3 / t
+            n_bytes = 4 * (5 * t + 2 * part.n_docs * k + 3 * k * v + 3 * k)
+            b_ms, b_by = bound_ms(n_bytes, 10 * k * t)
+    report["cgs_sweep_exact"] = dict(
+        name="cgs_sweep_exact", route="cuda",
+        source="src/repro_torch/kernels/csrc/gibbs_sweep.cu",
+        replaces="src/repro/core/gibbs.py:34",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
     for rep in report.values():
         log(f"[kernels] {rep['name']}: kernel {rep['ms']:.4f} ms, plain "
             f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']} ms, "
@@ -318,6 +488,7 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"main path never launched {kname}")
         report[kname]["launches"] = count
+        report[kname]["launches_by_path"] = {"vb": count}
 
     if rep_gap.n_trained_tokens <= 0:
         raise AssertionError("the gap query trained no tokens")
@@ -387,6 +558,144 @@ def main() -> int:
         f"{host_launches} E-step launches; device-lost replay on host: "
         f"{rep2.n_trained_tokens} trained tokens, {replay_launches} E-step "
         f"launches")
+
+    # -- 5. the "gs" path ---------------------------------------------------
+    # the same corpus and widths; collapsed Gibbs with the DSGS prior.
+    # Gaps on "device" train with the blocked sweep, on "host" (and in a
+    # replay after device loss) with the exact scan.
+    gcfg = LDAConfig()
+    n_gs = GS_WINDOWS
+    # a window is gibbs_sweeps blocked sweeps at the phase-2 shape; cut
+    # windows (never widths) if that rate would overrun the budget
+    est = gcfg.gibbs_sweeps * t_sweep_s
+    if n_gs * est > GS_TRAIN_BUDGET_S:
+        n_gs = max(4, int(GS_TRAIN_BUDGET_S / est))
+        log(f"[gs] cut: {GS_WINDOWS} -> {n_gs} windows ({est:.2f} s per "
+            f"window at the measured blocked-sweep rate)")
+    else:
+        log(f"[gs] no cut: {n_gs} windows at ~{est:.2f} s each (blocked "
+            f"sweep {t_sweep_s * 1e3:.2f} ms); an exact-scan gap of 60,000 "
+            f"tokens ~{gcfg.gibbs_sweeps * 60_000 * t_token_s:.1f} s "
+            f"({t_token_s * 1e6:.2f} us per token)")
+    gs = MLegoSession(corpus, gcfg, kind="gs", backend="device",
+                      device="cuda")
+    for counter in ("merge_topics_launches", "merge_topics_ragged_launches",
+                    "merge_topics_batch_launches"):
+        setattr(merge_ops, counter, 0)
+    gibbs_ops.gibbs_sweep_launches = 0
+    gibbs_ops.cgs_sweep_exact_launches = 0
+
+    t0 = time.perf_counter()
+    for i in range(n_gs):
+        m = gs.train_range(i * 1000.0, (i + 1) * 1000.0)
+        if m is None or m.kind != "gs" or \
+                float(m.theta["delta_nkv"].sum()) != m.n_tokens:
+            raise AssertionError(f"gs window {i} did not conserve its tokens")
+    torch.cuda.synchronize()
+    log(f"[gs] train_range x{n_gs}: {time.perf_counter() - t0:.1f} s, "
+        f"train_device_ms {gs.backend.stats.train_device_ms:.0f} over "
+        f"{gs.backend.stats.gap_device_trains} fits")
+    t0 = time.perf_counter()
+    g_cov = gs.submit(covered)
+    log(f"[gs] submit covered [0, 8000): {len(g_cov.model_ids)} parts, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, merge "
+        f"{g_cov.merge_device_ms:.2f} ms")
+    t0 = time.perf_counter()
+    g_gap = gs.submit(QuerySpec(sigma=Interval(8500.0, 12500.0)))
+    log(f"[gs] submit with gaps [8500, 12500): {g_gap.n_merged} parts, "
+        f"{g_gap.n_trained_tokens} trained tokens, "
+        f"{time.perf_counter() - t0:.2f} s, train_device_ms "
+        f"{g_gap.train_device_ms:.0f}")
+    g_specs = [QuerySpec(sigma=Interval(0.0, 4000.0)),
+               QuerySpec(sigma=Interval(4000.0, 6000.0)),
+               QuerySpec(sigma=Interval(0.0, 8000.0)),
+               QuerySpec(sigma=Interval(2000.0, 3000.0))]
+    t0 = time.perf_counter()
+    g_batch = gs.submit_many(g_specs)
+    log(f"[gs] submit_many parts={[r.n_merged for r in g_batch]}: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, merge "
+        f"{g_batch.merge_device_ms:.2f} ms, pad rows {g_batch.pad_rows}")
+    if g_gap.n_trained_tokens <= 0:
+        raise AssertionError("the gs gap query trained no tokens")
+    if len({r.n_merged for r in g_batch}) < 3:
+        raise AssertionError("gs submit_many did not merge ragged part "
+                             "counts")
+    blocked_launches = gibbs_ops.gibbs_sweep_launches
+
+    # the "host" backend trains an untrained range with the exact scan;
+    # a device-lost replay on "host" does too
+    g_host = MLegoSession(corpus, gcfg, kind="gs", store=gs.store,
+                          backend="host", device="cuda")
+    t0 = time.perf_counter()
+    g_hrep = g_host.submit(QuerySpec(sigma=Interval(20500.0, 21500.0)))
+    t_host = time.perf_counter() - t0
+    host_exact = gibbs_ops.cgs_sweep_exact_launches
+    g_replay = MLegoSession(corpus, gcfg, kind="gs", store=gs.store,
+                            backend="device", device="cuda")
+    t0 = time.perf_counter()
+    with injected(FaultRule("backend.train_gap.device", kind="device_lost",
+                            max_failures=1)):
+        g_rrep = g_replay.submit(QuerySpec(sigma=Interval(28500.0, 29500.0)))
+    t_replay = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    g_launches = {
+        "gibbs_sweep": gibbs_ops.gibbs_sweep_launches,
+        "cgs_sweep_exact": gibbs_ops.cgs_sweep_exact_launches,
+        "merge_topics": merge_ops.merge_topics_launches,
+        "merge_topics_ragged": merge_ops.merge_topics_ragged_launches}
+    log(f"[gs] host gap query [20500, 21500): {g_hrep.n_trained_tokens} "
+        f"trained tokens, {host_exact} exact-scan launches, {t_host:.2f} s; "
+        f"device-lost replay [28500, 29500) on {g_rrep.backend}: "
+        f"{g_rrep.n_trained_tokens} trained tokens, "
+        f"{g_launches['cgs_sweep_exact'] - host_exact} exact-scan launches, "
+        f"{t_replay:.2f} s")
+    log(f"[gs] kernel launches on the gs path: {g_launches}")
+    for kname, count in g_launches.items():
+        if count <= 0:
+            raise AssertionError(f"gs path never launched {kname}")
+    if blocked_launches != gibbs_ops.gibbs_sweep_launches:
+        raise AssertionError("a host-trained gs gap launched the blocked "
+                             "sweep")
+    if host_exact <= 0 or g_launches["cgs_sweep_exact"] <= host_exact:
+        raise AssertionError("a host-trained gs gap did not launch the "
+                             "exact scan")
+    for kname, count in g_launches.items():
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["gs"] = count
+        report[kname]["launches"] = sum(by_path.values())
+    # the batched merge is the ragged path's retired parity reference:
+    # no entry point of either path reaches it
+    report["merge_topics_batch"]["launches"] = \
+        merge_ops.merge_topics_batch_launches
+
+    expect = [(g_cov, "device", None), (g_gap, "device", None),
+              *[(r, "device", None) for r in g_batch],
+              (g_hrep, "host", None), (g_rrep, "host", "device")]
+    for r, backend, fallback in expect:
+        if (r.backend, r.fallback_from) != (backend, fallback):
+            raise AssertionError(f"gs report answered by {r.backend} "
+                                 f"(fallback from {r.fallback_from}), "
+                                 f"expected {backend} ({fallback})")
+        if r.beta.shape != (gcfg.n_topics, gcfg.vocab_size) \
+                or not np.isfinite(r.beta).all():
+            raise AssertionError("gs beta is not finite (K, V)")
+        row_err = float(np.abs(r.beta.sum(1) - 1.0).max())
+        if row_err > 1e-5:
+            raise AssertionError(f"gs beta rows sum to 1 +- {row_err}")
+    if g_hrep.n_trained_tokens <= 0 or g_rrep.n_trained_tokens <= 0:
+        raise AssertionError("a host gs gap trained no tokens")
+    g_hcov = g_host.submit(covered)
+    diff = float(np.abs(g_hcov.beta - g_cov.beta).max())
+    if g_hcov.model_ids != g_cov.model_ids or not np.allclose(
+            g_cov.beta, g_hcov.beta, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"gs device beta differs from host by {diff}")
+    lpp = log_predictive_probability(g_cov.beta, x_in, gcfg.alpha)
+    log(f"[gs] covered beta: device vs host max abs diff {diff:.3g} (tol "
+        f"1e-5); per-token log predictive merged {lpp:.4f}, uniform "
+        f"{lpp_flat:.4f}")
+    if not lpp > lpp_flat:
+        raise AssertionError("merged gs topics fit no better than uniform")
+    log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)
     log(json.dumps({"kernels": list(report.values())}))

@@ -13,7 +13,10 @@ byte-bounded, invalidated through the store's change notifications),
 executes merges through the hand-written ``merge_topics`` kernel — one
 ``(n, K, V)`` launch per query, and one *ragged segmented* launch for a
 ``submit_many`` batch (zero pad rows) — and routes VB gap training
-through the fused E-step kernel (``vb_fit(..., use_kernel=True)``).  A
+through the fused E-step kernel (``vb_fit(..., use_kernel=True)``) and
+Gibbs gap training through the doc-blocked sweep kernel
+(``cgs_fit_blocked``; the registry's ``"gs"`` trainer, which the host
+backend uses, runs the exact-scan kernel on the card).  A
 freshly trained persisted gap model is warm-inserted into the LRU
 (``note_trained``) so the merge that follows reads it back as a hit.
 
@@ -341,7 +344,8 @@ class _DeviceModelCache:
 
 
 class DeviceBackend(ExecutionBackend):
-    """Device-resident merges + kernel gap training (VB E-step).
+    """Device-resident merges + kernel gap training (VB E-step, Gibbs
+    sweep).
 
     capacity  : max cached models (LRU-evicted beyond it)
     max_bytes : optional cap on resident parameter bytes (evicts LRU
@@ -349,9 +353,16 @@ class DeviceBackend(ExecutionBackend):
                 through uncached)
     device    : the CUDA device (default "cuda"; "cpu" runs the same
                 code path with each kernel's plain version, for tests)
+    gibbs_block_docs : documents per sampler block on the "gs" route
+                (more blocks = shorter sequential chain, slightly
+                staler topic-word counts within a sweep).  Kept for
+                parity with ``repro.api.DeviceBackend``; every route
+                still runs the blocked kernel, whatever its value
 
-    "vb" gaps train through the fused E-step kernel; every other kind
-    uses the trainer registry.  Fresh
+    "vb" gaps train through the fused E-step kernel and "gs" gaps
+    through the doc-blocked sweep kernel (``cgs_fit_blocked``, which is
+    statistically — not bit — equivalent to the exact scan the host
+    backend runs); every other kind uses the trainer registry.  Fresh
     gap models are *warm-inserted* into the LRU (``note_trained``),
     tracked in ``stats.train_uploads``.
     """
@@ -360,9 +371,14 @@ class DeviceBackend(ExecutionBackend):
 
     def __init__(self, capacity: int = 64, *,
                  max_bytes: Optional[int] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 gibbs_block_docs: int = 64):
         super().__init__()
+        if gibbs_block_docs < 1:
+            raise ValueError(f"gibbs_block_docs must be >= 1, got "
+                             f"{gibbs_block_docs}")
         self.device = resolve_device(device)
+        self.gibbs_block_docs = gibbs_block_docs
         self.cache = _DeviceModelCache(capacity, max_bytes,
                                        device=self.device)
         self._store: Optional[ModelStore] = None
@@ -474,10 +490,12 @@ class DeviceBackend(ExecutionBackend):
     def trainer(self, kind: str) -> TrainerFn:
         if kind == "vb":
             return self._train_vb_kernel
+        if kind == "gs":
+            return self._train_gs_kernel
         return get_trainer(kind)
 
     def kernel_route(self, kind: str) -> bool:
-        return kind == "vb"
+        return kind in ("vb", "gs")
 
     def note_trained(self, model: MaterializedModel) -> None:
         fam = merge_family_name(model.kind)
@@ -487,12 +505,15 @@ class DeviceBackend(ExecutionBackend):
             self._count(train_uploads=1)
         self._sync_cache_counters()
 
-    def _train_vb_kernel(self, corpus: Corpus, cfg: LDAConfig,
-                         gen: torch.Generator) -> Dict[str, np.ndarray]:
-        from repro_torch.core.vb import vb_fit
+    def _check_generator(self, gen: torch.Generator) -> None:
         if gen.device != self.device:
             raise ValueError(f"generator on {gen.device}, backend on "
                              f"{self.device}")
+
+    def _train_vb_kernel(self, corpus: Corpus, cfg: LDAConfig,
+                         gen: torch.Generator) -> Dict[str, np.ndarray]:
+        from repro_torch.core.vb import vb_fit
+        self._check_generator(gen)
         t0 = time.perf_counter()
         x = doc_term_matrix(corpus)
         with self._device_guard():
@@ -501,6 +522,23 @@ class DeviceBackend(ExecutionBackend):
         obs.set_attrs(train_device_ms=ms, route="vb_estep")
         self._count(gap_device_trains=1, train_device_ms=ms)
         return {"lam": lam}
+
+    def _train_gs_kernel(self, corpus: Corpus, cfg: LDAConfig,
+                         gen: torch.Generator,
+                         global_nkv: Optional[np.ndarray] = None
+                         ) -> Dict[str, np.ndarray]:
+        from repro_torch.core.gibbs import cgs_fit_blocked
+        self._check_generator(gen)
+        t0 = time.perf_counter()
+        with self._device_guard():
+            nkv = cgs_fit_blocked(corpus.tokens, corpus.doc_ids, cfg, gen,
+                                  global_nkv=global_nkv,
+                                  block_docs=self.gibbs_block_docs)
+            nkv = nkv.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        obs.set_attrs(train_device_ms=ms, route="gibbs_blocked")
+        self._count(gap_device_trains=1, train_device_ms=ms)
+        return {"delta_nkv": nkv}
 
 
 _FACTORIES = {"host": HostBackend, "device": DeviceBackend}

@@ -20,9 +20,10 @@ its models combines into a topic matrix β.  Pass ``merge=`` a callable
 Alg. 1 natural-parameter addition over ``theta["lam"]``; ``"gs"``:
 Alg. 2 count addition over ``theta["delta_nkv"]``).
 
-Built-in: ``"vb"`` (variational Bayes, Alg. 1 family).  The collapsed
-Gibbs kind (``"gs"``, alias ``"gibbs"``) is not ported yet, so it
-resolves as an unknown kind.  Kinds are canonicalized through
+Built-ins: ``"vb"`` (variational Bayes, Alg. 1 family) and ``"gs"``
+(alias ``"gibbs"``: collapsed Gibbs with the DSGS prior, Alg. 2 family;
+its trainer also takes ``global_nkv=``, the store's merged counts).
+Kinds are canonicalized through
 :func:`resolve_kind` so the store tags models consistently regardless
 of which alias the caller used.
 """
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.lda_default import LDAConfig
+from repro_torch.core.gibbs import cgs_fit
 from repro_torch.core.lda import (
     MaterializedModel,
     topics_from_gs,
@@ -135,4 +137,16 @@ def _train_vb(corpus: Corpus, cfg: LDAConfig,
     return {"lam": vb_fit(x, gen, cfg, use_kernel=True).cpu().numpy()}
 
 
+def _train_gibbs(corpus: Corpus, cfg: LDAConfig, gen: torch.Generator,
+                 global_nkv: Optional[np.ndarray] = None
+                 ) -> Dict[str, np.ndarray]:
+    # the exact scan on gen.device: its kernel on a CUDA generator, its
+    # plain version on a CPU one.  global_nkv is the DSGS Eq. 8 prior —
+    # the store's merged counts, threaded in by the executor so a gap
+    # trains against the reuse capital's topic structure
+    return {"delta_nkv": cgs_fit(corpus.tokens, corpus.doc_ids, cfg, gen,
+                                 global_nkv=global_nkv).cpu().numpy()}
+
+
 register_trainer("vb", _train_vb, merge="vb")
+register_trainer("gs", _train_gibbs, merge="gs", aliases=("gibbs",))

@@ -43,8 +43,8 @@ _F = ctypes.c_float
 
 # C signature of every entry point in csrc/ (all return a cudaError_t)
 _SIGNATURES = {
-    # stats, weights, out, n, kv, bias, base, stream
-    "mlego_merge_topics": (_P, _P, _P, _I, _LL, _F, _F, _P),
+    # stats, weights, out, b, n, kv, bias, base, stream
+    "mlego_merge_topics_batched": (_P, _P, _P, _I, _I, _LL, _F, _F, _P),
     # stats, weights, row_offsets, out, n_segments, kv, bias, base, stream
     "mlego_merge_topics_ragged": (_P, _P, _P, _P, _I, _LL, _F, _F, _P),
     # x, exp_elog_beta, gamma0, gamma, exp_elog_theta, D, K, V, alpha,
@@ -52,6 +52,12 @@ _SIGNATURES = {
     "mlego_vb_estep_iters": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, exp_elog_beta, exp_elog_theta, sstats, D, K, V, stream
     "mlego_vb_estep_sstats": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # words, ldoc, mask, u, z_in, nkd_in, prior_t, prior_k, z_out,
+    # nkd_out, nkv, B, T, BD, K, V, alpha, stream
+    "mlego_gibbs_sweep_blocked": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    # tokens, doc_ids, u, z, nkd, nkv_t, nk, g_t, gk, T, K, alpha, beta,
+    # vbeta, stream
+    "mlego_gibbs_sweep_exact": (_P,) * 9 + (_I, _I, _F, _F, _F, _P),
 }
 
 
@@ -197,12 +203,35 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, t: torch.Tensor,
-                     device: torch.device) -> None:
-    """Checks the kernels rely on: CUDA, float32, contiguous, one device."""
+_count_lock = threading.Lock()
+
+
+def count_launch(counters: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` to the launch counter ``name`` of a wrapper module
+    (``counters`` is that module's ``globals()``)."""
+    with _count_lock:
+        counters[name] += n
+
+
+def same_device(**tensors: torch.Tensor) -> torch.device:
+    """The one device (CPU or CUDA) all the named tensors lie on."""
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: "
+                         f"{ {n: str(t.device) for n, t in tensors.items()} }")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def require_cuda(name: str, t: torch.Tensor, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Checks the kernels rely on: CUDA, the dtype, contiguous, one
+    device."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

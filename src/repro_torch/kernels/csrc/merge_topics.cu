@@ -2,9 +2,9 @@
 //
 //   out = bias + sum_r w[r] * (stats[r] - base)          stats: (n, K*V)
 //
-// Replaces the Pallas kernels merge_topics_pallas and
-// merge_topics_ragged_pallas (src/repro/kernels/merge_topics/
-// merge_topics.py:37 and :112).
+// Replaces the Pallas kernels merge_topics_pallas,
+// merge_topics_batched_pallas and merge_topics_ragged_pallas
+// (src/repro/kernels/merge_topics/merge_topics.py:37, :66 and :112).
 //
 // Bound: device memory.  Each output element needs n loads and ~2n flops,
 // so the work is (n+1)*K*V*4 bytes over the card's bandwidth.  The design
@@ -18,7 +18,9 @@
 // (n_segments + 1,).  The TPU form relied on grid steps running in order
 // to revisit one output block; here no two programs touch the same output,
 // so there are no atomics and the sum order (row 0 .. n-1) is the same on
-// every run.
+// every run.  The batched form (b merges of n rows each) is the same loop
+// with implicit offsets [0, n, 2n, ...]: without an offsets array, segment
+// s owns rows [s*n, (s+1)*n).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -32,10 +34,10 @@ __global__ void merge_vec4(const float4* __restrict__ stats,
                            const int* __restrict__ row_offsets,
                            float4* __restrict__ out, int n_rows,
                            long long kv4, float bias, float base) {
-  // blockIdx.y is the segment; without offsets there is one segment
+  // blockIdx.y is the segment; without offsets each has n_rows rows
   const int seg = blockIdx.y;
-  const int r0 = row_offsets ? row_offsets[seg] : 0;
-  const int r1 = row_offsets ? row_offsets[seg + 1] : n_rows;
+  const int r0 = row_offsets ? row_offsets[seg] : seg * n_rows;
+  const int r1 = row_offsets ? row_offsets[seg + 1] : r0 + n_rows;
   float4* dst = out + (long long)seg * kv4;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < kv4; i += (long long)gridDim.x * blockDim.x) {
@@ -59,8 +61,8 @@ __global__ void merge_scalar(const float* __restrict__ stats,
                              float* __restrict__ out, int n_rows,
                              long long kv, float bias, float base) {
   const int seg = blockIdx.y;
-  const int r0 = row_offsets ? row_offsets[seg] : 0;
-  const int r1 = row_offsets ? row_offsets[seg + 1] : n_rows;
+  const int r0 = row_offsets ? row_offsets[seg] : seg * n_rows;
+  const int r1 = row_offsets ? row_offsets[seg + 1] : r0 + n_rows;
   float* dst = out + (long long)seg * kv;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < kv; i += (long long)gridDim.x * blockDim.x) {
@@ -99,10 +101,11 @@ int launch(const float* stats, const float* w, const int* row_offsets,
 
 extern "C" {
 
-int mlego_merge_topics(const float* stats, const float* w, float* out,
-                       int n, long long kv, float bias, float base,
-                       void* stream) {
-  return launch(stats, w, nullptr, out, n, 1, kv, bias, base,
+// b merges of n rows each; merge_topics is the case b = 1
+int mlego_merge_topics_batched(const float* stats, const float* w,
+                               float* out, int b, int n, long long kv,
+                               float bias, float base, void* stream) {
+  return launch(stats, w, nullptr, out, n, b, kv, bias, base,
                 (cudaStream_t)stream);
 }
 

@@ -2,8 +2,10 @@
 
 Source note.  ``merge_topics`` replaces the Pallas kernel
 ``merge_topics_pallas`` (``src/repro/kernels/merge_topics/
-merge_topics.py:37``) and ``merge_topics_ragged`` replaces
-``merge_topics_ragged_pallas`` (same file, :112).  Both are bound by
+merge_topics.py:37``), ``merge_topics_batch`` replaces
+``merge_topics_batched_pallas`` (same file, :66) and
+``merge_topics_ragged`` replaces ``merge_topics_ragged_pallas`` (same
+file, :112).  All are bound by
 device memory: the merge reads each of the n (K, V) float32 statistics
 once and writes the result once, (n+1)·K·V·4 bytes, for ~2 flops per
 element read.  The kernels keep each output element's running sum in a
@@ -11,35 +13,38 @@ register, read the inputs with 16-byte loads where K·V allows, and
 touch no byte twice.  The ragged form gives each (segment, output tile)
 its own program, looping over the segment's rows from CSR offsets built
 on the host: no atomics, one launch, zero pad rows, the same sum order
-on every run.  Unlike the TPU wrapper there is no padding of K to 8 or
-V to 128; the kernel masks the flat K·V range itself.
+on every run.  The batched form is the same kernel with implicit
+uniform offsets [0, n, 2n, …] (no offsets array to copy).  Unlike the
+TPU wrapper there is no padding of K to 8 or V to 128; the kernel masks
+the flat K·V range itself.
+
+``merge_topics_bucketed`` is the retired power-of-two-bucket launcher
+(``src/repro/kernels/merge_topics/ops.py:130``), kept, as in the JAX
+package, only as the parity reference of the ragged path.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to the kernel or raises.  ``merge_topics_launches`` and
-``merge_topics_ragged_launches`` count kernel launches.
+tensor goes to the kernel or raises.  ``merge_topics_launches``,
+``merge_topics_batch_launches`` and ``merge_topics_ragged_launches``
+count kernel launches.
 """
 from __future__ import annotations
 
-import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.plan_ir import size_buckets
 from repro_torch.kernels import common
 from repro_torch.kernels.merge_topics.ref import (
+    merge_topics_batched_ref,
     merge_topics_ref,
     merge_topics_segments_ref,
 )
 
 merge_topics_launches = 0
+merge_topics_batch_launches = 0
 merge_topics_ragged_launches = 0
-_count_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        globals()[name] += 1
 
 
 def _check(stats: torch.Tensor, weights: torch.Tensor) -> None:
@@ -48,11 +53,25 @@ def _check(stats: torch.Tensor, weights: torch.Tensor) -> None:
     if weights.shape != (stats.shape[0],):
         raise ValueError(f"weights must be ({stats.shape[0]},), got "
                          f"{tuple(weights.shape)}")
-    if stats.device != weights.device:
-        raise ValueError(f"stats on {stats.device} but weights on "
-                         f"{weights.device}")
-    if stats.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {stats.device}")
+    common.same_device(stats=stats, weights=weights)
+
+
+def _launch_batched(stats: torch.Tensor, weights: torch.Tensor, b: int,
+                    n: int, k: int, v: int, bias: float, base: float,
+                    counter: str) -> torch.Tensor:
+    """b merges of n rows each from a contiguous (b·n, K, V) stack in one
+    launch of the batched entry point -> (b, K, V)."""
+    dev = stats.device
+    common.require_cuda("stats", stats, dev)
+    common.require_cuda("weights", weights, dev)
+    out = torch.empty((b, k, v), dtype=torch.float32, device=dev)
+    lib = common.load_library()
+    status = lib.mlego_merge_topics_batched(
+        stats.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n, k * v,
+        float(bias), float(base), common.stream_of(stats))
+    common.check_launch(status, counter.replace("_launches", ""))
+    common.count_launch(globals(), counter)
+    return out
 
 
 def merge_topics(stats: torch.Tensor, weights: torch.Tensor,
@@ -61,18 +80,28 @@ def merge_topics(stats: torch.Tensor, weights: torch.Tensor,
     _check(stats, weights)
     if stats.device.type == "cpu":
         return merge_topics_ref(stats, weights, bias, base)
-    dev = stats.device
-    common.require_cuda_f32("stats", stats, dev)
-    common.require_cuda_f32("weights", weights, dev)
     n, k, v = stats.shape
-    out = torch.empty((k, v), dtype=torch.float32, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_merge_topics(
-        stats.data_ptr(), weights.data_ptr(), out.data_ptr(), n, k * v,
-        float(bias), float(base), common.stream_of(stats))
-    common.check_launch(status, "merge_topics")
-    _count("merge_topics_launches")
-    return out
+    return _launch_batched(stats, weights, 1, n, k, v, bias, base,
+                           "merge_topics_launches")[0]
+
+
+def merge_topics_batch(stats: torch.Tensor, weights: torch.Tensor,
+                       bias: float = 0.0, base: float = 0.0) -> torch.Tensor:
+    """b independent merges in one launch: stats (b, n, K, V) f32,
+    weights (b, n) f32 -> (b, K, V) f32.  Ragged batches pad n with
+    zero-weight rows before calling."""
+    if stats.dim() != 4:
+        raise ValueError(f"stats must be (b, n, K, V), got "
+                         f"{tuple(stats.shape)}")
+    b, n, k, v = stats.shape
+    if weights.shape != (b, n):
+        raise ValueError(f"weights must be ({b}, {n}), got "
+                         f"{tuple(weights.shape)}")
+    _check(stats.reshape(b * n, k, v), weights.reshape(b * n))
+    if stats.device.type == "cpu":
+        return merge_topics_batched_ref(stats, weights, bias, base)
+    return _launch_batched(stats, weights, b, n, k, v, bias, base,
+                           "merge_topics_batch_launches")
 
 
 def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
@@ -88,8 +117,8 @@ def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
     if stats.device.type == "cpu":
         return merge_topics_segments_ref(stats, weights, counts, bias, base)
     dev = stats.device
-    common.require_cuda_f32("stats", stats, dev)
-    common.require_cuda_f32("weights", weights, dev)
+    common.require_cuda("stats", stats, dev)
+    common.require_cuda("weights", weights, dev)
     _, k, v = stats.shape
     # pinned, so the copy is queued on the stream instead of blocking
     # the host until the device has drained earlier work
@@ -103,7 +132,7 @@ def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
         out.data_ptr(), len(counts), k * v, float(bias), float(base),
         common.stream_of(stats))
     common.check_launch(status, "merge_topics_ragged")
-    _count("merge_topics_ragged_launches")
+    common.count_launch(globals(), "merge_topics_ragged_launches")
     return out
 
 
@@ -133,6 +162,49 @@ def merge_topics_ragged(stats_list: Sequence[torch.Tensor],
     weights = torch.cat([w.to(torch.float32) for w in weights_list])
     merged = merge_topics_segments(stats, weights, counts, bias, base)
     return list(merged.unbind(0)), 0, 1
+
+
+def merge_topics_bucketed(stats_list: Sequence[torch.Tensor],
+                          weights_list: Sequence[torch.Tensor],
+                          bias: float = 0.0, base: float = 0.0
+                          ) -> Tuple[List[torch.Tensor], int, int]:
+    """Ragged batch of merges in power-of-two size buckets.
+
+    Plans are grouped by :func:`size_buckets`; within a bucket rows pad
+    with zero weight to the bucket's widest plan and merge in one
+    :func:`merge_topics_batch` launch; a bucket of one plan uses the
+    unbatched merge.  Returns ``(merged, pad_rows, launches)`` with
+    ``merged[i]`` the (K, V) result for input i, in input order.
+    """
+    counts = [int(s.shape[0]) for s in stats_list]
+    out: List[torch.Tensor] = [None] * len(counts)
+    pad_rows = launches = 0
+    for _, idxs in sorted(size_buckets(counts).items()):
+        if len(idxs) == 1:
+            i = idxs[0]
+            out[i] = merge_topics(stats_list[i], weights_list[i],
+                                  bias=bias, base=base)
+            launches += 1
+            continue
+        widest = max(counts[i] for i in idxs)
+        rows, weights = [], []
+        for i in idxs:
+            pad = widest - counts[i]
+            stack, w = stats_list[i], weights_list[i].to(torch.float32)
+            if pad:
+                # zero-weight rows: 0·(0 − base) contributes nothing
+                stack = torch.cat([stack, stack.new_zeros(
+                    (pad,) + tuple(stack.shape[1:]))])
+                w = torch.cat([w, w.new_zeros(pad)])
+                pad_rows += pad
+            rows.append(stack)
+            weights.append(w)
+        merged = merge_topics_batch(torch.stack(rows), torch.stack(weights),
+                                    bias=bias, base=base)
+        launches += 1
+        for row, i in enumerate(idxs):
+            out[i] = merged[row]
+    return out, pad_rows, launches
 
 
 def merge_vb_stats(lams: torch.Tensor, weights: torch.Tensor,

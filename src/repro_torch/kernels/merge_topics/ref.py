@@ -23,6 +23,15 @@ def merge_topics_ref(stats: torch.Tensor, weights: torch.Tensor,
     return bias + (w * (stats.to(torch.float32) - base)).sum(0)
 
 
+def merge_topics_batched_ref(stats: torch.Tensor, weights: torch.Tensor,
+                             bias: float = 0.0, base: float = 0.0
+                             ) -> torch.Tensor:
+    """b independent merges: stats (b, n, K, V), weights (b, n) ->
+    (b, K, V) float32."""
+    w = weights.to(torch.float32)[:, :, None, None]
+    return bias + (w * (stats.to(torch.float32) - base)).sum(1)
+
+
 def merge_topics_segments_ref(stats: torch.Tensor, weights: torch.Tensor,
                               counts: Sequence[int], bias: float = 0.0,
                               base: float = 0.0) -> torch.Tensor:

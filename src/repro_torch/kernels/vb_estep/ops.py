@@ -22,7 +22,6 @@ launches: two per call (iterations, then sstats).
 """
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
@@ -33,7 +32,6 @@ from repro_torch.kernels.vb_estep.ref import vb_estep_ref
 MAX_TOPICS = 256        # largest K the kernel's template instances take
 
 launches = 0
-_count_lock = threading.Lock()
 
 
 def vb_estep(x: torch.Tensor, exp_elog_beta: torch.Tensor,
@@ -44,7 +42,6 @@ def vb_estep(x: torch.Tensor, exp_elog_beta: torch.Tensor,
     x (D, V), exp_elog_beta (K, V), gamma0 (D, K), all float32 on one
     device -> (gamma (D, K), sstats (K, V)).
     """
-    global launches
     d, v = x.shape
     k = exp_elog_beta.shape[0]
     if exp_elog_beta.shape != (k, v) or gamma0.shape != (d, k):
@@ -60,7 +57,7 @@ def vb_estep(x: torch.Tensor, exp_elog_beta: torch.Tensor,
     dev = x.device
     for name, t in (("x", x), ("exp_elog_beta", exp_elog_beta),
                     ("gamma0", gamma0)):
-        common.require_cuda_f32(name, t, dev)
+        common.require_cuda(name, t, dev)
     if not 1 <= k <= MAX_TOPICS or d < 1 or v < 1 or n_iters < 0:
         raise ValueError(f"vb_estep kernel takes 1 <= K <= {MAX_TOPICS}, "
                          f"D, V >= 1 and n_iters >= 0; got K={k}, D={d}, "
@@ -79,6 +76,5 @@ def vb_estep(x: torch.Tensor, exp_elog_beta: torch.Tensor,
         x.data_ptr(), exp_elog_beta.data_ptr(), ee_theta.data_ptr(),
         sstats.data_ptr(), d, k, v, stream)
     common.check_launch(status, "vb_estep (sstats)")
-    with _count_lock:
-        launches += 2
+    common.count_launch(globals(), "launches", 2)
     return gamma, sstats

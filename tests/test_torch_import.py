@@ -57,7 +57,7 @@ def test_port_mirrors_the_jax_package_layout():
                 "api"):
         assert (PORT / sub / "__init__.py").is_file()
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["merge_topics.cu", "vb_estep.cu"]
+        == ["gibbs_sweep.cu", "merge_topics.cu", "vb_estep.cu"]
 
 
 def test_every_c_entry_point_has_a_declared_signature():

@@ -70,6 +70,58 @@ def test_ragged_matches_jax(counts, k, v, bias, base):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("b,n,k,v", [(1, 1, 16, 64), (3, 4, 100, 300),
+                                     (4, 8, 12, 128), (2, 3, 6, 150)])
+def test_merge_topics_batch_matches_jax(b, n, k, v):
+    st = RNG.gamma(1.0, 1.0, (b, n, k, v)).astype(np.float32)
+    w = RNG.uniform(0.2, 2.0, (b, n)).astype(np.float32)
+    w[0, -1] = 0.0                                    # a zero-weight pad row
+    got = ops.merge_topics_batch(torch.from_numpy(st), torch.from_numpy(w),
+                                 bias=0.05, base=0.05)
+    assert got.shape == (b, k, v) and got.dtype == torch.float32
+    pallas = jax_ops.merge_topics_batch(jnp.asarray(st), jnp.asarray(w),
+                                        bias=0.05, base=0.05, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    for i in range(b):
+        ref = merge_topics_ref(jnp.asarray(st[i]), jnp.asarray(w[i]),
+                               0.05, 0.05)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(ref), **TOL)
+
+
+def test_merge_topics_batch_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="b, n, K, V"):
+        ops.merge_topics_batch(torch.zeros((2, 3, 4)), torch.ones((2, 3)))
+    with pytest.raises(ValueError, match="weights"):
+        ops.merge_topics_batch(torch.zeros((2, 3, 4, 5)), torch.ones(6))
+
+
+@pytest.mark.parametrize("counts", [
+    [1],                  # one plan: the unbatched merge
+    [1, 1, 1],            # one bucket, no padding
+    [3, 3, 3],
+    [5, 4, 3, 2, 1],      # buckets 1, 2, 4 and 8, padded within each
+    [1, 1, 1, 16],        # single wide outlier in a bucket of its own
+    [2, 3, 9, 4],
+])
+@pytest.mark.parametrize("bias,base", [(0.05, 0.05), (0.0, 0.0)])
+def test_bucketed_matches_jax(counts, bias, base):
+    stats, weights = _batch(counts, 6, 150)
+    out, pad_rows, launches = ops.merge_topics_bucketed(
+        [torch.from_numpy(s) for s in stats],
+        [torch.from_numpy(w) for w in weights], bias=bias, base=base)
+    jax_out, jax_pad, jax_launches = jax_ops.merge_topics_bucketed(
+        [jnp.asarray(s) for s in stats], [jnp.asarray(w) for w in weights],
+        bias=bias, base=base, interpret=True)
+    assert (pad_rows, launches) == (jax_pad, jax_launches)
+    ragged, _, _ = ops.merge_topics_ragged(
+        [torch.from_numpy(s) for s in stats],
+        [torch.from_numpy(w) for w in weights], bias=bias, base=base)
+    assert len(out) == len(counts)
+    for got, want, seg in zip(out, jax_out, ragged):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.numpy(), seg.numpy(), **TOL)
+
+
 def test_segment_ids_match_jax():
     counts = [2, 1, 3]
     got = ops.segment_ids(counts)
@@ -123,9 +175,11 @@ def test_merge_gs_stats_matches_host_alg2():
 
 
 def test_cpu_tensors_never_count_a_kernel_launch():
-    before = (ops.merge_topics_launches, ops.merge_topics_ragged_launches)
+    before = (ops.merge_topics_launches, ops.merge_topics_ragged_launches,
+              ops.merge_topics_batch_launches)
     st = torch.ones((2, 3, 4))
     ops.merge_topics(st, torch.ones(2))
     ops.merge_topics_ragged([st, st], [torch.ones(2), torch.ones(2)])
-    assert (ops.merge_topics_launches,
-            ops.merge_topics_ragged_launches) == before
+    ops.merge_topics_bucketed([st, st], [torch.ones(2), torch.ones(2)])
+    assert (ops.merge_topics_launches, ops.merge_topics_ragged_launches,
+            ops.merge_topics_batch_launches) == before

@@ -202,10 +202,50 @@ def test_cuda_device_raises_without_a_card(corpora):
 
 
 def test_unported_kinds_and_backends_raise(corpora):
+    assert tapi.resolve_kind("gibbs") == tapi.resolve_kind("gs") == "gs"
+    assert set(tapi.available_trainers()) >= {"vb", "gs"}
     with pytest.raises(ValueError, match="unknown model kind"):
-        tapi.resolve_kind("gs")
+        tapi.resolve_kind("lsa")
     with pytest.raises(ValueError, match="not ported"):
         tapi.make_backend("device_sharded")
+
+
+@pytest.fixture(scope="module")
+def gs_store_dir(tmp_path_factory):
+    """Synthetic ΔN_kv counts tiling EDGES, saved once by the JAX package;
+    one model carries the legacy "gibbs" tag."""
+    rng = np.random.default_rng(8)
+    store = JaxStore()
+    for i, (lo, hi) in enumerate(zip(EDGES, EDGES[1:])):
+        theta = {"delta_nkv": rng.poisson(3.0, (6, 150)).astype(np.float32)}
+        store.add(japi.Interval(lo, hi), 50, 500, "gibbs" if i == 1 else "gs",
+                  theta)
+    path = tmp_path_factory.mktemp("shared_gs_store")
+    store.save(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_gs_store_from_jax_gives_equal_gap_free_beta(corpora, gs_store_dir,
+                                                     backend):
+    js = japi.MLegoSession(corpora[0][0], JCFG, kind="gs",
+                           store=JaxStore.load(gs_store_dir),
+                           backend=backend, seed=0)
+    ts = tapi.MLegoSession(corpora[1][0], CFG, kind="gibbs",
+                           store=ModelStore.load(gs_store_dir),
+                           backend=backend, seed=0, device="cpu")
+    for sigma in ([(0.0, 300.0)], [(0.0, 100.0), (200.0, 300.0)],
+                  [(100.0, 300.0)]):
+        rj = js.submit(_spec(japi, sigma, 1.0, "persist"))
+        rt = ts.submit(_spec(tapi, sigma, 1.0, "persist"))
+        assert rj.n_trained_tokens == rt.n_trained_tokens == 0
+        assert rt.model_ids == rj.model_ids and rt.backend == backend
+        np.testing.assert_allclose(rt.beta, rj.beta, **TOL)
+    specs = [[(0.0, 300.0)], [(100.0, 300.0)], [(0.0, 200.0)]]
+    bj = js.submit_many([_spec(japi, s, 0.0, "persist") for s in specs])
+    bt = ts.submit_many([_spec(tapi, s, 0.0, "persist") for s in specs])
+    for rj, rt in zip(bj, bt):
+        np.testing.assert_allclose(rt.beta, rj.beta, **TOL)
 
 
 def test_kernel_error_fails_the_query(corpora, store_dir, monkeypatch):
