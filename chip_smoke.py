@@ -33,10 +33,20 @@ Phases, each of which fails the run if anything in it fails:
    a covered ``submit`` and a ``submit_many`` merge, and a ``"host"`` gap
    query and a replay on ``"host"`` after an injected device loss train
    with the exact-scan kernel; the same checks as phase 3, and the
-   covered β must fit the corpus better than uniform topics.
+   covered β must fit the corpus better than uniform topics;
+6. serve — the LM serving path at qwen3-1.7b's full width (28 layers,
+   d_model 2,048, 16 query and 8 KV heads of 128, vocab 152,064 padded,
+   bf16, random weights from ``torch.Generator`` seed 0): one batch of 4
+   prompts of 2,048 tokens (``make_batch``) through
+   ``repro_torch.launch.serve.generate`` with a 2,112-position cache and
+   64 greedy decode steps; exactly 28 flash launches for the prefill and
+   28 decode launches per step, finite logits, tokens in the padded
+   vocabulary, and, with the same weights in float32, decode_step after a
+   2,048-token prefill must equal a 2,049-token prefill at 2e-3.
 
 The launch counts reported for a kernel are those of the paths that run
-it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path),
+it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
+phase 6 for the serve path),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -59,12 +69,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and
-# fp32 (non-tensor-core) flop/s — the denominators of every bound below
+# fp32 (non-tensor-core) flop/s — the denominators of every bound below —
+# and the dense bf16 tensor-core rate, the bound of attention (a
+# tensor-core kernel could do its work, whatever the port's kernel uses)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 
 MERGE_TOL = 1e-5
 ESTEP_TOL = 2e-4
+SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4, 2048, 2112, 64
+CONSISTENCY_TOL = 2e-3
 TRAIN_BUDGET_S = 300.0     # seconds the main path may spend in VB training
 N_WINDOWS = 32
 GS_TRAIN_BUDGET_S = 120.0  # seconds the gs path may spend in train_range
@@ -84,9 +99,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -120,6 +135,10 @@ def main() -> int:
         merge_topics_batched_ref, merge_topics_ref, merge_topics_segments_ref)
     from repro_torch.kernels.vb_estep import ops as estep_ops
     from repro_torch.kernels.vb_estep.ref import vb_estep_ref
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     card = card_line()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -412,6 +431,93 @@ def main() -> int:
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
 
+    # flash_attention: the serve path's prefill shape (qwen3-1.7b heads,
+    # causal) in bf16 and again in f32, then an edge (ragged S, window,
+    # f32).  Tolerances are the JAX kernel tests': 2e-2 in bf16, 1e-5 in
+    # f32; the f32 case at the served shape is the one that would see a
+    # skipped or doubled KV tile among 32.
+    import torch.nn.functional as F
+    attn_tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    errs = []
+    for b, s, h, kvh, hd, window, dt in [
+            (SERVE_B, SERVE_PROMPT, 16, 8, 128, 0, torch.bfloat16),
+            (SERVE_B, SERVE_PROMPT, 16, 8, 128, 0, torch.float32),
+            (1, 200, 4, 2, 128, 50, torch.float32)]:
+        q, k, v = (torch.tensor(rng.normal(size=(b, s, n, hd)),
+                                dtype=torch.float32, device=dev).to(dt)
+                   for n in (h, kvh, kvh))
+        got = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_ref(q, k, v, causal=True, window=window)
+        errs.append(close(got.float(), want.float(), attn_tol[dt]))
+        log(f"[kernels] flash_attention B={b} S={s} H={h} KVH={kvh} hd={hd} "
+            f"window={window} {dt}: max abs err {errs[-1]:.3g} "
+            f"(tol {attn_tol[dt]})")
+        del want
+        if s == SERVE_PROMPT and dt == torch.bfloat16:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            ms = time_ms(lambda: flash_ops.flash_attention(q, k, v), 10)
+            plain = time_ms(lambda: flash_attention_ref(q, k, v), 3)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            # bytes: q, k, v read once, out written once; operations: the
+            # causal pairs this call has, 4·hd flops each (QK and PV),
+            # against the bf16 tensor-core peak
+            n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+            n_ops = 4 * hd * b * h * s * (s + 1) / 2
+            b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+            log(f"[kernels] flash_attention: {n_ops / 1e9:.2f} GFLOP, "
+                f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    report["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
+
+    # decode_attention: the serve path's decode shape at pos 2,100 of a
+    # 2,112-position cache in bf16 and again in f32 (17 splits, so f32 at
+    # 1e-5 holds the split-K combine), then windows (f32): at pos 0 (one
+    # live key) and at pos 300 (64 keys across two splits)
+    errs = []
+    for b, s, h, kvh, hd, pos, window, dt in [
+            (SERVE_B, SERVE_CACHE, 16, 8, 128, 2100, 0, torch.bfloat16),
+            (SERVE_B, SERVE_CACHE, 16, 8, 128, 2100, 0, torch.float32),
+            (1, 512, 4, 2, 128, 0, 64, torch.float32),
+            (1, 512, 4, 2, 128, 300, 64, torch.float32)]:
+        q = torch.tensor(rng.normal(size=(b, 1, h, hd)), dtype=torch.float32,
+                         device=dev).to(dt)
+        kc, vc = (torch.tensor(rng.normal(size=(b, s, kvh, hd)),
+                               dtype=torch.float32, device=dev).to(dt)
+                  for _ in range(2))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        got = decode_ops.decode_attention(q, kc, vc, p, window=window)
+        want = decode_attention_ref(q, kc, vc, pos, window=window)
+        errs.append(close(got.float(), want.float(), attn_tol[dt]))
+        log(f"[kernels] decode_attention B={b} S={s} H={h} KVH={kvh} "
+            f"hd={hd} pos={pos} window={window} {dt}: max abs err "
+            f"{errs[-1]:.3g} (tol {attn_tol[dt]})")
+        if pos == 2100 and dt == torch.bfloat16:
+            qt = q.transpose(1, 2)
+            kt, vt = (x[:, :pos + 1].transpose(1, 2) for x in (kc, vc))
+            ms = time_ms(lambda: decode_ops.decode_attention(q, kc, vc, p),
+                         20)
+            plain = time_ms(lambda: decode_attention_ref(q, kc, vc, pos), 20)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True), 20)
+            # bytes: the pos + 1 live cache rows of k and v, q, out;
+            # operations: 4·hd flops per (head, live key)
+            n_bytes = 2 * (2 * b * (pos + 1) * kvh * hd + 2 * b * h * hd)
+            n_ops = 4 * hd * b * h * (pos + 1)
+            b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+            log(f"[kernels] decode_attention: {n_bytes / 1e6:.1f} MB, "
+                f"{n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+    report["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:71",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
+
     for rep in report.values():
         log(f"[kernels] {rep['name']}: kernel {rep['ms']:.4f} ms, plain "
             f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']} ms, "
@@ -695,6 +801,90 @@ def main() -> int:
         f"{lpp_flat:.4f}")
     if not lpp > lpp_flat:
         raise AssertionError("merged gs topics fit no better than uniform")
+
+    # -- 6. the LM serving path at qwen3-1.7b full width ---------------------
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    lcfg = get_arch("qwen3-1.7b")
+    model = build_model(lcfg)
+    t0 = time.perf_counter()
+    masters = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.cast_params(masters)
+    torch.cuda.synchronize()
+    log(f"[serve] {lcfg.name}: {model.param_count(params) / 1e9:.3f} B "
+        f"parameters ({lcfg.n_layers} layers, d_model {lcfg.d_model}, "
+        f"{lcfg.n_heads}/{lcfg.n_kv_heads} heads of {lcfg.hd}, vocab "
+        f"{lcfg.padded_vocab}), {lcfg.dtype}; init + cast "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = make_batch(lcfg, SERVE_B, SERVE_PROMPT, 0, 0)
+    batch.pop("labels")
+    # a short warm-up through the same entry point (cuBLAS heuristics,
+    # allocator), not counted
+    generate(model, params, batch, steps=2, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention_launches = 0
+    decode_ops.decode_attention_launches = 0
+    stats = {}
+    toks = generate(model, params, batch, steps=SERVE_STEPS,
+                    cache_len=SERVE_CACHE, stats=stats)
+    s_launches = {"flash_attention": flash_ops.flash_attention_launches,
+                  "decode_attention": decode_ops.decode_attention_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_gen = SERVE_B * SERVE_STEPS
+    log(f"[serve] generate B={SERVE_B} prompt={SERVE_PROMPT} "
+        f"cache_len={SERVE_CACHE} steps={SERVE_STEPS}: prefill "
+        f"{stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s = "
+        f"{stats['decode_s'] / SERVE_STEPS * 1e3:.3f} ms per step, "
+        f"{n_gen / stats['decode_s']:.1f} generated tokens/s in decode, "
+        f"{n_gen / (stats['prefill_s'] + stats['decode_s']):.1f} "
+        f"end to end; peak memory allocated {peak_gb:.2f} GB")
+    log(f"[serve] kernel launches on the serve path: {s_launches}")
+    if s_launches["flash_attention"] != lcfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernel "
+                             f"{s_launches['flash_attention']} times, "
+                             f"expected {lcfg.n_layers}")
+    if s_launches["decode_attention"] != lcfg.n_layers * SERVE_STEPS:
+        raise AssertionError(f"decode launched the decode kernel "
+                             f"{s_launches['decode_attention']} times, "
+                             f"expected {lcfg.n_layers * SERVE_STEPS}")
+    if not stats["logits_finite"]:
+        raise AssertionError("serve logits are not finite")
+    if toks.shape != (SERVE_B, SERVE_STEPS) or int(toks.min()) < 0 or \
+            int(toks.max()) >= lcfg.padded_vocab:
+        raise AssertionError(f"generated tokens {tuple(toks.shape)} outside "
+                             f"[0, {lcfg.padded_vocab})")
+    log(f"[serve] sample: {toks[0, :16].tolist()}")
+    for kname, count in s_launches.items():
+        report[kname]["launches_by_path"] = {"serve": count}
+        report[kname]["launches"] = count
+    del params, batch, toks
+    torch.cuda.empty_cache()
+
+    # the same weights in float32: decode_step after the served 2,048-token
+    # prefill must give the logits of a 2,049-token prefill (the JAX
+    # package's consistency check, tests/test_arch_smoke.py, at its 2e-3)
+    model32 = build_model(dataclasses.replace(lcfg, dtype="float32"))
+    p32 = model32.cast_params(masters)
+    t = make_batch(lcfg, 2, SERVE_PROMPT + 1, 0, 1, device=dev)["tokens"]
+    with torch.inference_mode():
+        _, caches = model32.prefill(p32, {"tokens": t[:, :SERVE_PROMPT]},
+                                    cache_len=SERVE_CACHE)
+        lg_dec, _ = model32.decode_step(p32, caches, t[:, SERVE_PROMPT:],
+                                        SERVE_PROMPT)
+        lg_full, _ = model32.prefill(p32, {"tokens": t})
+    diff = float((lg_dec - lg_full).abs().max())
+    scale = float(lg_full.abs().max())
+    if not torch.allclose(lg_dec, lg_full, rtol=CONSISTENCY_TOL,
+                          atol=CONSISTENCY_TOL):
+        raise AssertionError(f"float32 decode_step differs from prefill by "
+                             f"{diff} (tol {CONSISTENCY_TOL})")
+    log(f"[serve] float32 full width: decode_step(prefill({SERVE_PROMPT}))"
+        f" vs prefill({SERVE_PROMPT + 1}) max abs diff {diff:.3g} over logits up to "
+        f"{scale:.3g} (tol {CONSISTENCY_TOL})")
+    del masters, p32, caches
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)

@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -58,6 +58,15 @@ _SIGNATURES = {
     # tokens, doc_ids, u, z, nkd, nkv_t, nk, g_t, gk, T, K, alpha, beta,
     # vbeta, stream
     "mlego_gibbs_sweep_exact": (_P,) * 9 + (_I, _I, _F, _F, _F, _P),
+    # q, k, v, out, dtype, B, S, H, KVH, hd, 9 strides of q/k/v (b, s,
+    # head), causal, window, scale, stream
+    "mlego_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 9
+    + (_I, _I, _F, _P),
+    # q, k_cache, v_cache, pos, out, part_acc, part_ml, dtype, B, S, H,
+    # KVH, hd, 8 strides (q: b, head; k, v: b, s, head), window, scale,
+    # n_split, chunk, stream
+    "mlego_decode_attention": (_P,) * 7 + (_I,) * 6 + (_LL,) * 8
+    + (_I, _F, _I, _I, _P),
 }
 
 
@@ -226,12 +235,18 @@ def same_device(**tensors: torch.Tensor) -> torch.device:
 
 
 def require_cuda(name: str, t: torch.Tensor, device: torch.device,
-                 dtype: torch.dtype = torch.float32) -> None:
-    """Checks the kernels rely on: CUDA, the dtype, contiguous, one
-    device."""
+                 dtype: Union[torch.dtype, Tuple[torch.dtype, ...]]
+                 = torch.float32, contiguous: bool = True) -> None:
+    """Checks the kernels rely on: CUDA, one of the dtypes the kernel
+    takes, one device, and either a contiguous tensor or (for kernels
+    that read through strides, ``contiguous=False``) a contiguous last
+    dimension."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if not contiguous and t.dim() and t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dimension")

@@ -1,0 +1,74 @@
+"""Public wrapper of the prefill attention kernel
+(``csrc/flash_attention.cu``).
+
+Source note.  ``flash_attention`` replaces the Pallas kernel
+``flash_attention_pallas`` (``src/repro/kernels/flash_attention/
+flash_attention.py:85``).  It is bound by operations: at the serve
+path's shape (B = 4, S = 2,048, 16 query and 8 KV heads of 128, causal)
+a call does ~69 GFLOP against ~8 MB of inputs and output.  The kernel
+gives one CTA to each (q tile, KV head, batch) and holds the G query
+heads of a KV head as extra rows, so each K/V tile is read once per
+group; the TPU's sequential KV grid axis becomes a loop inside the CTA
+with the online softmax in f32 registers; tiles above the causal
+diagonal and below the window band are skipped.  It reads q, k and v
+through their strides in the model's (B, S, heads, hd) layout, so the
+Pallas wrapper's transpose copies are gone.  This first kernel runs the
+products on CUDA cores in fp32 (no tensor cores yet).
+
+A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
+tensor goes to the kernel or raises.  ``flash_attention_launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
+MAX_GROUP = 64                       # query heads per KV head in one CTA
+
+flash_attention_launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> (B, S, H, hd) in q's
+    dtype (float32 or bfloat16), computed in float32.  Query i attends to
+    key j when j <= i (``causal``) and i - j < ``window`` (``window`` >
+    0)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KVH, hd);"
+                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd \
+            or h % kvh != 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    dev = common.same_device(q=q, k=k, v=v)
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        common.require_cuda(name, t, dev, DTYPES, contiguous=False)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v must share a dtype: {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS or h // kvh > MAX_GROUP:
+        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS} "
+                         f"and at most {MAX_GROUP} query heads per KV head;"
+                         f" got hd={hd}, H={h}, KVH={kvh}")
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
+    lib = common.load_library()
+    status = lib.mlego_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if q.dtype == torch.float32 else 1, b, s, h, kvh, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(bool(causal)), int(window), float(hd ** -0.5),
+        common.stream_of(q))
+    common.check_launch(status, "flash_attention")
+    common.count_launch(globals(), "flash_attention_launches")
+    return out

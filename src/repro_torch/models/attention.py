@@ -1,0 +1,97 @@
+"""Attention of the dense stack, single-device forms.
+
+The port of ``src/repro/models/attention.py``'s one-device paths:
+
+  * ``flash_attention_local`` — prefill (``ring_attention`` on one
+    device, ``attention.py:143``), through the flash kernel
+    (``kernels/flash_attention``);
+  * ``decode_attention`` — one new token: the cache write at ``pos``,
+    then split-K flash over the cache through the decode kernel
+    (``kernels/decode_attention``);
+  * ``window_decode_attention`` — the rolling-window decode, plain torch
+    as in JAX.
+
+The ring over ranks of ``ring_attention`` and ``cross_attention`` wait
+for the sharded item of ROADMAP.md.
+
+Numerics follow the Pallas kernels, not the jnp stand-in that the JAX
+model runs on a CPU host: q is scaled in float32 inside the kernel, and
+the probabilities stay float32 through the P·V product (JAX's
+``_flash_block`` casts p to the value dtype first, ``attention.py:112``).
+In float32 the two agree to rounding; in bf16 the port is the more exact.
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+NEG_INF = -1e30
+
+
+def flash_attention_local(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KVH, hd), at positions 0..S-1 ->
+    (B, S, H, hd)."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, pos: Union[int, torch.Tensor], *,
+                     window: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a (B, S, KVH, hd) cache.
+
+    Writes k_new/v_new (B, 1, KVH, hd) at ``pos`` IN PLACE — where JAX
+    returns updated copies — and writes nothing when ``pos`` lies outside
+    the cache (JAX's ``owned`` is false there), then attends to the
+    positions kpos <= pos.  ``pos`` is an int or a 0-d int32 tensor on the
+    caches' device; the write and the kernel read it there, with no host
+    round trip.  Returns (out (B, 1, H, hd), k_cache, v_cache).
+    """
+    s = k_cache.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_cache.device)
+    idx = pos.clamp(0, s - 1).reshape(1).long()
+    owned = (pos >= 0) & (pos < s)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache.index_copy_(1, idx, torch.where(
+            owned, new.to(cache.dtype), cache.index_select(1, idx)))
+    out = decode_ops.decode_attention(q, k_cache, v_cache, pos,
+                                      window=window)
+    return out, k_cache, v_cache
+
+
+def window_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, kpos: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor,
+                            pos: Union[int, torch.Tensor], *, window: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """One-token decode against a rolling window cache (plain torch).
+
+    q: (B, 1, H, hd); k/v_cache: (B, W, KVH, hd); kpos: (W,) int32 global
+    positions of the cached entries (-1 = empty).  Writes the new KV at
+    slot ``pos % W`` (in place) and attends to entries with
+    pos - window < kpos <= pos.  Returns (out, k_cache, v_cache, kpos).
+    """
+    w = k_cache.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_cache.device)
+    slot = (pos % w).reshape(1).long()
+    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
+    kpos.index_copy_(0, slot, pos.reshape(1).to(kpos.dtype))
+    b, _, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd) * (hd ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k_cache.float())
+    valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
+    s = torch.where(valid[None, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return (out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache, kpos)

@@ -20,6 +20,12 @@ from repro_torch.kernels.merge_topics.ref import (  # noqa: E402
     merge_topics_batched_ref, merge_topics_ref, merge_topics_segments_ref)
 from repro_torch.kernels.vb_estep import ops as estep_ops  # noqa: E402
 from repro_torch.kernels.vb_estep.ref import vb_estep_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +274,154 @@ def test_gibbs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         gibbs_ops.gibbs_sweep(*big, 0.5)
     with pytest.raises(ValueError):
         gibbs_ops.gibbs_sweep(*args[:4], args[4].cpu(), *args[5:], 0.5)
+
+
+# ---------------------------------------------------------------------------
+# attention (the LM serving path)
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _n(shape, dev, dtype):
+    return torch.tensor(RNG.normal(size=shape), dtype=torch.float32,
+                        device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window", [
+    (1, 200, 4, 2, 128, True, 0),     # qwen3's head shape, S % 64 != 0
+    (2, 130, 4, 4, 64, True, 0),      # G = 1, hd 64
+    (1, 96, 10, 2, 64, True, 0),      # G = 5
+    (1, 200, 4, 2, 128, True, 50),    # window
+    (2, 70, 4, 2, 32, False, 0),      # bidirectional
+    (1, 128, 2, 1, 16, True, 0),      # the reduced configs' hd
+    (1, 200, 8, 1, 256, True, 0),     # gemma-2b's heads: G = 8, hd 256
+    (1, 150, 15, 5, 64, True, 0),     # smollm-360m's heads: G = 3
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
+                                              causal, window):
+    q = _n((b, s, h, hd), cuda, dtype)
+    k = _n((b, s, kvh, hd), cuda, dtype)
+    v = _n((b, s, kvh, hd), cuda, dtype)
+    before = flash_ops.flash_attention_launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q, k, v as views into one fused (B, S, H + 2 KVH, hd) projection."""
+    b, s, h, kvh, hd = 2, 150, 4, 2, 128
+    qkv = _n((b, s, h + 2 * kvh, hd), cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    assert not q.is_contiguous()
+    got = flash_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                               v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,pos,window", [
+    (2, 256, 4, 2, 128, 0, 0),        # first token
+    (2, 256, 4, 2, 128, 255, 0),      # full cache (pos = S - 1)
+    (1, 300, 10, 2, 64, 150, 0),      # G = 5, S not a multiple of a split
+    (2, 200, 4, 4, 64, 199, 0),       # G = 1
+    (1, 512, 4, 2, 128, 300, 64),     # window
+    (1, 512, 4, 2, 128, 0, 64),       # window at pos 0
+    (4, 2112, 16, 8, 128, 2100, 0),   # the serve path's shape
+    (2, 300, 8, 1, 256, 299, 0),      # gemma-2b's heads: G * hd = 2,048
+    (1, 300, 15, 5, 64, 250, 0),      # smollm-360m's heads: G = 3
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh,
+                                               hd, pos, window):
+    q = _n((b, 1, h, hd), cuda, dtype)
+    kc = _n((b, s, kvh, hd), cuda, dtype)
+    vc = _n((b, s, kvh, hd), cuda, dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = decode_ops.decode_attention_launches
+    got = decode_ops.decode_attention(q, kc, vc, p, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention_launches == before + 1
+    want = decode_attention_ref(q, kc, vc, pos, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_attention_kernel_is_bitwise_repeatable(cuda):
+    b, s, h, kvh, hd = 4, 2112, 16, 8, 128
+    q = _n((b, 1, h, hd), cuda, torch.bfloat16)
+    kc = _n((b, s, kvh, hd), cuda, torch.bfloat16)
+    vc = _n((b, s, kvh, hd), cuda, torch.bfloat16)
+    p = torch.tensor(2100, dtype=torch.int32, device=cuda)
+    first = decode_ops.decode_attention(q, kc, vc, p)
+    for _ in range(5):
+        assert torch.equal(decode_ops.decode_attention(q, kc, vc, p), first)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.ones((1, 8, 2, 96), device=cuda)          # hd 96
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.ones((1, 8, 2, 64), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.ones((1, 1, 2, 64), device=cuda)
+    kc = torch.ones((1, 8, 1, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        decode_ops.decode_attention(q, kc, kc, 3)
+    with pytest.raises(ValueError):                       # pos on the host
+        decode_ops.decode_attention(q, kc.float(), kc.float(),
+                                    torch.tensor(3, dtype=torch.int32))
+
+
+def test_serve_path_launches_the_kernels_and_matches_the_cpu(cuda):
+    """A reduced float32 qwen3 on the card: 1 flash launch per layer per
+    prefill, 1 decode launch per layer per step, the logits of the CPU
+    path (plain attention) at 1e-4, and a decode position outside the
+    cache writes nothing."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = get_arch("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    to_cpu = _tree_to(params, "cpu")
+    toks = torch.tensor(RNG.integers(0, cfg.vocab_size, (2, 21)),
+                        dtype=torch.int32)
+    f0 = flash_ops.flash_attention_launches
+    lg, caches = model.prefill(params, {"tokens": toks[:, :20].to(cuda)},
+                               cache_len=24)
+    assert flash_ops.flash_attention_launches == f0 + cfg.n_layers
+    lg_c, caches_c = model.prefill(to_cpu, {"tokens": toks[:, :20]},
+                                   cache_len=24)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    d0 = decode_ops.decode_attention_launches
+    lg, caches = model.decode_step(params, caches, toks[:, 20:].to(cuda),
+                                   torch.tensor(20, dtype=torch.int32,
+                                                device=cuda))
+    assert decode_ops.decode_attention_launches == d0 + cfg.n_layers
+    lg_c, caches_c = model.decode_step(to_cpu, caches_c, toks[:, 20:], 20)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    before = [c["k"].clone() for c in caches]
+    model.decode_step(params, caches, toks[:, 20:].to(cuda), 24)
+    assert all(torch.equal(a, c["k"]) for a, c in zip(before, caches))
+    out = generate(model, params, {"tokens": toks[:, :20]}, steps=4,
+                   cache_len=24)
+    out_c = generate(model, to_cpu, {"tokens": toks[:, :20]}, steps=4,
+                     cache_len=24)
+    assert torch.equal(out.cpu(), out_c)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

@@ -22,6 +22,10 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch, repro_torch.api, repro_torch.core.vb\n"
         "import repro_torch.kernels.merge_topics.ops\n"
         "import repro_torch.kernels.vb_estep.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.launch.serve, repro_torch.data.lm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'triton')\n"
@@ -54,10 +58,11 @@ def test_no_module_imports_jax_or_repro(path):
 
 def test_port_mirrors_the_jax_package_layout():
     for sub in ("configs", "core", "data", "obs", "testing", "kernels",
-                "api"):
+                "api", "models", "launch"):
         assert (PORT / sub / "__init__.py").is_file()
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["gibbs_sweep.cu", "merge_topics.cu", "vb_estep.cu"]
+        == ["decode_attention.cu", "flash_attention.cu", "gibbs_sweep.cu",
+            "merge_topics.cu", "vb_estep.cu"]
 
 
 def test_every_c_entry_point_has_a_declared_signature():
