@@ -9,14 +9,15 @@ Phases, each of which fails the run if anything in it fails:
 
 1. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (first use builds them; the build time is printed);
-2. kernels — call every kernel of the query paths on the card at the main
+2. kernels — call every kernel of the paths on the card at the main
    paths' shapes and at edge shapes, hold each against its plain PyTorch
    version at the stated tolerance, and time the kernel, the plain
    version and (where one exists) a single PyTorch call computing the
    same function, beside the least time the card could take.  The Gibbs
    samplers' plain versions add the conditional in the kernels' warp-scan
    order, so every draw and count must be equal, and the counts must be
-   conserved;
+   conserved.  The sLSTM scan must give the same bits on five calls, and
+   its latency floor (the kernel's step with almost no work) is printed;
 3. main path — at the default ``LDAConfig`` widths (K = 100, V = 8192)
    build 32 window models with ``train_range`` on the ``"device"``
    backend, answer a covered ``submit`` (merge only), a ``submit`` with
@@ -42,11 +43,19 @@ Phases, each of which fails the run if anything in it fails:
    64 greedy decode steps; exactly 28 flash launches for the prefill and
    28 decode launches per step, finite logits, tokens in the padded
    vocabulary, and, with the same weights in float32, decode_step after a
-   2,048-token prefill must equal a 2,049-token prefill at 2e-3.
+   2,048-token prefill must equal a 2,049-token prefill at 2e-3;
+7. xlstm — the xLSTM serving path at xlstm-1.3b's full width (48 layers:
+   42 mLSTM and 6 sLSTM, d_model 2,048, 4 heads of 512, vocab 50,304
+   padded, tied embeddings, bf16, random weights from ``torch.Generator``
+   seed 0): the same batch shape through ``generate`` with 64 greedy
+   steps; exactly 6 sLSTM kernel launches for the prefill and 6 per
+   step, finite logits, tokens in the padded vocabulary, peak memory
+   allocated at most 10 GB, and, in float32, decode_step after a
+   256-token prefill must equal a 257-token prefill at 2e-3.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
-phase 6 for the serve path),
+phase 6 for the serve path, phase 7 for the ``"xlstm"`` path),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -79,6 +88,9 @@ PEAK_BF16_TC_FLOPS = 989e12
 MERGE_TOL = 1e-5
 ESTEP_TOL = 2e-4
 SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4, 2048, 2112, 64
+XL_B, XL_S, XL_H, XL_HD = 4, 2048, 4, 512   # the xLSTM path's sLSTM shape
+XL_CHECK_PROMPT = 256      # prompt of the xLSTM float32 consistency check
+XL_PEAK_GB = 10.0          # peak memory the xLSTM serve path may allocate
 CONSISTENCY_TOL = 2e-3
 TRAIN_BUDGET_S = 300.0     # seconds the main path may spend in VB training
 N_WINDOWS = 32
@@ -139,6 +151,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref, zero_state
 
     card = card_line()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -518,6 +532,96 @@ def main() -> int:
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib)
 
+    # slstm_scan: the JAX kernel tests' shapes (f32 R, 1e-5), an odd shape
+    # and a decode step (S = 1) from a nonzero state (1e-5), then the
+    # served shape (xlstm-1.3b: B = 4, S = 2,048, H = 4, hd = 512) with the
+    # model's bf16 R and with an f32 R (1e-4: 2,048 dependent steps), and
+    # in the model's own dtypes (bf16 xpre and R; h comes back in bf16 and
+    # is held to one bf16 rounding, 2^-7, the final state to 1e-4)
+    def slstm_inputs(b, s, h, hd, x_dt, r_dt, nonzero):
+        xpre = (torch.tensor(rng.normal(size=(b, s, 4, h, hd)),
+                             dtype=torch.float32, device=dev) * 0.5).to(x_dt)
+        r = (torch.tensor(rng.normal(size=(h, hd, 4 * hd)),
+                          dtype=torch.float32, device=dev)
+             * hd ** -0.5).to(r_dt)
+        if not nonzero:
+            return xpre, r, zero_state(b, h, hd, dev)
+        st = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+            rng.normal(size=(b, h, hd)), rng.uniform(0.5, 2.0, (b, h, hd)),
+            rng.normal(size=(b, h, hd)) * 0.5, rng.normal(size=(b, h, hd)))]
+        return xpre, r, tuple(st)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = []
+    for b, s, h, hd, x_dt, r_dt, nonzero, tol in [
+            (2, 32, 2, 16, f32, f32, False, 1e-5),
+            (4, 64, 4, 32, f32, f32, False, 1e-5),
+            (1, 48, 3, 8, f32, f32, False, 1e-5),
+            (1, 33, 3, 8, f32, f32, True, 1e-5),
+            (XL_B, 1, XL_H, XL_HD, f32, bf16, True, 1e-5),
+            (XL_B, XL_S, XL_H, XL_HD, f32, bf16, False, 1e-4),
+            (XL_B, XL_S, XL_H, XL_HD, f32, f32, False, 1e-4),
+            (XL_B, XL_S, XL_H, XL_HD, bf16, bf16, False, 1e-4)]:
+        xpre, r, st = slstm_inputs(b, s, h, hd, x_dt, r_dt, nonzero)
+        got, got_st = slstm_ops.slstm_scan(xpre, r, *st)
+        want, want_st = slstm_scan_ref(xpre, r, *st)
+        h_tol = tol if x_dt == f32 else 2.0 ** -7
+        err_h = close(got.float(), want.float(), h_tol)
+        err_st = max(close(g, w, tol) for g, w in zip(got_st, want_st))
+        errs.append(max(err_h, err_st))
+        log(f"[kernels] slstm_scan B={b} S={s} H={h} hd={hd} xpre {x_dt} R "
+            f"{r_dt}{' from a nonzero state' if nonzero else ''}: max abs "
+            f"err h {err_h:.3g} (tol {h_tol:.3g}), final state "
+            f"{err_st:.3g} (tol {tol})")
+        del want, want_st
+    # the timed calls, in the model's dtypes: a prefill call and a decode
+    # step; bitwise repeatable over five calls
+    xpre, r, st = slstm_inputs(XL_B, XL_S, XL_H, XL_HD, bf16, bf16, False)
+    first = slstm_ops.slstm_scan(xpre, r, *st)
+    for _ in range(5):
+        again = slstm_ops.slstm_scan(xpre, r, *st)
+        if not (torch.equal(again[0], first[0]) and all(
+                torch.equal(a, g) for a, g in zip(again[1], first[1]))):
+            raise AssertionError("slstm_scan: two calls gave different bits")
+    ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), 10)
+    plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), 1)
+    xd, rd, std = slstm_inputs(XL_B, 1, XL_H, XL_HD, bf16, bf16, True)
+    ms_dec = time_ms(lambda: slstm_ops.slstm_scan(xd, rd, *std), 20)
+    plain_dec = time_ms(lambda: slstm_scan_ref(xd, rd, *std), 20)
+
+    def slstm_bound(b, s, h, hd, x_el, r_el):
+        # bytes: xpre and R read once, h_out written once, the state read
+        # and written once; operations: the h·R products (2·hd·4hd per
+        # row, step and head) and ~20 per unit for the gates
+        n_bytes = (b * s * 4 * h * hd * x_el + h * hd * 4 * hd * r_el
+                   + b * s * h * hd * x_el + 8 * 4 * b * h * hd)
+        return bound_ms(n_bytes, 2 * b * s * h * hd * 4 * hd
+                        + 20 * b * s * h * hd)
+    b_ms, b_by = slstm_bound(XL_B, XL_S, XL_H, XL_HD, 2, 2)
+    b_dec, b_dec_by = slstm_bound(XL_B, 1, XL_H, XL_HD, 2, 2)
+    # the kernel's own step with almost no work: one CTA (B = 1, H = 1,
+    # hd = 16) and one head of 32 CTAs (B = 1, H = 1, hd = 512), S = 2,048
+    floors = []
+    for hd in (16, XL_HD):
+        xf, rf, stf = slstm_inputs(1, XL_S, 1, hd, bf16, bf16, False)
+        floors.append(time_ms(lambda: slstm_ops.slstm_scan(xf, rf, *stf), 5))
+    log(f"[kernels] slstm_scan served prefill call: {ms:.4f} ms = "
+        f"{ms / XL_S * 1e3:.3f} us per dependent step; bound {b_ms:.4f} ms "
+        f"({b_by}); plain {plain:.1f} ms; decode step (S = 1) {ms_dec:.4f} "
+        f"ms, bound {b_dec:.4f} ms ({b_dec_by}), plain {plain_dec:.4f} ms")
+    log(f"[kernels] slstm_scan latency floor of {XL_S} dependent steps: "
+        f"{floors[0]:.4f} ms with one CTA and no work "
+        f"({floors[0] / XL_S * 1e3:.3f} us a step), {floors[1]:.4f} ms "
+        f"with one head of {XL_HD // slstm_ops.units_per_cta(XL_HD)} "
+        f"waiting CTAs at B = 1 ({floors[1] / XL_S * 1e3:.3f} us a step)")
+    report["slstm_scan"] = dict(
+        name="slstm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        replaces="src/repro/kernels/slstm_scan/slstm_scan.py:82",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    del xpre, r, st, first, again, xd, rd, std, xf, rf, stf
+
     for rep in report.values():
         log(f"[kernels] {rep['name']}: kernel {rep['ms']:.4f} ms, plain "
             f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']} ms, "
@@ -884,6 +988,83 @@ def main() -> int:
     log(f"[serve] float32 full width: decode_step(prefill({SERVE_PROMPT}))"
         f" vs prefill({SERVE_PROMPT + 1}) max abs diff {diff:.3g} over logits up to "
         f"{scale:.3g} (tol {CONSISTENCY_TOL})")
+    del masters, p32, caches
+    torch.cuda.empty_cache()
+
+    # -- 7. the xLSTM serving path at xlstm-1.3b full width -------------------
+    xcfg = get_arch("xlstm-1.3b")
+    xmodel = build_model(xcfg)
+    n_s = xmodel.kinds.count("s")
+    held_gb = torch.cuda.memory_allocated() / 1e9   # by the earlier phases
+    t0 = time.perf_counter()
+    masters = xmodel.init(torch.Generator(device=dev).manual_seed(0))
+    params = xmodel.cast_params(masters)
+    torch.cuda.synchronize()
+    log(f"[xlstm] {xcfg.name}: {xmodel.param_count(params) / 1e9:.3f} B "
+        f"parameters ({xcfg.n_layers} layers: {xmodel.kinds.count('m')} "
+        f"mLSTM, {n_s} sLSTM; d_model {xcfg.d_model}, {xcfg.n_heads} heads "
+        f"of {xcfg.d_model // xcfg.n_heads}, vocab {xcfg.padded_vocab}), "
+        f"{xcfg.dtype}; init + cast {time.perf_counter() - t0:.1f} s")
+    batch = make_batch(xcfg, SERVE_B, SERVE_PROMPT, 0, 0)
+    batch.pop("labels")
+    # a short warm-up through the same entry point, not counted
+    generate(xmodel, params, batch, steps=2, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slstm_ops.slstm_scan_launches = 0
+    stats = {}
+    toks = generate(xmodel, params, batch, steps=SERVE_STEPS,
+                    cache_len=SERVE_CACHE, stats=stats)
+    x_launches = slstm_ops.slstm_scan_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[xlstm] generate B={SERVE_B} prompt={SERVE_PROMPT} "
+        f"steps={SERVE_STEPS}: prefill {stats['prefill_s']:.4f} s, decode "
+        f"{stats['decode_s']:.4f} s = "
+        f"{stats['decode_s'] / SERVE_STEPS * 1e3:.3f} ms per step, "
+        f"{n_gen / stats['decode_s']:.1f} generated tokens/s in decode, "
+        f"{n_gen / (stats['prefill_s'] + stats['decode_s']):.1f} end to "
+        f"end; peak memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB "
+        f"of it held by the earlier phases); on {card}")
+    log(f"[xlstm] sLSTM kernel launches on the xlstm path: {x_launches} "
+        f"({n_s} a prefill + {n_s} x {SERVE_STEPS} decode steps)")
+    if x_launches != n_s * (1 + SERVE_STEPS):
+        raise AssertionError(f"the xlstm path launched the sLSTM kernel "
+                             f"{x_launches} times, expected "
+                             f"{n_s * (1 + SERVE_STEPS)}")
+    if not stats["logits_finite"]:
+        raise AssertionError("xlstm logits are not finite")
+    if toks.shape != (SERVE_B, SERVE_STEPS) or int(toks.min()) < 0 or \
+            int(toks.max()) >= xcfg.padded_vocab:
+        raise AssertionError(f"generated tokens {tuple(toks.shape)} outside "
+                             f"[0, {xcfg.padded_vocab})")
+    if peak_gb > XL_PEAK_GB:
+        raise AssertionError(f"the xlstm path allocated {peak_gb:.2f} GB, "
+                             f"more than {XL_PEAK_GB} GB")
+    log(f"[xlstm] sample: {toks[0, :16].tolist()}")
+    report["slstm_scan"]["launches_by_path"] = {"xlstm": x_launches}
+    report["slstm_scan"]["launches"] = x_launches
+    del params, batch, toks
+    torch.cuda.empty_cache()
+
+    # the same weights in float32: decode_step after a 256-token prefill
+    # must give the logits of a 257-token prefill (2e-3, as above)
+    x32 = build_model(dataclasses.replace(xcfg, dtype="float32"))
+    p32 = x32.cast_params(masters)
+    t = make_batch(xcfg, 2, XL_CHECK_PROMPT + 1, 0, 1, device=dev)["tokens"]
+    with torch.inference_mode():
+        _, caches = x32.prefill(p32, {"tokens": t[:, :XL_CHECK_PROMPT]})
+        lg_dec, _ = x32.decode_step(p32, caches, t[:, XL_CHECK_PROMPT:],
+                                    XL_CHECK_PROMPT)
+        lg_full, _ = x32.prefill(p32, {"tokens": t})
+    diff = float((lg_dec - lg_full).abs().max())
+    scale = float(lg_full.abs().max())
+    if not bool(torch.isfinite(lg_full).all()) or not torch.allclose(
+            lg_dec, lg_full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL):
+        raise AssertionError(f"xlstm float32 decode_step differs from "
+                             f"prefill by {diff} (tol {CONSISTENCY_TOL})")
+    log(f"[xlstm] float32 full width: decode_step(prefill("
+        f"{XL_CHECK_PROMPT})) vs prefill({XL_CHECK_PROMPT + 1}) max abs diff "
+        f"{diff:.3g} over logits up to {scale:.3g} (tol {CONSISTENCY_TOL})")
     del masters, p32, caches
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 

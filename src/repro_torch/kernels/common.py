@@ -67,6 +67,10 @@ _SIGNATURES = {
     # n_split, chunk, stream
     "mlego_decode_attention": (_P,) * 7 + (_I,) * 6 + (_LL,) * 8
     + (_I, _F, _I, _I, _P),
+    # xpre, r_mat, c0, n0, h0, m0, out, c1, n1, h1, m1, hbuf, arrive,
+    # x_dtype, r_dtype, B, S, H, hd, units, 4 strides of xpre (b, s,
+    # gate, head), stream
+    "mlego_slstm_scan": (_P,) * 13 + (_I,) * 7 + (_LL,) * 4 + (_P,),
 }
 
 

@@ -4,7 +4,9 @@
         [--batch 4] [--prompt-len 32] [--gen-len 16] [--device cuda]
         [--seed 0]
 
-The port of ``src/repro/launch/serve.py``.  It runs on the CUDA card
+The port of ``src/repro/launch/serve.py``, for the architectures
+``build_model`` takes: the dense transformers and xlstm-1.3b (whose
+recurrent caches ignore the cache length).  It runs on the CUDA card
 unless ``--device cpu`` is given, and raises ``DeviceUnavailableError``
 when a card is asked for and there is none.  Weights are random, drawn
 from ``torch.Generator(seed)`` on the device, and the prompts come from

@@ -1,2 +1,3 @@
-"""The LM scaffolding of the port: dense all-attention transformers
-(``model.py``) on the prefill and flash-decode kernels."""
+"""The LM scaffolding of the port: decoder-only models (``model.py``) of
+dense attention blocks on the prefill and flash-decode kernels, and of
+xLSTM blocks (``recurrent.py``) on the sLSTM scan kernel."""

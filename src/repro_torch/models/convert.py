@@ -2,10 +2,14 @@
 
 ``params_from_jax`` turns the JAX model's parameter pytree, with numpy
 leaves (``jax.tree.map(np.asarray, params)`` on the JAX side), into this
-port's parameters: the per-layer leaves stacked on a leading axis under
-``params["stack"]["0_attn"]`` become a list of per-layer dicts, and every
-weight keeps its ``(d_in, d_out)`` orientation.  The same weights give the
-same logits; the tests use it to hold the port to the JAX model.
+port's parameters.  JAX stacks the layers of each position of the block
+pattern on a leading axis: layer ``g * period + j`` of kind ``kind`` is
+``tree["stack"][f"{j}_{kind}"][g]``, and the unrolled tail's layer
+``n_groups * period + j`` is ``tree["tail"][f"{j}_{kind}"]`` (a dense
+stack is the case period 1, ``"0_attn"``, no tail).  The port keeps one
+dict per layer, in layer order, and every weight its ``(d_in, d_out)``
+orientation.  The same weights give the same logits; the tests use it to
+hold the port to the JAX model.
 """
 from __future__ import annotations
 
@@ -27,20 +31,41 @@ def _to_torch(tree: Any, index=None) -> Any:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _depth(tree: Any) -> int:
+    """The leading (stacked) size of a JAX pytree's leaves."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
 def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]) -> Params:
     """The port's float32 master parameters, on the CPU, from a JAX
-    parameter tree of numpy arrays (dense all-``"attn"`` configs only, as
-    ``build_model``)."""
+    parameter tree of numpy arrays (the configs ``build_model`` takes:
+    stacks of ``"attn"``, ``"m"`` and ``"s"`` layers)."""
     build_model(cfg)
-    stack = tree["stack"]["0_attn"]
-    n = np.asarray(stack["norm1"]["scale"]).shape[0]
-    if n != cfg.n_layers or tree.get("tail"):
-        raise ValueError(f"expected {cfg.n_layers} stacked 'attn' layers "
-                         f"and no tail, got {n} and {sorted(tree.get('tail') or {})}")
+    pattern = cfg.block_pattern
+    period = len(pattern)
+    n_groups = cfg.n_layers // period
+    tail = pattern[:cfg.n_layers % period]
+    stack = tree.get("stack") or {}
+    want = {f"{j}_{kind}" for j, kind in enumerate(pattern)} \
+        if n_groups else set()
+    got = {k: _depth(v) for k, v in stack.items()}
+    if set(got) != want or any(n != n_groups for n in got.values()):
+        raise ValueError(f"expected {n_groups} stacked groups of "
+                         f"{sorted(want)}, got {got}")
+    tail_tree = tree.get("tail") or {}
+    if set(tail_tree) != {f"{j}_{kind}" for j, kind in enumerate(tail)}:
+        raise ValueError(f"expected a tail of {list(tail)}, got "
+                         f"{sorted(tail_tree)}")
+    layers = [_to_torch(stack[f"{j}_{kind}"], g)
+              for g in range(n_groups) for j, kind in enumerate(pattern)]
+    layers += [_to_torch(tail_tree[f"{j}_{kind}"])
+               for j, kind in enumerate(tail)]
     params: Params = {
         "embed": _to_torch(tree["embed"]),
         "final_norm": _to_torch(tree["final_norm"]),
-        "layers": [_to_torch(stack, i) for i in range(n)],
+        "layers": layers,
     }
     if "unembed" in tree:
         params["unembed"] = _to_torch(tree["unembed"])

@@ -26,6 +26,10 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
+from repro_torch.kernels.common import KernelError  # noqa: E402
+from repro_torch.kernels.slstm_scan import ops as slstm_ops  # noqa: E402
+from repro_torch.kernels.slstm_scan.ref import (  # noqa: E402
+    slstm_scan_ref, zero_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -412,6 +416,133 @@ def test_serve_path_launches_the_kernels_and_matches_the_cpu(cuda):
     before = [c["k"].clone() for c in caches]
     model.decode_step(params, caches, toks[:, 20:].to(cuda), 24)
     assert all(torch.equal(a, c["k"]) for a, c in zip(before, caches))
+    out = generate(model, params, {"tokens": toks[:, :20]}, steps=4,
+                   cache_len=24)
+    out_c = generate(model, to_cpu, {"tokens": toks[:, :20]}, steps=4,
+                     cache_len=24)
+    assert torch.equal(out.cpu(), out_c)
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM scan (the xLSTM serving path)
+# ---------------------------------------------------------------------------
+
+def _slstm_inputs(dev, b, s, h, hd, x_dtype=torch.float32,
+                  r_dtype=torch.float32, nonzero=False):
+    xpre = _n((b, s, 4, h, hd), dev, torch.float32).mul_(0.5).to(x_dtype)
+    r = _n((h, hd, 4 * hd), dev, torch.float32).mul_(hd ** -0.5).to(r_dtype)
+    if nonzero:
+        st = (_n((b, h, hd), dev, torch.float32),
+              torch.tensor(RNG.uniform(0.5, 2.0, (b, h, hd)),
+                           dtype=torch.float32, device=dev),
+              _n((b, h, hd), dev, torch.float32).mul_(0.5),
+              _n((b, h, hd), dev, torch.float32))
+    else:
+        st = zero_state(b, h, hd, dev)
+    return xpre, r, st
+
+
+@pytest.mark.parametrize("b,s,h,hd,x_dtype,r_dtype,nonzero,tol", [
+    (2, 32, 2, 16, torch.float32, torch.float32, False, 1e-5),
+    (4, 64, 4, 32, torch.float32, torch.float32, False, 1e-5),
+    (1, 48, 3, 8, torch.float32, torch.float32, False, 1e-5),
+    (4, 1, 4, 512, torch.float32, torch.bfloat16, True, 1e-5),  # decode
+    (4, 1, 4, 512, torch.bfloat16, torch.bfloat16, True, 1e-5),
+    (3, 5, 2, 40, torch.float32, torch.float32, True, 1e-5),  # ragged CTA
+    (6, 9, 2, 64, torch.float32, torch.bfloat16, False, 1e-5),  # B > 4
+    # the served shape: 2,048 dependent steps, so 1e-4
+    (4, 2048, 4, 512, torch.float32, torch.bfloat16, False, 1e-4),
+    (4, 2048, 4, 512, torch.float32, torch.float32, False, 1e-4),
+    (4, 2048, 4, 512, torch.bfloat16, torch.bfloat16, False, 1e-4),
+])
+def test_slstm_scan_kernel_matches_plain(cuda, b, s, h, hd, x_dtype,
+                                         r_dtype, nonzero, tol):
+    """h_out and the final state at ``tol``; a bf16 h_out to one bf16
+    rounding (2^-7 relative) of the f32 value, which the final h holds."""
+    xpre, r, st = _slstm_inputs(cuda, b, s, h, hd, x_dtype, r_dtype,
+                                nonzero)
+    before = slstm_ops.slstm_scan_launches
+    got, got_st = slstm_ops.slstm_scan(xpre, r, *st)
+    torch.cuda.synchronize()
+    assert slstm_ops.slstm_scan_launches == before + 1
+    assert got.dtype == x_dtype and got.shape == (b, s, h, hd)
+    want, want_st = slstm_scan_ref(xpre, r, *st)
+    h_tol = tol if x_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=h_tol,
+                               atol=h_tol)
+    for g, w in zip(got_st, want_st):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def test_slstm_scan_kernel_reads_strided_views_and_repeats_bitwise(cuda):
+    """xpre as a time-major array's transpose and as a slice of a wider
+    projection; five calls give the same bits."""
+    b, s, h, hd = 3, 40, 2, 64
+    xt, r, _ = _slstm_inputs(cuda, s, b, h, hd)           # (S, B, ...)
+    st = zero_state(b, h, hd, cuda)
+    view = xt.transpose(0, 1)
+    assert not view.is_contiguous()
+    got, got_st = slstm_ops.slstm_scan(view, r, *st)
+    want, want_st = slstm_scan_ref(view.contiguous(), r, *st)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    wide = _n((b, s, 5, h, hd), cuda, torch.float32)
+    got2, _ = slstm_ops.slstm_scan(wide[:, :, 1:], r, *st)
+    want2, _ = slstm_scan_ref(wide[:, :, 1:].contiguous(), r, *st)
+    torch.testing.assert_close(got2, want2, rtol=1e-5, atol=1e-5)
+    for _ in range(5):
+        again, again_st = slstm_ops.slstm_scan(view, r, *st)
+        assert torch.equal(again, got)
+        assert all(torch.equal(a, g) for a, g in zip(again_st, got_st))
+
+
+def test_slstm_scan_refuses_a_grid_that_cannot_be_resident(cuda):
+    """16 heads of 512 ask for 512 CTAs of ~141 KB of shared memory, one
+    per SM: more than the card holds at once.  The launch is refused with
+    KernelError (never a plain fallback), and the next launch runs."""
+    xb, rb, stb = _slstm_inputs(cuda, 1, 2, 16, 512)
+    before = slstm_ops.slstm_scan_launches
+    with pytest.raises(KernelError):
+        slstm_ops.slstm_scan(xb, rb, *stb)
+    assert slstm_ops.slstm_scan_launches == before
+    xpre, r, st = _slstm_inputs(cuda, 4, 3, 4, 512)
+    with pytest.raises(ValueError):                       # f64
+        slstm_ops.slstm_scan(xpre.double(), r, *st)
+    got, _ = slstm_ops.slstm_scan(xpre, r, *st)
+    want, _ = slstm_scan_ref(xpre, r, *st)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_xlstm_serve_path_launches_the_kernel_and_matches_the_cpu(cuda):
+    """A reduced float32 xLSTM (two pattern groups and an "m" tail) on the
+    card: one sLSTM launch per "s" layer per prefill and per decode step,
+    and the logits of the CPU path (the plain scan) at 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b").reduced(), n_layers=7)
+    n_s = cfg.layer_kinds().count("s")
+    assert n_s == 2
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    to_cpu = _tree_to(params, "cpu")
+    toks = torch.tensor(RNG.integers(0, cfg.vocab_size, (2, 21)),
+                        dtype=torch.int32)
+    k0 = slstm_ops.slstm_scan_launches
+    lg, caches = model.prefill(params, {"tokens": toks[:, :20].to(cuda)})
+    assert slstm_ops.slstm_scan_launches == k0 + n_s
+    lg_c, caches_c = model.prefill(to_cpu, {"tokens": toks[:, :20]})
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    for c, c_c in zip(caches, caches_c):
+        for name in c:
+            torch.testing.assert_close(c[name].cpu(), c_c[name], rtol=1e-4,
+                                       atol=1e-4)
+    k0 = slstm_ops.slstm_scan_launches
+    lg, caches = model.decode_step(params, caches, toks[:, 20:].to(cuda), 20)
+    assert slstm_ops.slstm_scan_launches == k0 + n_s
+    lg_c, _ = model.decode_step(to_cpu, caches_c, toks[:, 20:], 20)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
     out = generate(model, params, {"tokens": toks[:, :20]}, steps=4,
                    cache_len=24)
     out_c = generate(model, to_cpu, {"tokens": toks[:, :20]}, steps=4,

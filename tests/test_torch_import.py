@@ -24,7 +24,9 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.kernels.vb_estep.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.kernels.slstm_scan.ops\n"
         "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.models.recurrent\n"
         "import repro_torch.launch.serve, repro_torch.data.lm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
@@ -62,7 +64,7 @@ def test_port_mirrors_the_jax_package_layout():
         assert (PORT / sub / "__init__.py").is_file()
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
         == ["decode_attention.cu", "flash_attention.cu", "gibbs_sweep.cu",
-            "merge_topics.cu", "vb_estep.cu"]
+            "merge_topics.cu", "slstm_scan.cu", "vb_estep.cu"]
 
 
 def test_every_c_entry_point_has_a_declared_signature():

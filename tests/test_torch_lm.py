@@ -189,13 +189,16 @@ def test_init_has_the_jax_shapes_and_distributions():
 
 
 def test_cast_params_casts_only_matrices_once():
+    """The leaves that are matrices in JAX's layout: there the layers are
+    stacked, so a layer's qk-norm scale is (n_layers, hd) and is cast; the
+    top-level ``final_norm`` stays float32."""
     model = build_model(get_arch("qwen3-1.7b").reduced())
     bf = dataclasses.replace(model.cfg, dtype="bfloat16")
     m = build_model(bf)
     p = m.cast_params(model.init(torch.Generator().manual_seed(0)))
     assert p["embed"].dtype == torch.bfloat16
     assert p["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
-    assert p["layers"][0]["attn"]["q_norm"].dtype == torch.float32
+    assert p["layers"][0]["attn"]["q_norm"].dtype == torch.bfloat16
     assert p["final_norm"]["scale"].dtype == torch.float32
     logits, caches = m.prefill(p, {"tokens": torch.zeros((1, 8),
                                                          dtype=torch.int32)})
@@ -203,7 +206,8 @@ def test_cast_params_casts_only_matrices_once():
         torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE)
+                                        - {"xlstm-1.3b"}))
 def test_build_model_refuses_the_unported_families(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_arch(arch))
