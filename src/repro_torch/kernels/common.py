@@ -254,3 +254,15 @@ def require_cuda(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
     if not contiguous and t.dim() and t.stride(-1) != 1:
         raise ValueError(f"{name} must have a contiguous last dimension")
+
+
+def require_aligned16(name: str, t: torch.Tensor) -> None:
+    """Checks of a kernel that copies rows of ``t`` in 16-byte pieces:
+    the data pointer 16-byte aligned and every stride but the last (which
+    must be 1) a whole number of 16-byte pieces."""
+    piece = 16 // t.element_size()
+    if t.data_ptr() % 16 != 0 or any(st % piece for st in t.stride()[:-1]):
+        raise ValueError(
+            f"{name} must start on a 16-byte boundary with strides that are "
+            f"multiples of {piece} elements; got data_ptr % 16 = "
+            f"{t.data_ptr() % 16}, strides {tuple(t.stride())}")

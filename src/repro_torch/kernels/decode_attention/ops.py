@@ -5,20 +5,30 @@ Source note.  ``decode_attention`` replaces the Pallas kernel
 ``decode_attention_pallas`` (``src/repro/kernels/decode_attention/
 decode_attention.py:71``).  It is bound by bytes: one step reads every
 live cache row once (~34 MB at the serve path's B = 4, pos = 2,100,
-8 KV heads of 128 in bf16) for ~4 flops a byte.  The caches stay in the
-model's (B, S, KVH, hd) layout and are read through their strides (the
-Pallas wrapper transposed the whole cache each call).  Grid (split, KV
-head, batch): each CTA walks its share of the positions for the G query
-heads of its KV head, reading nothing beyond ``pos`` or below the
-window, and writes a partial (acc, m, l) in f32; a second launch
-combines the splits in a fixed order, so every run gives the same bits.
-``pos`` is an int32 scalar on the device that the kernel reads (the
-scalar prefetch's counterpart), so a decode step needs no host value.
+8 KV heads of 128 in bf16) for ~4 flops a byte, so what counts is how
+many bytes each SM keeps in flight.  The caches stay in the model's
+(B, S, KVH, hd) layout and are read through their strides (the Pallas
+wrapper transposed the whole cache each call).  Grid (split, KV head,
+batch): ``split_plan`` cuts the cache into chunks of whole 64-key tiles,
+enough of them for about three waves of CTAs on the H100's 132 SMs
+whatever B · KVH is, at most 64 (11 chunks of 192 at the served B = 4,
+KVH = 8, S = 2,112: 352 CTAs, each with two tiles, 64 KB, in flight; 33
+chunks of 64 for one sequence).  In bf16 each CTA copies its K and V
+rows into shared memory in 16-byte ``cp.async`` pieces and runs both
+products on the tensor cores (``mma.sync``, the G query heads padded to
+16 rows, each warp on its own 16 keys of a tile, p rounded to bf16 before
+P·V as in the prefill kernel); in f32 the CUDA-core kernel of the 1e-5
+checks runs.  Nothing beyond ``pos`` or below the window is read; a
+second launch combines the live splits' partial (acc, m, l) in split
+order, so every run gives the same bits.  ``pos`` is an int32 scalar on
+the device that the kernels read (the scalar prefetch's counterpart), so
+a decode step needs no host value.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to the kernel or raises.  ``decode_attention_launches``
-counts calls that launched the kernel (each is two CUDA launches:
-partials and combine).
+tensor goes to the kernel of its dtype or raises (bf16 caches must be
+16-byte aligned with strides that are multiples of 8 elements).
+``decode_attention_launches`` counts calls that launched the kernel
+(each is two CUDA launches: partials and combine).
 """
 from __future__ import annotations
 
@@ -32,23 +42,22 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
 MAX_GROUP_DIMS = 2048                # G * hd the partial kernel holds
-TILE = 64                            # keys per tile inside a split
-SPLIT = 128                          # positions per split (two tiles)
-MAX_SPLITS = 64
+TILE = 64                            # keys per tile; a chunk is whole tiles
+MAX_SPLITS = 64                      # the most partials the combine reads
+WAVE_CTAS = 3 * 132                  # three waves on the H100's 132 SMs
 
 decode_attention_launches = 0
 
 
-def split_plan(s: int) -> Tuple[int, int]:
-    """(n_split, chunk) for a cache of ``s`` positions: chunks of 128
-    positions, at most 64 of them (longer caches get longer chunks)."""
-    chunk = SPLIT
-    n_split = -(-s // chunk)
-    if n_split > MAX_SPLITS:
-        n_tiles = -(-s // TILE)
-        chunk = TILE * -(-n_tiles // MAX_SPLITS)
-        n_split = -(-s // chunk)
-    return n_split, chunk
+def split_plan(s: int, n_pairs: int) -> Tuple[int, int]:
+    """(n_split, chunk) for a cache of ``s`` positions read by ``n_pairs``
+    = B · KVH CTAs a split: chunks of whole 64-key tiles, as long as keeps
+    n_split · n_pairs at about ``WAVE_CTAS`` and n_split at most
+    ``MAX_SPLITS``; split i covers [i·chunk, (i+1)·chunk)."""
+    n_tiles = -(-s // TILE)
+    want = min(MAX_SPLITS, -(-WAVE_CTAS // n_pairs))
+    chunk = TILE * -(-n_tiles // want)
+    return -(-s // chunk), chunk
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -76,6 +85,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.dtype == k_cache.dtype == v_cache.dtype:
         raise ValueError(f"q and the caches must share a dtype: {q.dtype}, "
                          f"{k_cache.dtype}, {v_cache.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+            common.require_aligned16(name, t)
     g = h // kvh
     if hd not in HEAD_DIMS or g * hd > MAX_GROUP_DIMS:
         raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS} "
@@ -89,7 +101,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              f"{pos.device}")
     else:
         pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
-    n_split, chunk = split_plan(s)
+    n_split, chunk = split_plan(s, b * kvh)
     out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=dev)
     part_acc = torch.empty((b, kvh, n_split, g * hd), dtype=torch.float32,
                            device=dev)

@@ -10,14 +10,24 @@ gives one CTA to each (q tile, KV head, batch) and holds the G query
 heads of a KV head as extra rows, so each K/V tile is read once per
 group; the TPU's sequential KV grid axis becomes a loop inside the CTA
 with the online softmax in f32 registers; tiles above the causal
-diagonal and below the window band are skipped.  It reads q, k and v
-through their strides in the model's (B, S, heads, hd) layout, so the
-Pallas wrapper's transpose copies are gone.  This first kernel runs the
-products on CUDA cores in fp32 (no tensor cores yet).
+diagonal and below the window band are skipped, the heaviest q tiles
+first.  It reads q, k and v through their strides in the model's
+(B, S, heads, hd) layout, so the Pallas wrapper's transpose copies are
+gone.  One dispatch by ``q.dtype`` picks the instance:
+
+  * bfloat16 — both products on the tensor cores (``mma.sync`` bf16 →
+    f32, FlashAttention-2 shape: two 16-row m-tiles a warp for hd <= 128,
+    K/V tiles in a 16-byte ``cp.async`` ring, P rounded to bf16 in
+    registers as JAX's ``_flash_block`` does, the heaviest causal tiles
+    of every head dispatched first).  Its 16-byte copies need q, k and v 16-byte
+    aligned with strides that are multiples of 8 elements; any other
+    view raises ``ValueError``;
+  * float32 — CUDA-core FMAs in full fp32 (TF32 would break the 1e-5
+    tolerance of the JAX kernel tests).
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to the kernel or raises.  ``flash_attention_launches``
-counts kernel launches.
+tensor goes to one of the two kernels or raises.
+``flash_attention_launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -36,9 +46,10 @@ flash_attention_launches = 0
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> (B, S, H, hd) in q's
-    dtype (float32 or bfloat16), computed in float32.  Query i attends to
-    key j when j <= i (``causal``) and i - j < ``window`` (``window`` >
-    0)."""
+    dtype (float32 or bfloat16), accumulated in float32 (in bfloat16 the
+    probabilities are rounded to bfloat16 before P·V).  Query i attends
+    to key j when j <= i (``causal``) and i - j < ``window`` (``window``
+    > 0)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KVH, hd);"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -57,6 +68,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must share a dtype: {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            common.require_aligned16(name, t)
     if hd not in HEAD_DIMS or h // kvh > MAX_GROUP:
         raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS} "
                          f"and at most {MAX_GROUP} query heads per KV head;"

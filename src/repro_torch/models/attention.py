@@ -14,11 +14,13 @@ The port of ``src/repro/models/attention.py``'s one-device paths:
 The ring over ranks of ``ring_attention`` and ``cross_attention`` wait
 for the sharded item of ROADMAP.md.
 
-Numerics follow the Pallas kernels, not the jnp stand-in that the JAX
-model runs on a CPU host: q is scaled in float32 inside the kernel, and
-the probabilities stay float32 through the P·V product (JAX's
-``_flash_block`` casts p to the value dtype first, ``attention.py:112``).
-In float32 the two agree to rounding; in bf16 the port is the more exact.
+Numerics: the scores are summed and scaled in float32 inside the kernels.
+In bf16 both kernels run P·V on the tensor cores with the probabilities
+rounded to bf16 first, as JAX's ``_flash_block`` casts p to the value
+dtype (``attention.py:112``); the Pallas kernels keep p in float32, and
+the two agree within the JAX tests' bf16 tolerance (2e-2).
+In float32 the kernels keep p in float32 throughout and agree with both
+to rounding.
 """
 from __future__ import annotations
 

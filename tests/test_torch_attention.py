@@ -4,10 +4,16 @@ The plain flash and decode versions (what a CPU tensor runs through the
 kernel wrappers) are held to the JAX Pallas kernels run in interpret mode
 and to the JAX refs, at 1e-5 in float32; the model-level forms
 (``flash_attention_local``, ``decode_attention`` with its cache write,
-``window_decode_attention``) to JAX's ``models/attention.py``.  Inputs
-come from a numpy seed and reach both packages as numpy arrays.
+``window_decode_attention``) to JAX's ``models/attention.py``.  The bf16
+tensor-core kernel's arithmetic (p rounded to bf16 before P·V), emulated
+here, is held to the Pallas kernel at the JAX tests' bf16 tolerance and to
+the plain version at the card's tighter bf16 limit, which fails it with
+one KV tile skipped; the decode kernel's split plan is checked for every
+cache length up to 40,000.  Inputs come from a numpy seed and reach both packages as numpy
+arrays.
 """
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -20,12 +26,17 @@ from repro.kernels.flash_attention.ops import (
 from repro.kernels.flash_attention.ref import (decode_attention_ref,
                                                flash_attention_ref)
 from repro.models import attention as jattn
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import attention as tattn
 
 RNG = np.random.default_rng(13)
 TOL = 1e-5
+# the card's limit for the bf16 kernels, against the plain version run
+# in float32 on the same bf16 inputs (tests/test_torch_cuda.py,
+# chip_smoke.py)
+BF16_ATOL, BF16_RTOL = 5e-3, 1e-2
 
 
 def _normal(*shape):
@@ -57,6 +68,155 @@ def test_plain_flash_matches_the_pallas_kernel(b, s, h, kvh, hd, window):
     blk = 64 if s % 64 == 0 else s
     _close(got, jax_flash_kernel(jq, jk, jv, causal=True, window=window,
                                  block_q=blk, block_k=blk, interpret=True))
+
+
+def _tc_flash_emulation(q, k, v, *, causal, window, drop=None):
+    """An emulation, in plain torch, of the bf16 tensor-core flash kernel's
+    arithmetic (``csrc/flash_attention.cu``), for bf16 q, k, v.  As there:
+    the G query heads of a KV head are packed as rows (row r of a q tile of
+    BQ = 128 / G positions, 64 / G at hd 256, is position r / G, head
+    r % G); q·k is summed in float32; masked scores are -inf; the online
+    softmax runs over 64-key tiles in the log2 domain, p = 2^(s·hd^-0.5·
+    log2(e) - m); m moves only when some row of a 16-row m-tile has grown
+    by more than 8 (so p reaches 2^8 against a stale m); l sums the float32
+    p; p is rounded to bf16 before P·V, which accumulates in float32; the
+    output is O·(1/l) rounded to bf16.  ``drop`` = (tile, first position)
+    skips that KV tile for every row from that position on, a planted
+    fault."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    rows = 128 if hd <= 128 else 64
+    bq = rows // g
+    n_qt = -(-s // bq)
+    c = hd ** -0.5 * 1.4426950408889634
+    r = torch.arange(rows)
+    qpos = torch.arange(n_qt)[:, None] * bq + r // g            # (T, R)
+    qpos = torch.where((r < g * bq) & (qpos < s), qpos, -1)
+    t_idx, r_idx = (qpos >= 0).nonzero(as_tuple=True)
+    src = (qpos[t_idx, r_idx], r_idx % g)
+    qp = torch.zeros(b, kvh, n_qt, rows, hd)
+    qp[:, :, t_idx, r_idx] = q.float().reshape(b, s, kvh, g, hd)[
+        :, src[0], :, src[1]].permute(1, 2, 0, 3)
+    m = torch.full((b, kvh, n_qt, rows), -1e30)
+    l = torch.zeros((b, kvh, n_qt, rows))
+    o = torch.zeros((b, kvh, n_qt, rows, hd))
+    for k0 in range(0, s, 64):
+        kt, vt = (x[:, k0:k0 + 64].float().transpose(1, 2) for x in (k, v))
+        sc = torch.einsum("bktrd,bknd->bktrn", qp, kt)
+        kpos = torch.arange(k0, min(k0 + 64, s))
+        ok = (qpos[..., None] >= 0) & (kpos <= qpos[..., None]
+                                       if causal else True)
+        if window > 0:
+            ok = ok & (qpos[..., None] - kpos < window)
+        if drop is not None and drop[0] == k0 // 64:
+            ok = ok & (qpos[..., None] < drop[1])
+        sc = torch.where(ok, sc, -torch.inf)
+        mx = sc.amax(-1) * c
+        grow = (mx > m + 8).reshape(b, kvh, n_qt, rows // 16, 16).any(-1)
+        mn = torch.where(grow.repeat_interleave(16, -1),
+                         torch.maximum(m, mx), m)
+        coef = torch.exp2(m - mn)
+        m = mn
+        p = torch.exp2(sc * c - m[..., None])
+        l = l * coef + p.sum(-1)
+        o = o * coef[..., None] + torch.einsum(
+            "bktrn,bknd->bktrd", p.to(torch.bfloat16).float(), vt)
+    out = (o * (1.0 / l.clamp_min(1e-30))[..., None]).to(torch.bfloat16)
+    res = torch.zeros(b, s, kvh, g, hd, dtype=torch.bfloat16)
+    res[:, src[0], :, src[1]] = out[:, :, t_idx, r_idx].permute(2, 0, 1, 3)
+    return res.reshape(b, s, h, hd)
+
+
+def _bf16_inputs(b, s, h, kvh, hd):
+    bf16 = ml_dtypes.bfloat16
+    return [_normal(*shape).astype(bf16) for shape in
+            ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))]
+
+
+def _torch_bf16(x):
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+
+def _over_bf16_limit(got, q, k, v, *, window):
+    """How many elements of a bf16 result lie outside the card's bf16
+    limit: the plain version run in float32 on the same bf16 inputs, at
+    ``BF16_ATOL`` + ``BF16_RTOL`` · |want|."""
+    want = flash_attention(q.float(), k.float(), v.float(), causal=True,
+                           window=window)
+    return int(((got.float() - want).abs()
+                > BF16_ATOL + BF16_RTOL * want.abs()).sum())
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,window", [
+    (1, 128, 4, 4, 32, 0),     # MHA
+    (2, 128, 8, 2, 64, 0),     # GQA 4:1
+    (1, 256, 5, 1, 64, 0),     # MQA, odd heads
+    (1, 192, 4, 2, 32, 50),    # window 50
+    (1, 200, 4, 2, 128, 0),    # qwen3's head shape, S not a multiple of 64
+])
+def test_bf16_kernel_arithmetic_matches_the_pallas_kernel(b, s, h, kvh, hd,
+                                                         window):
+    """Rounding p to bf16 before P·V (as JAX's ``_flash_block`` does, here
+    against a stale max, so p up to 2^8) keeps the bf16 kernel's
+    arithmetic inside the JAX tests' bf16 tolerance of the Pallas kernel,
+    which keeps p in float32, and inside the card's tighter bf16 limit of
+    the port's plain version."""
+    q, k, v = _bf16_inputs(b, s, h, kvh, hd)
+    tq, tk, tv = (_torch_bf16(x) for x in (q, k, v))
+    got = _tc_flash_emulation(tq, tk, tv, causal=True, window=window)
+    blk = 64 if s % 64 == 0 else s
+    want = jax_flash_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=True, window=window, block_q=blk,
+                            block_k=blk, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    _close(got.float(), np.asarray(want, np.float32), 2e-2)
+    assert _over_bf16_limit(got, tq, tk, tv, window=window) == 0
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,drop", [
+    (1, 2048, 16, 8, 128, (5, 1984)),   # a mid tile, for the last q tile
+    (1, 256, 8, 1, 256, (1, 192)),      # hd 256, G = 8
+    (2, 200, 10, 2, 64, (2, 150)),      # G = 5, idle rows
+])
+def test_bf16_limit_fails_a_dropped_kv_tile(b, s, h, kvh, hd, drop):
+    """The bf16 limit that the card tests and chip_smoke.py hold the
+    kernels to is tight enough to fail the kernel's arithmetic with one KV
+    tile skipped for the last rows only (the served shape's late rows have
+    outputs of ~0.05)."""
+    tq, tk, tv = (_torch_bf16(x) for x in _bf16_inputs(b, s, h, kvh, hd))
+    ok = _tc_flash_emulation(tq, tk, tv, causal=True, window=0)
+    bad = _tc_flash_emulation(tq, tk, tv, causal=True, window=0, drop=drop)
+    assert _over_bf16_limit(ok, tq, tk, tv, window=0) == 0
+    assert _over_bf16_limit(bad, tq, tk, tv, window=0) > 0
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 2_000), (2_000, 10_000),
+                                   (10_000, 40_001)])
+def test_split_plan_puts_every_position_in_one_split(lo, hi):
+    """For every cache length S in [lo, hi) and B · KVH from one MQA
+    sequence to a wide batch: the splits [i·chunk, (i+1)·chunk) cover
+    [0, S) with none empty, the chunk is a whole number of tiles, there
+    are at most MAX_SPLITS of them, and the grid has at least half the
+    CTAs the plan aims for (WAVE_CTAS, or as many as the cap and the tiles
+    allow)."""
+    tile = decode_ops.TILE
+    for n_pairs in (1, 8, 32, 200):
+        for s in range(lo, hi):
+            n_split, chunk = decode_ops.split_plan(s, n_pairs)
+            assert chunk % tile == 0 and chunk > 0
+            assert 1 <= n_split <= decode_ops.MAX_SPLITS
+            assert (n_split - 1) * chunk < s <= n_split * chunk
+            aim = min(decode_ops.WAVE_CTAS,
+                      n_pairs * min(decode_ops.MAX_SPLITS, -(-s // tile)))
+            assert 2 * n_split * n_pairs >= aim
+        for s in (lo, (lo + hi) // 2, hi - 1):
+            n_split, chunk = decode_ops.split_plan(s, n_pairs)
+            counts = np.bincount(np.arange(s) // chunk, minlength=n_split)
+            assert counts.shape == (n_split,) and counts.min() >= 1
+            assert counts.sum() == s
+    # the served shape keeps the plan it was tuned at
+    assert decode_ops.split_plan(2112, 4 * 8) == (11, 192)
 
 
 @pytest.mark.parametrize("b,s,h,kvh,hd,pos,window", [

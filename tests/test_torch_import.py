@@ -84,12 +84,16 @@ def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
     assert before.parent == common.BUILD_DIR
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for p in common.CSRC_DIR.glob("*.cu"):
-        (csrc / p.name).write_text(p.read_text())
+    for pattern in ("*.cu", "*.cuh"):
+        for p in common.CSRC_DIR.glob(pattern):
+            (csrc / p.name).write_text(p.read_text())
     monkeypatch.setattr(common, "CSRC_DIR", csrc)
     assert common.library_path() == before
+    (csrc / "mma_ptx.cuh").write_text("// changed\n")
+    header_changed = common.library_path()
+    assert header_changed != before
     (csrc / "vb_estep.cu").write_text("// changed\n")
-    assert common.library_path() != before
+    assert common.library_path() not in (before, header_changed)
 
 
 def test_cpu_device_resolves_and_cuda_raises_without_a_card():
