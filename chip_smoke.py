@@ -13,7 +13,14 @@ Phases, each of which fails the run if anything in it fails:
    paths' shapes and at edge shapes, hold each against its plain PyTorch
    version at the stated tolerance, and time the kernel, the plain
    version and (where one exists) a single PyTorch call computing the
-   same function, beside the least time the card could take.  Both
+   same function, beside the least time the card could take.  The merge
+   is held in its (n, K, V) form and in its parts form (n separate
+   tensors, n = 1, 8 and 129: weights by value, and a pointer table on
+   the device above 128 parts), five repeat calls giving the same bits.
+   The sparse E-step runs on ``doc_term_csr(x)`` and is held against the
+   dense plain version at D = 2,048 and 1,000 (both timed, with the
+   conversion timed apart), an edge shape and two shapes whose documents
+   overflow a CTA's row budget; five repeat calls give the same bits.  Both
    attention kernels are held and timed in bf16 (tensor cores: the SASS
    of every bf16 instance must contain HMMA or HGMMA, and five repeat
    calls must give the same bits) and in f32 (CUDA cores).  The Gibbs
@@ -62,7 +69,9 @@ phase 6 for the serve path, phase 7 for the ``"xlstm"`` path),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
-(it is the ragged merge's retired parity reference) and reports 0.
+(it is the ragged merge's retired parity reference) and reports 0.  The
+E-step counts two launches a call (iterations, then sstats); the (V, K)
+transpose of eeβ it makes first is a PyTorch copy, timed with the call.
 
 The second-to-last line of output is the kernel table as JSON, the line
 before it the card's name and power limit; the last line is
@@ -168,7 +177,8 @@ def main() -> int:
     from repro_torch.kernels.merge_topics.ref import (
         merge_topics_batched_ref, merge_topics_ref, merge_topics_segments_ref)
     from repro_torch.kernels.vb_estep import ops as estep_ops
-    from repro_torch.kernels.vb_estep.ref import vb_estep_ref
+    from repro_torch.kernels.vb_estep.ref import (
+        vb_estep_csr_ref, vb_estep_ref)
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -192,18 +202,29 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ---------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    # stream memory for ~50 ms before the first timing: the card idled
+    # through the build, and the first kernel timed on its cold clocks
+    # read about twice its time
+    for _ in range(600):
+        flush.zero_()
+    torch.cuda.synchronize()
 
-    def time_ms(fn, reps: int) -> float:
+    def time_ms(fn, reps: int, read_flush: bool = False) -> float:
         """Mean device time of one call, L2 flushed before each (by
         writing 256 MB).  All calls are queued behind a sleep, so the
-        events bracket the kernels and not the host's launch overhead."""
+        events bracket the kernels and not the host's launch overhead.
+        ``read_flush`` reads the 256 MB instead, leaving no dirty lines
+        in L2 (a diagnostic: every row's time is the writing flush's)."""
         fn()
         torch.cuda.synchronize()
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
         torch.cuda._sleep(20_000_000)
         for a, b in ev:
-            flush.zero_()
+            if read_flush:
+                flush.sum()
+            else:
+                flush.zero_()
             a.record()
             fn()
             b.record()
@@ -227,7 +248,9 @@ def main() -> int:
     cfg0 = LDAConfig()
     report = {}
 
-    # merge_topics
+    # merge_topics: the (n, K, V) form and the parts form (n separate
+    # tensors through the kernel's pointer table: by value up to 128, a
+    # device table above), each held at 1e-5 and repeated bit for bit
     errs = []
     for n, k, v in [(8, 100, 8192), (1, 6, 150)]:
         st = torch.tensor(rng.gamma(1.0, 1.0, (n, k, v)), dtype=torch.float32,
@@ -245,13 +268,54 @@ def main() -> int:
             ms = time_ms(lambda: merge_ops.merge_topics(st, w, eta, eta), 20)
             plain = time_ms(lambda: merge_topics_ref(st, w, eta, eta), 20)
             lib = time_ms(lambda: torch.addmv(c, s2, w), 20)
+            parts8 = list(st.unbind(0))
+            ms_parts = time_ms(lambda: merge_ops.merge_topics_parts(
+                parts8, [1.0] * n, eta, eta), 20)
+            # the kernel the single merge used to run (the batched entry
+            # point at b = 1), and both after a reading flush
+            ms_b1 = time_ms(lambda: merge_ops.merge_topics_batch(
+                st[None], w[None], eta, eta), 20)
+            ms_read = time_ms(lambda: merge_ops.merge_topics(
+                st, w, eta, eta), 20, read_flush=True)
+            ms_b1_read = time_ms(lambda: merge_ops.merge_topics_batch(
+                st[None], w[None], eta, eta), 20, read_flush=True)
             b_ms, b_by = bound_ms(4 * (n * k * v + n + k * v), 3 * n * k * v)
+            log(f"[kernels] merge_topics n=8: {ms:.4f} ms "
+                f"({4 * (n + 1) * k * v / (ms * 1e-3) / 1e12:.2f} TB/s), "
+                f"addmv {lib:.4f} ms, parts form with unit weights by value "
+                f"{ms_parts:.4f} ms, the batched kernel at b = 1 "
+                f"{ms_b1:.4f} ms; after a reading flush {ms_read:.4f} ms "
+                f"({4 * (n + 1) * k * v / (ms_read * 1e-3) / 1e12:.2f} "
+                f"TB/s), b = 1 {ms_b1_read:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by})")
+    gen_m = torch.Generator(device=dev).manual_seed(0)
+    for n in (1, 8, 129):
+        k, v = 100, 8192
+        parts = [torch.rand((k, v), generator=gen_m, device=dev) * 2.0
+                 for _ in range(n)]
+        w_host = [float(x) for x in rng.uniform(0.2, 2.0, n)]
+        got = merge_ops.merge_topics_parts(parts, w_host, 0.01, 0.01)
+        want = merge_topics_ref(torch.stack(parts),
+                                torch.tensor(w_host, device=dev), 0.01, 0.01)
+        errs.append(close(got, want, MERGE_TOL))
+        for _ in range(5):
+            if not torch.equal(merge_ops.merge_topics_parts(
+                    parts, w_host, 0.01, 0.01), got):
+                raise AssertionError("merge_topics_parts gives other bits "
+                                     "on a repeat call")
+        log(f"[kernels] merge_topics_parts n={n} K={k} V={v} (weights by "
+            f"value{', pointer table on the device' if n > merge_ops.MAX_PARAM_PARTS else ''}): "
+            f"max abs err {errs[-1]:.3g} (tol {MERGE_TOL}); same bits over 5 "
+            f"calls")
+        del parts, want
     report["merge_topics"] = dict(
         name="merge_topics", route="cuda",
         source="src/repro_torch/kernels/csrc/merge_topics.cu",
         replaces="src/repro/kernels/merge_topics/merge_topics.py:37",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib)
+        bound_by=b_by, library_ms=lib, ms_parts_unit_weights=ms_parts,
+        ms_batched_b1=ms_b1, ms_after_reading_flush=ms_read,
+        ms_batched_b1_after_reading_flush=ms_b1_read)
 
     # merge_topics_ragged
     counts = [1, 3, 8, 2]
@@ -287,44 +351,103 @@ def main() -> int:
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib)
 
-    # vb_estep: x is a real doc-term block of the main path's corpus shape
+    # vb_estep: the CSR kernel on doc_term_csr(x) of real doc-term blocks
+    # at the main path's widths, held against the dense plain version;
+    # then the edge shape, and shapes whose documents overflow the row
+    # budget of a CTA (their rows stream in chunks every iteration)
     errs = []
     t_estep_s = None
-    for d, k, v, iters in [(2048, 100, 8192, 20), (135, 6, 150, 20)]:
-        corpus_d, beta_true = make_corpus(d, v, k, mean_doc_len=60, seed=1)
-        x = torch.tensor(doc_term_matrix(corpus_d), device=dev)
-        eeb = torch.tensor(beta_true + 1e-4, dtype=torch.float32, device=dev)
-        eeb = (eeb / eeb.sum(1, keepdim=True)).contiguous()
+    estep = {}
+
+    def estep_case(x, eeb, iters, label):
+        d, k = x.shape[0], eeb.shape[0]
         g0 = torch.ones((d, k), dtype=torch.float32, device=dev)
-        g1, s1 = estep_ops.vb_estep(x, eeb, g0, 0.5, iters)
+        csr = estep_ops.doc_term_csr(x)
+        g1, s1 = estep_ops.vb_estep_csr(csr, eeb, g0, 0.5, iters)
         g2, s2 = vb_estep_ref(x, eeb, g0, 0.5, iters)
         errs.append(max(close(g1, g2, ESTEP_TOL), close(s1, s2, ESTEP_TOL)))
-        log(f"[kernels] vb_estep D={d} K={k} V={v} n_iters={iters}: max abs "
-            f"err {errs[-1]:.3g} (tol {ESTEP_TOL})")
+        rows, _ = estep_ops.estep_plan(k, csr.max_row)
+        log(f"[kernels] vb_estep {label} D={d} K={k} V={x.shape[1]} "
+            f"n_iters={iters}: max abs err {errs[-1]:.3g} (tol {ESTEP_TOL}); "
+            f"nnz {csr.nnz}, longest document {csr.max_row} nonzeros, "
+            f"row budget {rows}"
+            + (" (longer documents stream in chunks)"
+               if rows < csr.max_row else ""))
+        return csr, g0, g1, s1, rows
+
+    def corpus_block(d, k, v, mean_len, seed):
+        corpus_d, beta_true = make_corpus(d, v, k, mean_doc_len=mean_len,
+                                          seed=seed)
+        x = torch.tensor(doc_term_matrix(corpus_d), device=dev)
+        eeb = torch.tensor(beta_true + 1e-4, dtype=torch.float32, device=dev)
+        return x, (eeb / eeb.sum(1, keepdim=True)).contiguous()
+
+    for d, k, v, iters in [(2048, 100, 8192, 20), (1000, 100, 8192, 20),
+                           (135, 6, 150, 20)]:
+        x, eeb = corpus_block(d, k, v, 60, 1)
+        csr, g0, g1, s1, _ = estep_case(x, eeb, iters, "corpus")
         if d == 2048:
-            nnz = int(torch.count_nonzero(x))
-            ms = time_ms(lambda: estep_ops.vb_estep(x, eeb, g0, 0.5, iters), 5)
-            plain = time_ms(lambda: vb_estep_ref(x, eeb, g0, 0.5, iters), 5)
-            t_estep_s = ms * 1e-3
-            # bytes: x, eeb, gamma0 read once; gamma, sstats written once.
-            # operations this x needs: phinorm and the gamma product only
-            # at nonzero x (4·K flops each, plus the division), the
-            # digamma/exp update of every gamma entry (~62 ops), the
-            # final multiply by eeb
-            n_bytes = 4 * (d * v + k * v + 2 * d * k + k * v)
-            n_ops = (iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
-            log(f"[kernels] vb_estep x has {nnz} nonzeros of {d * v} "
-                f"({100.0 * nnz / (d * v):.2f}%); dense work "
-                f"{4.0 * d * k * v * (iters + 1):.3g} flops, "
-                f"{4.0 * d * k * v * (iters + 1) / (ms * 1e-3) / 1e12:.3f} "
-                f"TFLOP/s dense-equivalent")
+            for _ in range(5):
+                g3, s3 = estep_ops.vb_estep_csr(csr, eeb, g0, 0.5, iters)
+                if not (torch.equal(g3, g1) and torch.equal(s3, s1)):
+                    raise AssertionError("vb_estep gives other bits on a "
+                                         "repeat call")
+            log("[kernels] vb_estep D=2048: same bits over 5 calls")
+        if k != 100:
+            continue
+        nnz = csr.nnz
+        ms = time_ms(lambda: estep_ops.vb_estep_csr(csr, eeb, g0, 0.5,
+                                                    iters), 10)
+        conv = time_ms(lambda: estep_ops.doc_term_csr(x), 5)
+        plain = time_ms(lambda: vb_estep_csr_ref(csr, eeb, g0, 0.5, iters),
+                        3)
+        dense_plain = time_ms(lambda: vb_estep_ref(x, eeb, g0, 0.5, iters),
+                              3)
+        # bytes: the CSR (indptr, indices, values, rows, col_ptr, perm),
+        # eeb and gamma0 read once; gamma and sstats written once.
+        # operations this x needs: phinorm and the gamma product at the
+        # nonzeros (4·K flops each, plus the division), the digamma/exp
+        # update of every gamma entry (~62 ops), the final multiply by eeb
+        n_bytes = 4 * (4 * nnz + d + 1 + v + 1 + k * v + 2 * d * k + k * v)
+        n_ops = (iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        estep[d] = dict(ms=ms, plain_ms=plain, dense_plain_ms=dense_plain,
+                        conversion_ms=conv, nnz=nnz, bound_ms=b_ms,
+                        bound_by=b_by)
+        log(f"[kernels] vb_estep D={d}: {ms:.4f} ms, "
+            f"{n_ops / (ms * 1e-3) / 1e12:.3f} TFLOP/s at the nonzeros "
+            f"({nnz} of {d * v}, {100.0 * nnz / (d * v):.2f}%); bound "
+            f"{b_ms:.4f} ms ({b_by}); conversion (doc_term_csr, once per "
+            f"fit) {conv:.4f} ms; plain CSR {plain:.3f} ms, plain dense "
+            f"{dense_plain:.3f} ms")
+    t_estep_s = estep[2048]["ms"] * 1e-3
+    # documents longer than the row budget: K = 256 at 40% nonzeros, and
+    # a corpus of ~1,000-token documents at the main path's widths
+    x = torch.tensor(rng.poisson(0.5, (17, 300)), dtype=torch.float32,
+                     device=dev)
+    eeb = torch.tensor(rng.gamma(1.0, 1.0, (256, 300)), dtype=torch.float32,
+                       device=dev)
+    eeb = (eeb / eeb.sum(1, keepdim=True)).contiguous()
+    csr, *_, rows = estep_case(x, eeb, 8, "poisson")
+    overflow = [rows < csr.max_row]
+    x, eeb = corpus_block(64, 100, 8192, 1000, 4)
+    csr, *_, rows = estep_case(x, eeb, 20, "long documents")
+    overflow.append(rows < csr.max_row)
+    if not all(overflow):
+        raise AssertionError("an overflow shape fit the row budget: the "
+                             "chunked path was not run")
     report["vb_estep"] = dict(
         name="vb_estep", route="cuda",
         source="src/repro_torch/kernels/csrc/vb_estep.cu",
         replaces="src/repro/kernels/vb_estep/vb_estep.py:76",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+        max_abs_err=max(errs), library_ms=None,
+        **{key: estep[2048][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "dense_plain_ms",
+            "conversion_ms", "nnz")},
+        at_d1000={key: estep[1000][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "conversion_ms",
+            "nnz")})
+    del x, eeb, csr
     # merge_topics_batch (b merges of n rows in one launch)
     errs = []
     for b, n, k, v in [(4, 8, 100, 8192), (3, 2, 6, 150)]:

@@ -11,7 +11,7 @@ registry's ``"vb"`` trainer calls ``vb_fit(..., use_kernel=True)``).
 on a CUDA device in an LRU cache keyed by store model id (count- **and**
 byte-bounded, invalidated through the store's change notifications),
 executes merges through the hand-written ``merge_topics`` kernel — one
-``(n, K, V)`` launch per query, and one *ragged segmented* launch for a
+launch over the n cached parts per query, and one *ragged segmented* launch for a
 ``submit_many`` batch (zero pad rows) — and routes VB gap training
 through the fused E-step kernel (``vb_fit(..., use_kernel=True)``) and
 Gibbs gap training through the doc-blocked sweep kernel
@@ -20,9 +20,10 @@ backend uses, runs the exact-scan kernel on the card).  A
 freshly trained persisted gap model is warm-inserted into the LRU
 (``note_trained``) so the merge that follows reads it back as a hit.
 
-``DeviceBackend.merge`` stacks the cached (K, V) tensors into one
-``(n, K, V)`` tensor before the launch — an extra device copy of the
-parts that a kernel reading through an array of pointers would avoid.
+``DeviceBackend.merge`` hands the cached (K, V) tensors to the kernel
+through a table of pointers, with no copy.  ``merge_many`` still stacks
+each query's parts and the ragged wrapper concatenates the stacks: two
+device copies of every part before its launch.
 
 No path here sends a CUDA tensor to a plain version: on a CUDA device a
 kernel either launches or raises.  ``_device_guard`` maps out-of-memory
@@ -56,7 +57,7 @@ from repro_torch.core.store import ModelStore
 from repro_torch.data.corpus import Corpus, doc_term_matrix
 from repro_torch.kernels.common import KernelError, resolve_device
 from repro_torch.kernels.merge_topics.ops import (
-    merge_topics,
+    merge_topics_parts,
     merge_topics_ragged,
 )
 from repro_torch.obs import trace as obs
@@ -426,10 +427,11 @@ class DeviceBackend(ExecutionBackend):
         with self._device_guard(), \
                 obs.span("kernel.launch", "backend", op="merge_topics",
                          n_parts=len(parts), backend=self.name):
-            stats = torch.stack([self._fetch(m, stat_key) for m in parts])
-            w = torch.ones((len(parts),), dtype=torch.float32,
-                           device=self.device)
-            merged = merge_topics(stats, w, bias=bias, base=base)
+            # the cached tensors go to the kernel as they are: no stacked
+            # copy, and the unit weights go by value
+            merged = merge_topics_parts(
+                [self._fetch(m, stat_key) for m in parts],
+                [1.0] * len(parts), bias=bias, base=base)
             host = merged.cpu().numpy()      # waits for the launch
             ms = (time.perf_counter() - t0) * 1e3
             obs.set_attrs(merge_device_ms=ms)

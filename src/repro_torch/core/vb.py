@@ -2,10 +2,12 @@
 
 The E-step inner loop is two products per iteration over the doc-term
 matrix — LDA's compute hot spot.  ``use_kernel=True`` routes it through
-the fused E-step's wrapper (``kernels/vb_estep``), which launches the
-CUDA kernel for CUDA tensors and runs its plain version for CPU ones.
-The plain path here is the counterpart of the JAX package's jnp path
-and takes CPU tensors only: on the card the E-step is the kernel.
+the sparse E-step's wrapper (``kernels/vb_estep``), which launches the
+CUDA kernel for CUDA tensors and runs its plain version for CPU ones;
+``vb_fit`` then converts x to CSR once per fit (one synchronisation) and
+every E-step call of the fit reuses it.  The plain path here is the
+counterpart of the JAX package's jnp path and takes CPU tensors only: on
+the card the E-step is the kernel.
 
 Randomness comes from an explicit ``torch.Generator``; the trainer
 runs on ``gen.device``.  ``lam0=`` injects the initial λ so a test can
@@ -84,9 +86,17 @@ def vb_fit(x: Union[np.ndarray, torch.Tensor], gen: torch.Generator,
             raise ValueError(f"lam0 must be ({k}, {v}), got "
                              f"{tuple(lam.shape)}")
     gamma0 = torch.ones((d, k), dtype=torch.float32, device=dev)
+    if use_kernel:
+        from repro_torch.kernels.vb_estep import ops as _ops
+        csr = _ops.doc_term_csr(x)       # its one sync stays out of the loop
+
+        def estep(eeb):
+            return _ops.vb_estep_csr(csr, eeb, gamma0, cfg.alpha,
+                                     cfg.e_step_iters)
+    else:
+        def estep(eeb):
+            return vb_estep(x, eeb, gamma0, cfg.alpha, cfg.e_step_iters)
     for _ in range(cfg.max_iters):
-        _, sstats = vb_estep(x, _exp_dirichlet_expectation(lam), gamma0,
-                             cfg.alpha, cfg.e_step_iters,
-                             use_kernel=use_kernel)
+        _, sstats = estep(_exp_dirichlet_expectation(lam))
         lam = cfg.eta + sstats
     return lam

@@ -47,11 +47,14 @@ _SIGNATURES = {
     "mlego_merge_topics_batched": (_P, _P, _P, _I, _I, _LL, _F, _F, _P),
     # stats, weights, row_offsets, out, n_segments, kv, bias, base, stream
     "mlego_merge_topics_ragged": (_P, _P, _P, _P, _I, _LL, _F, _F, _P),
-    # x, exp_elog_beta, gamma0, gamma, exp_elog_theta, D, K, V, alpha,
-    # n_iters, stream
-    "mlego_vb_estep_iters": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # x, exp_elog_beta, exp_elog_theta, sstats, D, K, V, stream
-    "mlego_vb_estep_sstats": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # host_ptrs, host_w, dev_table, dev_w, n, kv, bias, base, out, stream
+    "mlego_merge_topics_parts": (_P, _P, _P, _P, _I, _LL, _F, _F, _P, _P),
+    # indptr, indices, values, eeb_t, gamma0, gamma, exp_elog_theta,
+    # ratio, next_doc, D, K, R, alpha, n_iters, stream
+    "mlego_vb_estep_csr_iters": (_P,) * 9 + (_I,) * 3 + (_F, _I, _P),
+    # col_ptr, perm, rows, ratio, exp_elog_theta, eeb_t, sstats, K, V,
+    # stream
+    "mlego_vb_estep_csr_sstats": (_P,) * 7 + (_I, _I, _P),
     # words, ldoc, mask, u, z_in, nkd_in, prior_t, prior_k, z_out,
     # nkd_out, nkv, B, T, BD, K, V, alpha, stream
     "mlego_gibbs_sweep_blocked": (_P,) * 11 + (_I,) * 5 + (_F, _P),

@@ -1,17 +1,28 @@
 // Weighted topic-statistic merge (the paper's Alg. 1 / Alg. 2) for Hopper.
 //
-//   out = bias + sum_r w[r] * (stats[r] - base)          stats: (n, K*V)
+//   out = bias + sum_r w[r] * (stats[r] - base)          stats: n x (K*V)
 //
 // Replaces the Pallas kernels merge_topics_pallas,
 // merge_topics_batched_pallas and merge_topics_ragged_pallas
 // (src/repro/kernels/merge_topics/merge_topics.py:37, :66 and :112).
 //
 // Bound: device memory.  Each output element needs n loads and ~2n flops,
-// so the work is (n+1)*K*V*4 bytes over the card's bandwidth.  The design
-// reads every input element exactly once, with 16-byte vector loads when
-// K*V is a multiple of 4, keeps the running sum in a register and writes
-// each output once.  K and V are not padded; the flat K*V range is masked
-// in the kernel by a grid-stride loop.
+// so the work is (n+1)*K*V*4 bytes over the card's bandwidth.  Every input
+// element is read exactly once and every output written once; the running
+// sum stays in a register.  K and V are not padded; the flat K*V range is
+// masked in the kernel by a grid-stride loop.
+//
+// The single merge (merge_parts) takes its n parts as n separate arrays:
+// up to kMaxParamParts pointers and weights travel by value in the kernel's
+// parameters (no device allocation, no host-to-device copy, and no stacked
+// copy of the parts); a larger n, or weights that already live on the
+// device, are read through device pointers.  Each thread owns two output
+// pieces (16-byte float4 when K*V is a multiple of 4 and every pointer is
+// 16-byte aligned, else single floats) and issues the loads of a chunk of
+// kChunk rows for both before its first FMA, so 2 * kChunk loads are in
+// flight per thread instead of one DRAM round trip per row.  The grid is
+// the CTAs that fit on the card at once.  The sum order is r = 0 .. n-1,
+// so every run gives the same bits.
 //
 // The ragged form gives one program to each (segment, output tile) and
 // loops over that segment's rows, read from CSR row offsets
@@ -74,6 +85,97 @@ __global__ void merge_scalar(const float* __restrict__ stats,
   }
 }
 
+constexpr int kMaxParamParts = 128;
+constexpr int kChunk = 8;
+
+// The n parts of one merge.  With n <= kMaxParamParts the pointers (and,
+// unless w_dev is set, the weights) are the arrays in the struct, 1,552
+// bytes of the 4 KB kernel-parameter space; otherwise table points to n
+// part pointers on the device.
+struct Parts {
+  const float* const* table;  // n part pointers on the device, or null
+  const float* w_dev;         // n weights on the device, or null
+  const float* ptr[kMaxParamParts];
+  float w[kMaxParamParts];
+};
+
+__device__ __forceinline__ void axpy(float4& a, float w, const float4& s,
+                                     float base) {
+  a.x += w * (s.x - base);
+  a.y += w * (s.y - base);
+  a.z += w * (s.z - base);
+  a.w += w * (s.w - base);
+}
+__device__ __forceinline__ void axpy(float& a, float w, float s, float base) {
+  a += w * (s - base);
+}
+__device__ __forceinline__ float4 plus(const float4& a, float b) {
+  return make_float4(a.x + b, a.y + b, a.z + b, a.w + b);
+}
+__device__ __forceinline__ float plus(float a, float b) { return a + b; }
+
+// T = float4 or float; CHUNK rows' loads are issued before their FMAs.
+template <typename T, int CHUNK>
+__global__ void __launch_bounds__(kThreads)
+    merge_parts(const __grid_constant__ Parts p, int n, long long items,
+                float bias, float base, T* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i0 < items; i0 += 2 * stride) {
+    const long long i1 = i0 + stride;
+    const bool has1 = i1 < items;
+    T acc0{}, acc1{};
+    for (int r0 = 0; r0 < n; r0 += CHUNK) {
+      T s0[CHUNK], s1[CHUNK];
+      float w[CHUNK];
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        if (r0 + j < n) {
+          const T* src = reinterpret_cast<const T*>(
+              p.table ? p.table[r0 + j] : p.ptr[r0 + j]);
+          w[j] = p.w_dev ? p.w_dev[r0 + j] : p.w[r0 + j];
+          s0[j] = __ldg(src + i0);
+          if (has1) s1[j] = __ldg(src + i1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        if (r0 + j < n) {
+          axpy(acc0, w[j], s0[j], base);
+          if (has1) axpy(acc1, w[j], s1[j], base);
+        }
+      }
+    }
+    out[i0] = plus(acc0, bias);
+    if (has1) out[i1] = plus(acc1, bias);
+  }
+}
+
+// CTAs of `kernel` that fit on the current device at once
+template <typename K>
+int resident_ctas(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+template <typename T>
+int launch_parts(const Parts& p, int n, long long items, float bias,
+                 float base, T* out, cudaStream_t stream) {
+  static const int resident = resident_ctas(merge_parts<T, kChunk>);
+  if (resident < 1) return (int)cudaErrorInvalidDevice;
+  long long blocks = (items + 2 * kThreads - 1) / (2 * kThreads);
+  if (blocks > resident) blocks = resident;  // grid-stride covers the rest
+  merge_parts<T, kChunk><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      p, n, items, bias, base, out);
+  return (int)cudaGetLastError();
+}
+
 int launch(const float* stats, const float* w, const int* row_offsets,
            float* out, int n_rows, int n_segments, long long kv, float bias,
            float base, cudaStream_t stream) {
@@ -101,7 +203,7 @@ int launch(const float* stats, const float* w, const int* row_offsets,
 
 extern "C" {
 
-// b merges of n rows each; merge_topics is the case b = 1
+// b merges of n rows each
 int mlego_merge_topics_batched(const float* stats, const float* w,
                                float* out, int b, int n, long long kv,
                                float bias, float base, void* stream) {
@@ -115,6 +217,39 @@ int mlego_merge_topics_ragged(const float* stats, const float* w,
                               float base, void* stream) {
   return launch(stats, w, row_offsets, out, 0, n_segments, kv, bias, base,
                 (cudaStream_t)stream);
+}
+
+// One merge of n parts.  host_ptrs: the n part pointers (host array);
+// host_w: n weights (host array), or null when dev_w is set; dev_table: the
+// n part pointers on the device, needed only for n > kMaxParamParts, where
+// the weights must be on the device too (dev_w).
+int mlego_merge_topics_parts(const void* const* host_ptrs,
+                             const float* host_w, const void* dev_table,
+                             const float* dev_w, int n, long long kv,
+                             float bias, float base, float* out,
+                             void* stream) {
+  if (n < 1 || kv < 1 || !host_ptrs) return (int)cudaErrorInvalidValue;
+  Parts p{};
+  p.w_dev = dev_w;
+  if (n <= kMaxParamParts) {
+    if (!dev_w && !host_w) return (int)cudaErrorInvalidValue;
+    for (int r = 0; r < n; ++r) {
+      p.ptr[r] = static_cast<const float*>(host_ptrs[r]);
+      if (!dev_w) p.w[r] = host_w[r];
+    }
+  } else {
+    if (!dev_table || !dev_w) return (int)cudaErrorInvalidValue;
+    p.table = static_cast<const float* const*>(dev_table);
+  }
+  // 16-byte loads need kv % 4 == 0 and every pointer 16-byte aligned
+  bool vec = kv % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  for (int r = 0; r < n && vec; ++r)
+    vec = reinterpret_cast<std::uintptr_t>(host_ptrs[r]) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    return launch_parts(p, n, kv / 4, bias, base,
+                        reinterpret_cast<float4*>(out), s);
+  return launch_parts(p, n, kv, bias, base, out, s);
 }
 
 const char* mlego_error_string(int status) {

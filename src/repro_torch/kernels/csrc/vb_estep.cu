@@ -1,57 +1,77 @@
-// Fused LDA variational E-step for Hopper, in two launches.
+// Sparse (CSR) LDA variational E-step for Hopper, in two launches.
 //
 // Replaces the Pallas kernel vb_estep_pallas
-// (src/repro/kernels/vb_estep/vb_estep.py:76).  It computes, for
-// x (D, V), eeb = exp(E[log beta]) (K, V) and gamma0 (D, K):
+// (src/repro/kernels/vb_estep/vb_estep.py:76).  With x (D, V) held as CSR
+// rows (indptr, indices, values: nonzero j of document d has term v_j and
+// count x_j), eeb = exp(E[log beta]) given transposed as eebT (V, K), and
+// gamma0 (D, K), it computes
 //
 //   repeat n_iters:
-//     eet     = exp(psi(gamma) - psi(sum_k gamma))           (D, K)
-//     phinorm = eet . eeb + 1e-30                            (D, V)
-//     gamma   = alpha + eet * ((x / phinorm) . eeb^T)        (D, K)
-//   sstats = (eet^T . (x / phinorm)) * eeb                   (K, V)
+//     eet       = exp(psi(gamma) - psi(sum_k gamma))                (D, K)
+//     phinorm_j = eet[d] . eeb[:, v_j] + 1e-30              nonzeros of d
+//     gamma[d]  = alpha + eet[d] * sum_j (x_j / phinorm_j) eeb[:, v_j]
+//   sstats[k, v] = eeb[k, v] * sum_{j in column v} eet[d_j, k] x_j / phinorm_j
 //
-// psi is the same 8-step shift plus asymptotic series as the TPU kernel
-// (vb_estep.py:29-41), not a library digamma.  Everything is fp32 with no
-// TF32, so the result stays within 2e-4 of the plain version.
+// which is the TPU kernel's dense E-step: an entry with x = 0 adds exactly
+// 0 to gamma and to sstats, so visiting only the nonzeros changes nothing
+// but the order of the sums.  psi is the same 8-step shift plus asymptotic
+// series (vb_estep.py:29-41), not a library digamma.  Everything is fp32
+// with no TF32, so the result stays within 2e-4 of the plain version.
 //
-// Bound: operations.  The two products per iteration are 4*D*K*V flops
-// against D*V*4 bytes of x, far above the card's fp32 ridge point.  (Most
-// entries of a real doc-term x are zero, so a sparse form would need far
-// fewer operations; this dense kernel keeps the TPU kernel's arithmetic.)
+// Bound: operations.  Each iteration does 4*K flops per nonzero (phinorm
+// and the gamma product) and ~62 per (document, topic) for the digamma
+// update; the CSR, eeb, gamma and sstats are a few MB, read or written
+// once.  Dense, the same call would be 4*D*K*V flops a iteration, ~140x
+// more at the main path's 0.73% nonzeros.
 //
-// Launch (a), estep_iters: one CTA per block of BD documents.  gamma and
-// eet of the block stay in shared memory for all n_iters iterations; each
-// iteration streams V in tiles of TV columns: x tile and eeb tile into
-// shared memory, the phinorm tile and the ratio x / phinorm, then the
-// (BD, K) product is added up in registers across all tiles.  It writes
-// gamma and the final eet.
+// Launch (a), estep_csr_iters: one CTA per document (threads_for(K)
+// threads: one per topic and a spare, at least two warps).  The CTA gathers
+// its document's rows of eeb, B_j = eebT[v_j, :], into shared memory once
+// and runs every iteration from there (eeb does not change within a
+// call), so eeb is read from L2 once per document, not once per iteration.
+// The rows are stored at a stride S of an odd number of float4s, so
+// threads reading rows j, j+1, ... at the same topics hit different banks.
+// Per iteration:
+//   eet_t = exp(psi(gamma_t) - psi(sum gamma)), one digamma series a
+//   thread (the spare thread takes the sum's);
+//   phinorm over rows (threads over j, float4 over topics), ratio r_j;
+//   the gamma product (thread t sums r_j B_jt over the rows).
+// Four __syncthreads an iteration.  The work of a document is a chain of
+// short dependent steps, so what keeps the card busy is the number of
+// documents in flight: the CTAs stay resident (as many as fit, ~6 an SM at
+// K = 100) and take documents from a counter until none is left, with no
+// tail wave.  A document with more nonzeros than the row budget R streams
+// its rows from L2 in chunks of R every iteration instead (the same code,
+// with the gather inside the iteration loop).  It writes gamma, the final
+// eet and the final ratios; which CTA takes a document does not change
+// its result.
 //
-// Launch (b), estep_sstats: the TPU kernel adds every doc block into one
-// (K, V) output that each grid step revisits in order.  GPU blocks run in
-// no order, so instead one CTA owns a tile of TV2 vocabulary columns for
-// all K topics and loops over the documents in chunks: it recomputes
-// phinorm for the chunk from eet and its eeb tile, adds eet^T . ratio in
-// registers, and multiplies by eeb at the end.  No atomics and no (K, V)
-// partial per doc block; the sum order is fixed, so every run gives the
-// same answer.  Rows past D are loaded as zeros (x and eet), so a ragged
-// last chunk adds nothing.
+// Launch (b), estep_csr_sstats: the TPU kernel adds every doc block into one
+// (K, V) output that its grid steps revisit in order.  Here a CTA owns TV
+// vocabulary columns, one warp a column: it walks the column's entries (the
+// column view: col_ptr and perm, ordered by (v, d)) with lanes over topics,
+// adding eet[d, k] * r_j in registers, and multiplies by eeb[k, v] at the
+// end.  The (K, TV) block is staged in shared memory so the (K, V) store is
+// coalesced.  No atomics and a fixed order: every call gives the same
+// bits.  A column with no entries writes exact zeros.
 //
-// K is not padded: the kernels loop over exactly K topics (the k-slots of
-// a template instance beyond K read zero rows or are skipped).  The TPU
-// wrapper pads K to 128 with eeb = 1e-30; that is harmless there because
-// a common factor of eet cancels between phinorm and the gamma update,
-// and it is simply not needed here.
+// K is not padded in device memory: the kernels take exactly K topics.  In
+// shared memory the rows and eet carry zeros up to a multiple of 4 topics,
+// which add nothing; threads and k-slots of a template instance beyond K
+// are skipped.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BD = 16;          // documents per CTA, launch (a)
-constexpr int TV = 64;          // vocabulary columns per tile, launch (a)
-constexpr int TVP = TV + 1;     // padded row stride of the eeb tile
-constexpr int kThreadsA = 128;  // 4 warps x 4 documents
-constexpr int BD2 = 32;         // documents per chunk, launch (b)
-constexpr int TV2 = 32;         // vocabulary columns per CTA, launch (b)
-constexpr int kThreadsB = 256;  // 8 warps x 4 documents
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreadsA = 288; // threads per CTA, launch (a): K <= 256
+// CTAs of launch (a) the compiler sizes its registers for.  Without it
+// ptxas gave the kernel 32 registers and spilled; with 4 it takes 56 and
+// spills nothing, so 6 CTAs of 128 threads (K = 100) still fit an SM.
+constexpr int kMinBlocksA = 4;
+constexpr int TV = 32;            // vocabulary columns per CTA, launch (b)
+constexpr int kThreadsB = 32 * TV; // one warp per column
+constexpr int kMaxSmem = 232448; // bytes of shared memory a CTA may use
 
 __device__ __forceinline__ float digamma_series(float x) {
   float shift = 0.f;
@@ -69,249 +89,264 @@ __device__ __forceinline__ float digamma_series(float x) {
   return series + shift;
 }
 
-// eet_t[k][d] = exp(psi(g[d][k]) - psi(sum_k g[d][k])) for the BD docs of
-// the CTA; each of the 4 warps takes BD / 4 documents.
-__device__ void exp_dirichlet_block(const float* g, float* eet_t, int K,
-                                    int warp, int lane) {
-  for (int i = 0; i < BD / 4; ++i) {
-    const int d = warp * (BD / 4) + i;
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32) s += g[d * K + k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float psi_sum = digamma_series(s);
-    for (int k = lane; k < K; k += 32)
-      eet_t[k * BD + d] = expf(digamma_series(g[d * K + k]) - psi_sum);
-  }
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Threads of a launch (a) CTA: one per topic and a spare one (which takes
+// psi of the sum of gamma), at least two warps.
+__host__ __device__ inline int threads_for(int K) {
+  const int t = (K + 32) / 32 * 32;
+  return t < 64 ? 64 : t;
 }
 
-// Launch (a).  KS topic slots per lane: K <= 32 * KS.
-template <int KS>
-__global__ void __launch_bounds__(kThreadsA)
-    estep_iters(const float* __restrict__ x, const float* __restrict__ eeb,
-                const float* __restrict__ gamma0,
-                float* __restrict__ gamma_out, float* __restrict__ eet_out,
-                int D, int K, int V, float alpha, int n_iters) {
+// Row stride of the eeb rows in shared memory: a multiple of 4 floats (rows
+// are read as float4) with an odd number of float4s, so eight rows read
+// together by a quarter warp fall in different banks.
+__host__ __device__ inline int row_stride(int K) {
+  const int s = round4(K);
+  return (s / 4) % 2 ? s : s + 4;
+}
+
+// Floats of shared memory a CTA of launch (a) holds: eet (K), psi of each
+// thread's value (threads), gamma (K), the chunk's ratios (R) and R rows of
+// B; every part starts on a 16-byte boundary.  (ops.py's estep_plan
+// computes the same.)
+__host__ __device__ inline int doc_floats(int K, int R) {
+  return 2 * round4(K) + round4(threads_for(K)) + round4(R) +
+         R * row_stride(K);
+}
+
+// Launch (a).  A CTA of threads_for(K) threads per document, thread t < K
+// owning topic t; CTAs stay resident and take documents from *next_doc.
+__global__ void __launch_bounds__(kMaxThreadsA, kMinBlocksA)
+    estep_csr_iters(const int* __restrict__ indptr,
+                    const int* __restrict__ indices,
+                    const float* __restrict__ values,
+                    const float* __restrict__ eebT,
+                    const float* __restrict__ gamma0,
+                    float* __restrict__ gamma_out,
+                    float* __restrict__ eet_out,
+                    float* __restrict__ ratio_out, int* __restrict__ next_doc,
+                    int D, int K, int R, float alpha, int n_iters) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int KP = 32 * KS;
-  float* b_s = smem;               // [KP][TVP]  eeb tile
-  float* t_s = b_s + KP * TVP;     // [K][BD]    eet, transposed
-  float* g_s = t_s + K * BD;       // [BD][K]    gamma
-  float* x_s = g_s + BD * K;       // [BD][TV]   x tile
-  float* r_s = x_s + BD * TV;      // [BD][TV]   x / phinorm
+  __shared__ int doc_s;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int d0 = blockIdx.x * BD;
+  const int nt = blockDim.x;
+  const int nw = nt >> 5;
+  const int S = row_stride(K);
+  const int K4 = round4(K);
+  float* e_s = smem;                // [K4]     eet of the document
+  float* dg_s = e_s + K4;           // [nt]     psi(gamma_t); psi(sum) last
+  float* g_s = dg_s + round4(nt);   // [K4]     gamma
+  float* r_s = g_s + K4;            // [R]      ratios of a chunk
+  float* b_s = r_s + round4(R);     // [R][S]   eeb rows of a chunk
 
-  // rows K..KP-1 of the eeb tile stay zero: their k-slots add nothing
-  for (int i = tid; i < (KP - K) * TVP; i += kThreadsA) b_s[K * TVP + i] = 0.f;
-  for (int i = tid; i < BD * K; i += kThreadsA) {
-    const int d = i / K;
-    g_s[i] = (d0 + d < D) ? gamma0[(long long)d0 * K + i] : alpha;
-  }
-  __syncthreads();
+  // the columns K..S-1 of every row and eet[K..K4-1] stay zero, so the
+  // float4 reads past K add nothing
+  for (int i = tid; i < R * (S - K); i += nt)
+    b_s[(i / (S - K)) * S + K + i % (S - K)] = 0.f;
+  if (tid < K4 - K) e_s[K + tid] = 0.f;
 
-  for (int it = 0;; ++it) {
-    exp_dirichlet_block(g_s, t_s, K, warp, lane);
+  for (;;) {
+    __syncthreads();  // the previous document's readers are done
+    if (tid == 0) doc_s = atomicAdd(next_doc, 1);
     __syncthreads();
-    if (it == n_iters) break;
+    const int d = doc_s;
+    if (d >= D) return;
+    const int start = indptr[d];
+    const int n = indptr[d + 1] - start;
+    const bool resident = n <= R;  // rows loaded in iteration 0 stay
+    if (tid < K) g_s[tid] = gamma0[(long long)d * K + tid];
+    __syncthreads();
 
-    float acc[4][KS];
+    for (int it = 0;; ++it) {
+      const bool last = it == n_iters;
+      // eet = exp(psi(g) - psi(sum g)): every warp adds gamma in the same
+      // order; thread t < K takes psi(g_t), the last thread psi(sum)
+      float sum = 0.f;
+      for (int k = lane; k < K; k += 32) sum += g_s[k];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KS; ++j) acc[i][j] = 0.f;
-
-    for (int v0 = 0; v0 < V; v0 += TV) {
-      for (int i = tid; i < BD * TV; i += kThreadsA) {
-        const int d = i / TV, vv = i % TV;
-        x_s[i] = (d0 + d < D && v0 + vv < V)
-                     ? x[(long long)(d0 + d) * V + v0 + vv]
-                     : 0.f;
-      }
-      for (int i = tid; i < K * TV; i += kThreadsA) {
-        const int k = i / TV, vv = i % TV;
-        b_s[k * TVP + vv] =
-            (v0 + vv < V) ? eeb[(long long)k * V + v0 + vv] : 0.f;
-      }
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, off);
+      dg_s[tid] = digamma_series(tid < K ? g_s[tid] : sum);
       __syncthreads();
+      if (tid < K) e_s[tid] = expf(dg_s[tid] - dg_s[nt - 1]);
+      __syncthreads();  // e_s visible
+      float acc0 = 0.f, acc1 = 0.f;
 
-      // phinorm and ratio: thread owns column v for 8 documents
-      {
-        const int v = tid & (TV - 1);
-        const int dg = (tid >> 6) * 8;
-        float p[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) p[i] = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float b = b_s[k * TVP + v];
-          const float4 t0 = *reinterpret_cast<const float4*>(&t_s[k * BD + dg]);
-          const float4 t1 =
-              *reinterpret_cast<const float4*>(&t_s[k * BD + dg + 4]);
-          p[0] += t0.x * b;
-          p[1] += t0.y * b;
-          p[2] += t0.z * b;
-          p[3] += t0.w * b;
-          p[4] += t1.x * b;
-          p[5] += t1.y * b;
-          p[6] += t1.z * b;
-          p[7] += t1.w * b;
+      for (int c0 = 0; c0 < n; c0 += R) {
+        const int m = min(R, n - c0);
+        const float* xv = values + start + c0;
+        if (!resident || it == 0) {
+          const int* idx = indices + start + c0;
+          __syncthreads();  // the previous chunk's readers of b_s are done
+          // gather: warp w takes rows w, w + nw, ...; each lane fetches
+          // one row's term, the warp takes them by shuffle, lanes over
+          // topics, the loads of 8 rows issued before their stores
+          for (int jb = 0; jb < m; jb += 32 * nw) {
+            const int j_mine = jb + lane * nw + warp;
+            const int v_mine = j_mine < m ? __ldg(idx + j_mine) : 0;
+            const int left = m - jb - warp;
+            const int cnt = left <= 0 ? 0 : min(32, (left + nw - 1) / nw);
+#pragma unroll 8
+            for (int t = 0; t < cnt; ++t) {
+              const float* src =
+                  eebT + (long long)__shfl_sync(kFull, v_mine, t) * K;
+              float* dst = b_s + (jb + t * nw + warp) * S;
+              for (int k = lane; k < K; k += 32) dst[k] = __ldg(src + k);
+            }
+          }
+          __syncthreads();
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          r_s[(dg + i) * TV + v] = x_s[(dg + i) * TV + v] / (p[i] + 1e-30f);
-      }
-      __syncthreads();
 
-      // acc[d][k] += sum_v ratio[d][v] * eeb[k][v]: warp owns 4 documents,
-      // lane owns topics lane + 32 j
-      for (int v = 0; v < TV; ++v) {
-        float r[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) r[i] = r_s[(warp * 4 + i) * TV + v];
-#pragma unroll
-        for (int j = 0; j < KS; ++j) {
-          const float e = b_s[(lane + 32 * j) * TVP + v];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] += r[i] * e;
+        // phinorm and ratio: threads over rows, float4 over topics
+        for (int j = tid; j < m; j += nt) {
+          const float4* b = reinterpret_cast<const float4*>(b_s + j * S);
+          const float4* e4 = reinterpret_cast<const float4*>(e_s);
+          float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int q = 0; q < K4 / 4; ++q) {
+            const float4 bb = b[q], ee = e4[q];
+            p.x += ee.x * bb.x;
+            p.y += ee.y * bb.y;
+            p.z += ee.z * bb.z;
+            p.w += ee.w * bb.w;
+          }
+          const float r = __ldg(xv + j) / ((p.x + p.y) + (p.z + p.w) + 1e-30f);
+          r_s[j] = r;
+          if (last) ratio_out[start + c0 + j] = r;
+        }
+        if (last) continue;
+        __syncthreads();  // every ratio of the chunk is in r_s
+
+        // gamma product: thread t sums r_j B_jt over the rows
+        if (tid < K) {
+          const float* b = b_s + tid;
+          int j = 0;
+          for (; j + 3 < m; j += 4) {
+            const float4 rr = *reinterpret_cast<const float4*>(r_s + j);
+            acc0 += rr.x * b[j * S];
+            acc1 += rr.y * b[(j + 1) * S];
+            acc0 += rr.z * b[(j + 2) * S];
+            acc1 += rr.w * b[(j + 3) * S];
+          }
+          for (; j < m; ++j) acc0 += r_s[j] * b[j * S];
         }
       }
-      __syncthreads();  // the next tile overwrites x_s, b_s and r_s
+      if (last) break;
+      if (tid < K) g_s[tid] = alpha + e_s[tid] * (acc0 + acc1);
+      __syncthreads();  // the new gamma is in g_s
     }
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = warp * 4 + i;
-#pragma unroll
-      for (int j = 0; j < KS; ++j) {
-        const int k = lane + 32 * j;
-        if (k < K) g_s[d * K + k] = alpha + t_s[k * BD + d] * acc[i][j];
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < BD * K; i += kThreadsA) {
-    const int d = i / K, k = i - d * K;
-    if (d0 + d < D) {
-      gamma_out[(long long)d0 * K + i] = g_s[i];
-      eet_out[(long long)d0 * K + i] = t_s[k * BD + d];
+    if (tid < K) {
+      gamma_out[(long long)d * K + tid] = g_s[tid];
+      eet_out[(long long)d * K + tid] = e_s[tid];
     }
   }
 }
 
-// Launch (b).  4 * KS topic slots per thread: k = warp + 8 j, K <= 32 * KS.
+// Launch (b).  KS topic slots per lane: K <= 32 * KS; warp c owns column
+// v0 + c.
 template <int KS>
 __global__ void __launch_bounds__(kThreadsB)
-    estep_sstats(const float* __restrict__ x, const float* __restrict__ eeb,
-                 const float* __restrict__ eet, float* __restrict__ sstats,
-                 int D, int K, int V) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int KJ = 4 * KS;
-  float* e_s = smem;               // [K][BD2]   eet chunk, transposed
-  float* b_s = e_s + K * BD2;      // [K][TV2]   eeb tile
-  float* x_s = b_s + K * TV2;      // [BD2][TV2] x chunk
-  float* r_s = x_s + BD2 * TV2;    // [BD2][TV2] x / phinorm
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int v0 = blockIdx.x * TV2;
+    estep_csr_sstats(const int* __restrict__ col_ptr,
+                     const int* __restrict__ perm,
+                     const int* __restrict__ rows,
+                     const float* __restrict__ ratio,
+                     const float* __restrict__ eet,
+                     const float* __restrict__ eebT,
+                     float* __restrict__ sstats, int K, int V) {
+  __shared__ float out_s[32 * KS][TV + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int v0 = blockIdx.x * TV;
 
-  for (int i = tid; i < K * TV2; i += kThreadsB) {
-    const int k = i / TV2, vv = i % TV2;
-    b_s[i] = (v0 + vv < V) ? eeb[(long long)k * V + v0 + vv] : 0.f;
-  }
-  float acc[KJ];
+  const int c = warp;
+  const int v = v0 + c;
+  if (v < V) {
+    const int e0 = col_ptr[v], e1 = col_ptr[v + 1];
+    float acc[KS];
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < D; c0 += BD2) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < BD2 * K; i += kThreadsB) {
-      const int d = i / K, k = i - d * K;
-      e_s[k * BD2 + d] = (c0 + d < D) ? eet[(long long)c0 * K + i] : 0.f;
-    }
-    for (int i = tid; i < BD2 * TV2; i += kThreadsB) {
-      const int d = i / TV2, vv = i % TV2;
-      x_s[i] = (c0 + d < D && v0 + vv < V)
-                   ? x[(long long)(c0 + d) * V + v0 + vv]
-                   : 0.f;
-    }
-    __syncthreads();
-
-    // phinorm and ratio: lane owns a column, warp 4 documents
-    {
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < K; ++k) {
-        const float b = b_s[k * TV2 + lane];
-        const float4 e = *reinterpret_cast<const float4*>(&e_s[k * BD2 + warp * 4]);
-        p[0] += e.x * b;
-        p[1] += e.y * b;
-        p[2] += e.z * b;
-        p[3] += e.w * b;
+    for (int s = 0; s < KS; ++s) acc[s] = 0.f;
+    for (int eb = e0; eb < e1; eb += 32) {
+      // each lane fetches one entry's (document, ratio); the warp then
+      // walks them in column order
+      int dd = 0;
+      float rr = 0.f;
+      if (eb + lane < e1) {
+        const int p = perm[eb + lane];
+        dd = rows[p];
+        rr = ratio[p];
       }
+      const int cnt = min(32, e1 - eb);
+#pragma unroll 8
+      for (int t = 0; t < cnt; ++t) {
+        const int dt = __shfl_sync(kFull, dd, t);
+        const float rt = __shfl_sync(kFull, rr, t);
+        const float* row = eet + (long long)dt * K;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = warp * 4 + i;
-        r_s[d * TV2 + lane] = x_s[d * TV2 + lane] / (p[i] + 1e-30f);
-      }
-    }
-    __syncthreads();
-
-    // acc[k][v] += sum_d eet[d][k] * ratio[d][v]
-    for (int d = 0; d < BD2; d += 4) {
-      const float r0 = r_s[(d + 0) * TV2 + lane];
-      const float r1 = r_s[(d + 1) * TV2 + lane];
-      const float r2 = r_s[(d + 2) * TV2 + lane];
-      const float r3 = r_s[(d + 3) * TV2 + lane];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int k = warp + 8 * j;
-        if (k < K) {
-          const float4 e = *reinterpret_cast<const float4*>(&e_s[k * BD2 + d]);
-          acc[j] += e.x * r0 + e.y * r1 + e.z * r2 + e.w * r3;
+        for (int s = 0; s < KS; ++s) {
+          const int k = lane + 32 * s;
+          if (k < K) acc[s] += __ldg(row + k) * rt;
         }
       }
     }
-  }
-
-  const int v = v0 + lane;
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    const int k = warp + 8 * j;
-    if (k < K && v < V) sstats[(long long)k * V + v] = acc[j] * b_s[k * TV2 + lane];
+    for (int s = 0; s < KS; ++s) {
+      const int k = lane + 32 * s;
+      if (k < K)
+        out_s[k][c] =
+            e1 > e0 ? acc[s] * __ldg(eebT + (long long)v * K + k) : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < K * TV; i += kThreadsB) {
+    const int k = i / TV, c = i - (i / TV) * TV;
+    if (v0 + c < V) sstats[(long long)k * V + v0 + c] = out_s[k][c];
   }
 }
 
-template <int KS>
-cudaError_t launch_iters(const float* x, const float* eeb, const float* gamma0,
-                         float* gamma, float* eet, int D, int K, int V,
+cudaError_t launch_iters(const int* indptr, const int* indices,
+                         const float* values, const float* eebT,
+                         const float* gamma0, float* gamma, float* eet,
+                         float* ratio, int* next_doc, int D, int K, int R,
                          float alpha, int n_iters, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)(32 * KS * TVP + 2 * K * BD + 2 * BD * TV);
+  const size_t smem = sizeof(float) * (size_t)doc_floats(K, R);
+  const int threads = threads_for(K);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      estep_iters<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      estep_csr_iters, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(estep_csr_iters,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, estep_csr_iters, threads, smem);
+  if (e == cudaSuccess) e = cudaMemsetAsync(next_doc, 0, sizeof(int), stream);
   if (e != cudaSuccess) return e;
-  const dim3 grid((D + BD - 1) / BD);
-  estep_iters<KS><<<grid, kThreadsA, smem, stream>>>(x, eeb, gamma0, gamma,
-                                                     eet, D, K, V, alpha,
-                                                     n_iters);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // every CTA that fits at once; each takes documents until none is left
+  const int blocks = min(D, sms * per_sm);
+  estep_csr_iters<<<blocks, threads, smem, stream>>>(
+      indptr, indices, values, eebT, gamma0, gamma, eet, ratio, next_doc, D,
+      K, R, alpha, n_iters);
   return cudaGetLastError();
 }
 
 template <int KS>
-cudaError_t launch_sstats(const float* x, const float* eeb, const float* eet,
-                          float* sstats, int D, int K, int V,
-                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(2 * K * BD2 + 2 * BD2 * TV2);
-  cudaError_t e = cudaFuncSetAttribute(
-      estep_sstats<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((V + TV2 - 1) / TV2);
-  estep_sstats<KS><<<grid, kThreadsB, smem, stream>>>(x, eeb, eet, sstats, D,
-                                                      K, V);
+cudaError_t launch_sstats(const int* col_ptr, const int* perm,
+                          const int* rows, const float* ratio,
+                          const float* eet, const float* eebT, float* sstats,
+                          int K, int V, cudaStream_t stream) {
+  const dim3 grid((V + TV - 1) / TV);
+  estep_csr_sstats<KS><<<grid, kThreadsB, 0, stream>>>(
+      col_ptr, perm, rows, ratio, eet, eebT, sstats, K, V);
   return cudaGetLastError();
 }
 
@@ -319,28 +354,33 @@ cudaError_t launch_sstats(const float* x, const float* eeb, const float* eet,
 
 extern "C" {
 
-// K <= 256 (the wrapper checks); D, V >= 1; n_iters >= 0.
-int mlego_vb_estep_iters(const float* x, const float* eeb,
-                         const float* gamma0, float* gamma, float* eet, int D,
-                         int K, int V, float alpha, int n_iters,
-                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || V < 1 || K < 1 || n_iters < 0) return (int)cudaErrorInvalidValue;
-  if (K <= 32) return (int)launch_iters<1>(x, eeb, gamma0, gamma, eet, D, K, V, alpha, n_iters, s);
-  if (K <= 64) return (int)launch_iters<2>(x, eeb, gamma0, gamma, eet, D, K, V, alpha, n_iters, s);
-  if (K <= 128) return (int)launch_iters<4>(x, eeb, gamma0, gamma, eet, D, K, V, alpha, n_iters, s);
-  if (K <= 256) return (int)launch_iters<8>(x, eeb, gamma0, gamma, eet, D, K, V, alpha, n_iters, s);
-  return (int)cudaErrorInvalidValue;
+// K <= 256, D, V >= 1, n_iters >= 0, R >= 1 (the wrapper checks); ratio
+// holds indptr[D] floats; next_doc is one int of scratch.
+int mlego_vb_estep_csr_iters(const int* indptr, const int* indices,
+                             const float* values, const float* eebT,
+                             const float* gamma0, float* gamma, float* eet,
+                             float* ratio, int* next_doc, int D, int K, int R,
+                             float alpha, int n_iters, void* stream) {
+  if (D < 1 || K < 1 || K > 256 || R < 1 || n_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_iters(indptr, indices, values, eebT, gamma0, gamma, eet,
+                           ratio, next_doc, D, K, R, alpha, n_iters,
+                           (cudaStream_t)stream);
 }
 
-int mlego_vb_estep_sstats(const float* x, const float* eeb, const float* eet,
-                          float* sstats, int D, int K, int V, void* stream) {
+int mlego_vb_estep_csr_sstats(const int* col_ptr, const int* perm,
+                              const int* rows, const float* ratio,
+                              const float* eet, const float* eebT,
+                              float* sstats, int K, int V, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || V < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  if (K <= 32) return (int)launch_sstats<1>(x, eeb, eet, sstats, D, K, V, s);
-  if (K <= 64) return (int)launch_sstats<2>(x, eeb, eet, sstats, D, K, V, s);
-  if (K <= 128) return (int)launch_sstats<4>(x, eeb, eet, sstats, D, K, V, s);
-  if (K <= 256) return (int)launch_sstats<8>(x, eeb, eet, sstats, D, K, V, s);
+  if (V < 1 || K < 1) return (int)cudaErrorInvalidValue;
+#define SSTATS(KS) \
+  (int)launch_sstats<KS>(col_ptr, perm, rows, ratio, eet, eebT, sstats, K, V, s)
+  if (K <= 32) return SSTATS(1);
+  if (K <= 64) return SSTATS(2);
+  if (K <= 128) return SSTATS(4);
+  if (K <= 256) return SSTATS(8);
+#undef SSTATS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 """Public wrappers of the merge kernels (``csrc/merge_topics.cu``).
 
-Source note.  ``merge_topics`` replaces the Pallas kernel
-``merge_topics_pallas`` (``src/repro/kernels/merge_topics/
+Source note.  ``merge_topics`` and ``merge_topics_parts`` replace the
+Pallas kernel ``merge_topics_pallas`` (``src/repro/kernels/merge_topics/
 merge_topics.py:37``), ``merge_topics_batch`` replaces
 ``merge_topics_batched_pallas`` (same file, :66) and
 ``merge_topics_ragged`` replaces ``merge_topics_ragged_pallas`` (same
@@ -10,26 +10,35 @@ device memory: the merge reads each of the n (K, V) float32 statistics
 once and writes the result once, (n+1)·K·V·4 bytes, for ~2 flops per
 element read.  The kernels keep each output element's running sum in a
 register, read the inputs with 16-byte loads where K·V allows, and
-touch no byte twice.  The ragged form gives each (segment, output tile)
-its own program, looping over the segment's rows from CSR offsets built
-on the host: no atomics, one launch, zero pad rows, the same sum order
-on every run.  The batched form is the same kernel with implicit
-uniform offsets [0, n, 2n, …] (no offsets array to copy).  Unlike the
-TPU wrapper there is no padding of K to 8 or V to 128; the kernel masks
-the flat K·V range itself.
+touch no byte twice.
+
+``merge_topics_parts`` takes the n parts as separate tensors: their
+pointers and the weights go to the kernel by value in its parameters
+(up to ``MAX_PARAM_PARTS``; a larger n uploads a small pointer table),
+so a merge of cached models copies nothing first, and each thread has a
+chunk of 8 rows' loads in flight before its first FMA.  ``merge_topics``
+keeps its (n, K, V) signature and passes the rows of ``stats``.
+
+The ragged form gives each (segment, output tile) its own program,
+looping over the segment's rows from CSR offsets built on the host: no
+atomics, one launch, zero pad rows, the same sum order on every run.
+The batched form is the same kernel with implicit uniform offsets
+[0, n, 2n, …] (no offsets array to copy).  Unlike the TPU wrapper there
+is no padding of K to 8 or V to 128; the kernels mask the flat K·V range
+themselves.
 
 ``merge_topics_bucketed`` is the retired power-of-two-bucket launcher
 (``src/repro/kernels/merge_topics/ops.py:130``), kept, as in the JAX
 package, only as the parity reference of the ragged path.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to the kernel or raises.  ``merge_topics_launches``,
-``merge_topics_batch_launches`` and ``merge_topics_ragged_launches``
-count kernel launches.
+tensor goes to the kernel or raises.  ``merge_topics_launches`` (the
+single merge, from either wrapper), ``merge_topics_batch_launches`` and
+``merge_topics_ragged_launches`` count kernel launches.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +50,8 @@ from repro_torch.kernels.merge_topics.ref import (
     merge_topics_ref,
     merge_topics_segments_ref,
 )
+
+MAX_PARAM_PARTS = 128   # parts whose pointers and weights go by value
 
 merge_topics_launches = 0
 merge_topics_batch_launches = 0
@@ -56,33 +67,72 @@ def _check(stats: torch.Tensor, weights: torch.Tensor) -> None:
     common.same_device(stats=stats, weights=weights)
 
 
-def _launch_batched(stats: torch.Tensor, weights: torch.Tensor, b: int,
-                    n: int, k: int, v: int, bias: float, base: float,
-                    counter: str) -> torch.Tensor:
-    """b merges of n rows each from a contiguous (b·n, K, V) stack in one
-    launch of the batched entry point -> (b, K, V)."""
-    dev = stats.device
-    common.require_cuda("stats", stats, dev)
-    common.require_cuda("weights", weights, dev)
-    out = torch.empty((b, k, v), dtype=torch.float32, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_merge_topics_batched(
-        stats.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n, k * v,
-        float(bias), float(base), common.stream_of(stats))
-    common.check_launch(status, counter.replace("_launches", ""))
-    common.count_launch(globals(), counter)
-    return out
-
-
 def merge_topics(stats: torch.Tensor, weights: torch.Tensor,
                  bias: float = 0.0, base: float = 0.0) -> torch.Tensor:
     """stats (n, K, V) f32, weights (n,) f32 -> (K, V) f32."""
     _check(stats, weights)
     if stats.device.type == "cpu":
         return merge_topics_ref(stats, weights, bias, base)
-    n, k, v = stats.shape
-    return _launch_batched(stats, weights, 1, n, k, v, bias, base,
-                           "merge_topics_launches")[0]
+    common.require_cuda("stats", stats, stats.device)
+    return merge_topics_parts(stats.unbind(0), weights, bias, base)
+
+
+def merge_topics_parts(parts: Sequence[torch.Tensor],
+                       weights: Union[torch.Tensor, Sequence[float]],
+                       bias: float = 0.0, base: float = 0.0) -> torch.Tensor:
+    """bias + Σ_r w_r (parts[r] − base) over n separate (K, V) f32
+    tensors -> (K, V) f32, with no stacked copy of the parts.
+
+    ``weights`` is a (n,) float32 tensor on the parts' device, or n
+    numbers (a sequence or a CPU tensor) that go to the kernel by value.
+    """
+    parts = list(parts)
+    n = len(parts)
+    if n == 0:
+        raise ValueError("merge_topics_parts needs at least one part")
+    shape = tuple(parts[0].shape)
+    if len(shape) != 2 or any(tuple(p.shape) != shape for p in parts):
+        raise ValueError(f"parts must all be (K, V), got "
+                         f"{sorted({tuple(p.shape) for p in parts})}")
+    dev = common.same_device(**{f"parts[{i}]": p for i, p in enumerate(parts)})
+    on_device = isinstance(weights, torch.Tensor) and \
+        weights.device.type != "cpu"
+    if on_device:
+        common.same_device(parts=parts[0], weights=weights)
+        w = weights
+    else:
+        w = torch.as_tensor(np.asarray(
+            weights.numpy() if isinstance(weights, torch.Tensor) else weights,
+            np.float32))
+    if tuple(w.shape) != (n,):
+        raise ValueError(f"weights must be ({n},), got {tuple(w.shape)}")
+    if dev.type == "cpu":
+        return merge_topics_ref(torch.stack(parts), w, bias, base)
+    for i, p in enumerate(parts):
+        common.require_cuda(f"parts[{i}]", p, dev)
+    if on_device:
+        common.require_cuda("weights", w, dev)
+    k, v = shape
+    ptrs = np.array([p.data_ptr() for p in parts], np.uint64)
+    host_w = None if on_device else w.numpy()
+    dev_w = w.data_ptr() if on_device else None
+    table = None
+    if n > MAX_PARAM_PARTS:
+        # n pointers (then n weights, if they came from the host) in one
+        # small upload; pinned, so the copy is queued on the stream
+        blob = ptrs.tobytes() + (b"" if on_device else host_w.tobytes())
+        table = torch.frombuffer(bytearray(blob), dtype=torch.uint8) \
+            .pin_memory().to(dev, non_blocking=True)
+        if not on_device:
+            dev_w = table.data_ptr() + 8 * n
+    out = torch.empty((k, v), dtype=torch.float32, device=dev)
+    status = common.load_library().mlego_merge_topics_parts(
+        ptrs.ctypes.data, None if host_w is None else host_w.ctypes.data,
+        None if table is None else table.data_ptr(), dev_w, n, k * v,
+        float(bias), float(base), out.data_ptr(), common.stream_of(out))
+    common.check_launch(status, "merge_topics")
+    common.count_launch(globals(), "merge_topics_launches")
+    return out
 
 
 def merge_topics_batch(stats: torch.Tensor, weights: torch.Tensor,
@@ -100,8 +150,16 @@ def merge_topics_batch(stats: torch.Tensor, weights: torch.Tensor,
     _check(stats.reshape(b * n, k, v), weights.reshape(b * n))
     if stats.device.type == "cpu":
         return merge_topics_batched_ref(stats, weights, bias, base)
-    return _launch_batched(stats, weights, b, n, k, v, bias, base,
-                           "merge_topics_batch_launches")
+    dev = stats.device
+    common.require_cuda("stats", stats, dev)
+    common.require_cuda("weights", weights, dev)
+    out = torch.empty((b, k, v), dtype=torch.float32, device=dev)
+    status = common.load_library().mlego_merge_topics_batched(
+        stats.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n, k * v,
+        float(bias), float(base), common.stream_of(stats))
+    common.check_launch(status, "merge_topics_batch")
+    common.count_launch(globals(), "merge_topics_batch_launches")
+    return out
 
 
 def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,

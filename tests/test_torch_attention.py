@@ -16,20 +16,20 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.distributed.sharding import single_device_env
-from repro.kernels.decode_attention.ops import (
+from repro.distributed.sharding import single_device_env  # noqa: E402
+from repro.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention as jax_decode_kernel)
-from repro.kernels.flash_attention.ops import (
+from repro.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention as jax_flash_kernel)
-from repro.kernels.flash_attention.ref import (decode_attention_ref,
+from repro.kernels.flash_attention.ref import (decode_attention_ref,  # noqa: E402
                                                flash_attention_ref)
-from repro.models import attention as jattn
-from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models import attention as tattn
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 
 RNG = np.random.default_rng(13)
 TOL = 1e-5

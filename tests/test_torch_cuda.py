@@ -93,6 +93,103 @@ def test_estep_kernel_matches_plain(cuda, d, v, k):
     torch.testing.assert_close(s1, s2, rtol=2e-4, atol=2e-4)
 
 
+ESTEP_SHAPES = [(32, 128, 16), (65, 200, 100), (128, 384, 128), (8, 64, 10),
+                (135, 150, 6), (300, 192, 12), (17, 300, 256)]
+
+
+def _estep_inputs(x_np, k, dev):
+    v = x_np.shape[1]
+    eeb = RNG.gamma(1.0, 1.0, (k, v))
+    eeb = _t(eeb / eeb.sum(1, keepdims=True), dev)
+    return _t(x_np, dev), eeb, torch.ones((x_np.shape[0], k), device=dev)
+
+
+def _hold_csr_to_dense(x, eeb, g0, n_iters=8):
+    """The CSR kernel on doc_term_csr(x) against the dense plain version."""
+    csr = estep_ops.doc_term_csr(x)
+    before = estep_ops.launches
+    g1, s1 = estep_ops.vb_estep_csr(csr, eeb, g0, 0.5, n_iters)
+    torch.cuda.synchronize()
+    assert estep_ops.launches == before + 2
+    g2, s2 = vb_estep_ref(x, eeb, g0, 0.5, n_iters)
+    torch.testing.assert_close(g1, g2, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s1, s2, rtol=2e-4, atol=2e-4)
+    return csr, g1, s1
+
+
+@pytest.mark.parametrize("d,v,k", ESTEP_SHAPES)
+def test_csr_estep_kernel_matches_dense_plain(cuda, d, v, k):
+    x, eeb, g0 = _estep_inputs(RNG.poisson(0.5, (d, v)), k, cuda)
+    _hold_csr_to_dense(x, eeb, g0)
+
+
+@pytest.mark.parametrize("d,v,k", [(17, 300, 256), (6, 2000, 100)])
+def test_csr_estep_kernel_streams_long_documents(cuda, d, v, k):
+    """Documents with more nonzeros than a warp's row budget stream their
+    rows in chunks every iteration (the plan says which do)."""
+    x, eeb, g0 = _estep_inputs(RNG.poisson(0.5, (d, v)), k, cuda)
+    csr, _, _ = _hold_csr_to_dense(x, eeb, g0)
+    rows_per_cta, _ = estep_ops.estep_plan(k, csr.max_row)
+    assert rows_per_cta < csr.max_row
+
+
+def test_csr_estep_kernel_on_a_corpus(cuda):
+    """A make_corpus block at the main path's widths (K = 100, V = 8,192),
+    empty columns included, with a row and a column emptied by hand."""
+    from repro_torch.data.corpus import doc_term_matrix, make_corpus
+    corpus, beta = make_corpus(300, 8192, 100, mean_doc_len=60, seed=5)
+    x_np = doc_term_matrix(corpus)
+    x_np[7] = 0.0
+    x_np[:, int(np.argmax(x_np.sum(0)))] = 0.0
+    x = _t(x_np, cuda)
+    eeb = _t(beta + 1e-4, cuda)
+    eeb = (eeb / eeb.sum(1, keepdim=True)).contiguous()
+    g0 = torch.ones((300, 100), device=cuda)
+    _hold_csr_to_dense(x, eeb, g0, n_iters=20)
+
+
+def test_csr_estep_kernel_is_bitwise_repeatable(cuda):
+    x, eeb, g0 = _estep_inputs(RNG.poisson(0.5, (65, 200)), 100, cuda)
+    csr = estep_ops.doc_term_csr(x)
+    first = estep_ops.vb_estep_csr(csr, eeb, g0, 0.5, 8)
+    for _ in range(5):
+        again = estep_ops.vb_estep_csr(csr, eeb, g0, 0.5, 8)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("n,k,v", [(1, 100, 8192), (8, 100, 8192),
+                                   (129, 12, 128), (8, 7, 33), (129, 5, 7)])
+@pytest.mark.parametrize("weights_on", ["host", "device"])
+def test_parts_merge_kernel_matches_plain(cuda, n, k, v, weights_on):
+    """n separate parts through the pointer table (by value up to 128,
+    a device table above), K·V a multiple of 4 or not."""
+    parts = [_t(RNG.gamma(1.0, 1.0, (k, v)), cuda) for _ in range(n)]
+    w_np = RNG.uniform(0.2, 2.0, n).astype(np.float32)
+    w = _t(w_np, cuda) if weights_on == "device" else list(w_np)
+    before = merge_ops.merge_topics_launches
+    got = merge_ops.merge_topics_parts(parts, w, bias=0.05, base=0.05)
+    torch.cuda.synchronize()
+    assert merge_ops.merge_topics_launches == before + 1
+    want = merge_topics_ref(torch.stack(parts), _t(w_np, cuda), 0.05, 0.05)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for _ in range(5):
+        assert torch.equal(
+            merge_ops.merge_topics_parts(parts, w, bias=0.05, base=0.05), got)
+
+
+def test_parts_merge_kernel_reads_misaligned_parts(cuda):
+    """A part that starts off a 16-byte boundary takes the scalar path."""
+    k, v = 12, 64
+    parts = [_t(RNG.normal(size=(k, v)), cuda) for _ in range(3)]
+    flat = _t(RNG.normal(size=(k * v + 1,)), cuda)
+    parts.append(flat[1:].view(k, v))
+    w = [0.5, 1.0, 1.5, 2.0]
+    got = merge_ops.merge_topics_parts(parts, w)
+    want = merge_topics_ref(torch.stack(parts), _t(w, cuda))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("route", ["host", "device_lost_replay"])
 def test_every_gap_route_launches_the_estep_kernel(cuda, route):
     """A gap trained by the "host" backend, and one replayed on it after
@@ -127,6 +224,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         estep_ops.vb_estep(x, torch.ones((300, 8), device=cuda),
                            torch.ones((4, 300), device=cuda), 0.5, 2)
+    with pytest.raises(ValueError):
+        merge_ops.merge_topics_parts([st[0], st[1].t()], [1.0, 1.0])
+    with pytest.raises(ValueError):
+        merge_ops.merge_topics_parts([st[0], st[1]], [1.0])
 
 
 @pytest.mark.parametrize("b,n,k,v", [(4, 8, 100, 8192), (3, 2, 6, 150),

@@ -13,20 +13,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.configs import ARCHS as JAX_ARCHS
-from repro.distributed.sharding import set_env, single_device_env
-from repro.launch.serve import generate as jax_generate
-from repro.models import layers as jlayers
-from repro.models.model import build_model as jax_build_model
-from repro_torch.configs import ARCHS, get_arch
-from repro_torch.data.lm import make_batch
-from repro_torch.kernels.common import DeviceUnavailableError
-from repro_torch.launch import serve
-from repro_torch.models import layers as tlayers
-from repro_torch.models.convert import params_from_jax
-from repro_torch.models.model import build_model
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
+from repro.distributed.sharding import set_env, single_device_env  # noqa: E402
+from repro.launch.serve import generate as jax_generate  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models.model import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch  # noqa: E402
+from repro_torch.data.lm import make_batch  # noqa: E402
+from repro_torch.kernels.common import DeviceUnavailableError  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 
 DENSE = ["qwen3-1.7b", "smollm-360m", "gemma-2b", "qwen2.5-14b"]
 TOL = 1e-4          # float32, the port's order of sums against XLA's

@@ -38,6 +38,37 @@ def test_merge_topics_matches_jax(n, k, v):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("n,k,v", [(1, 16, 64), (8, 100, 300), (129, 6, 40)])
+@pytest.mark.parametrize("weights_as", ["list", "tensor"])
+def test_merge_topics_parts_matches_jax(n, k, v, weights_as):
+    """n separate parts (the device backend's cached tensors), weights as
+    numbers or a tensor, against the JAX merge of their stack."""
+    st = RNG.gamma(1.0, 1.0, (n, k, v)).astype(np.float32)
+    w = RNG.uniform(0.2, 2.0, n).astype(np.float32)
+    parts = [torch.from_numpy(p) for p in st]
+    weights = [float(x) for x in w] if weights_as == "list" \
+        else torch.from_numpy(w)
+    got = ops.merge_topics_parts(parts, weights, bias=0.05, base=0.05)
+    assert got.shape == (k, v) and got.dtype == torch.float32
+    pallas = jax_ops.merge_topics(jnp.asarray(st), jnp.asarray(w),
+                                  bias=0.05, base=0.05, interpret=True)
+    ref = merge_topics_ref(jnp.asarray(st), jnp.asarray(w), 0.05, 0.05)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_merge_topics_parts_refuses_what_it_does_not_take():
+    a = torch.ones((3, 4))
+    with pytest.raises(ValueError):
+        ops.merge_topics_parts([], [])
+    with pytest.raises(ValueError):
+        ops.merge_topics_parts([a, torch.ones((4, 3))], [1.0, 1.0])
+    with pytest.raises(ValueError):
+        ops.merge_topics_parts([a, a], [1.0])
+    with pytest.raises(ValueError):
+        ops.merge_topics_parts([a, a.to("meta")], [1.0, 1.0])
+
+
 def _batch(counts, k, v):
     stats = [RNG.gamma(1.0, 1.0, (n, k, v)).astype(np.float32)
              for n in counts]
@@ -179,6 +210,7 @@ def test_cpu_tensors_never_count_a_kernel_launch():
               ops.merge_topics_batch_launches)
     st = torch.ones((2, 3, 4))
     ops.merge_topics(st, torch.ones(2))
+    ops.merge_topics_parts(list(st), [1.0, 1.0])
     ops.merge_topics_ragged([st, st], [torch.ones(2), torch.ones(2)])
     ops.merge_topics_bucketed([st, st], [torch.ones(2), torch.ones(2)])
     assert (ops.merge_topics_launches, ops.merge_topics_ragged_launches,

@@ -251,7 +251,7 @@ def test_gs_store_from_jax_gives_equal_gap_free_beta(corpora, gs_store_dir,
 def test_kernel_error_fails_the_query(corpora, store_dir, monkeypatch):
     def broken(*a, **kw):
         raise KernelError("merge_topics launch failed: CUDA error 9")
-    monkeypatch.setattr(tbackend, "merge_topics", broken)
+    monkeypatch.setattr(tbackend, "merge_topics_parts", broken)
     s = _port(corpora, store_dir, "device")
     with pytest.raises(KernelError):
         s.submit(tapi.QuerySpec(sigma=tapi.Interval(0.0, 300.0)))
@@ -261,7 +261,7 @@ def test_kernel_error_fails_the_query(corpora, store_dir, monkeypatch):
 def test_device_oom_replays_on_host(corpora, store_dir, monkeypatch):
     def oom(*a, **kw):
         raise torch.cuda.OutOfMemoryError("CUDA out of memory")
-    monkeypatch.setattr(tbackend, "merge_topics", oom)
+    monkeypatch.setattr(tbackend, "merge_topics_parts", oom)
     s = _port(corpora, store_dir, "device")
     rep = s.submit(tapi.QuerySpec(sigma=tapi.Interval(0.0, 300.0)))
     assert (rep.backend, rep.fallback_from) == ("host", "device")
@@ -277,12 +277,12 @@ def test_every_gap_route_trains_through_the_estep_wrapper(corpora,
     from repro_torch.kernels.vb_estep import ops as estep_ops
     from repro_torch.testing.faults import FaultRule, injected
     calls = []
-    real = estep_ops.vb_estep
+    real = estep_ops.vb_estep_csr
 
-    def spy(*a, **kw):
-        calls.append(a[0].device.type)
-        return real(*a, **kw)
-    monkeypatch.setattr(estep_ops, "vb_estep", spy)
+    def spy(csr, *a, **kw):
+        calls.append(csr.device.type)
+        return real(csr, *a, **kw)
+    monkeypatch.setattr(estep_ops, "vb_estep_csr", spy)
     backend = "host" if route == "host" else "device"
     s = tapi.MLegoSession(corpora[1][0], CFG, backend=backend, device="cpu")
     with injected(FaultRule("backend.train_gap.device", kind="device_lost",

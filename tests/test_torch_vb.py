@@ -3,8 +3,11 @@
 Inputs are made from a NumPy seed and fed to both packages.  The JAX
 E-step runs its Pallas kernel in interpret mode and its jnp reference;
 the port's wrapper runs its plain version on CPU tensors (the kernel's
-arithmetic, including the series digamma).  Tolerance 2e-4, as the JAX
-package's own E-step test uses.
+arithmetic over the CSR nonzeros, including the series digamma).
+Tolerance 2e-4, as the JAX package's own E-step test uses.  The CSR
+build (``doc_term_csr``) must give back x exactly, and the kernel's plan
+(``estep_plan``) is checked here too: the kernel itself runs only on the
+card (``tests/test_torch_cuda.py``).
 """
 import pytest
 
@@ -22,10 +25,21 @@ from repro.kernels.vb_estep.ref import vb_estep_ref as jax_ref  # noqa: E402
 from repro_torch.configs.lda_default import LDAConfig as TorchCfg  # noqa: E402
 from repro_torch.core import vb as tvb  # noqa: E402
 from repro_torch.kernels.vb_estep import ops  # noqa: E402
-from repro_torch.kernels.vb_estep.ref import digamma_series  # noqa: E402
+from repro_torch.kernels.vb_estep.ref import (  # noqa: E402
+    digamma_series, vb_estep_csr_ref, vb_estep_ref)
+
+try:
+    from hypothesis import given, settings, strategies as hst
+    HAVE_HYPOTHESIS = True
+except ImportError:  # pragma: no cover - optional dependency
+    HAVE_HYPOTHESIS = False
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 RNG = np.random.default_rng(42)
+ESTEP_SHAPES = [(32, 128, 16), (65, 200, 100), (128, 384, 128), (8, 64, 10),
+                # D not a multiple of the doc block: a ragged last block
+                # must add nothing
+                (135, 150, 6), (300, 192, 12)]
 
 
 def _inputs(d, v, k):
@@ -36,11 +50,7 @@ def _inputs(d, v, k):
     return x, eeb, g0
 
 
-@pytest.mark.parametrize("d,v,k", [(32, 128, 16), (65, 200, 100),
-                                   (128, 384, 128), (8, 64, 10),
-                                   # D not a multiple of the doc block:
-                                   # a ragged last block must add nothing
-                                   (135, 150, 6), (300, 192, 12)])
+@pytest.mark.parametrize("d,v,k", ESTEP_SHAPES)
 def test_vb_estep_matches_jax(d, v, k):
     x, eeb, g0 = _inputs(d, v, k)
     g, s = ops.vb_estep(torch.from_numpy(x), torch.from_numpy(eeb),
@@ -123,3 +133,149 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     ops.vb_estep(torch.from_numpy(x), torch.from_numpy(eeb),
                  torch.from_numpy(g0), 0.5, 2)
     assert ops.launches == before
+
+
+def _check_csr(x):
+    """doc_term_csr(x) gives back x exactly, rows in (d, v) order, and a
+    column view whose perm lists each column's entries in document order."""
+    csr = ops.doc_term_csr(torch.from_numpy(x))
+    d, v = x.shape
+    nz = np.nonzero(x)
+    assert csr.shape == (d, v) and csr.nnz == len(nz[0])
+    for t in (csr.indptr, csr.indices, csr.rows, csr.col_ptr, csr.perm):
+        assert t.dtype == torch.int32
+    np.testing.assert_array_equal(csr.indptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(
+                                      (x != 0).sum(1))]))
+    np.testing.assert_array_equal(csr.rows.numpy(), nz[0])
+    np.testing.assert_array_equal(csr.indices.numpy(), nz[1])
+    assert csr.values.dtype == torch.float32
+    back = np.zeros_like(x)
+    back[csr.rows.numpy(), csr.indices.numpy()] = csr.values.numpy()
+    np.testing.assert_array_equal(back, x)
+    perm = csr.perm.numpy()
+    np.testing.assert_array_equal(np.sort(perm), np.arange(csr.nnz))
+    cols, docs = csr.indices.numpy()[perm], csr.rows.numpy()[perm]
+    order = np.lexsort((docs, cols))
+    np.testing.assert_array_equal(order, np.arange(csr.nnz))
+    np.testing.assert_array_equal(csr.col_ptr.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(cols, minlength=v))]))
+    assert csr.max_row == int((x != 0).sum(1).max(initial=0))
+    return csr
+
+
+@pytest.mark.parametrize("d,v", [(7, 50), (1, 1), (5, 3), (40, 300)])
+def test_doc_term_csr_gives_back_x(d, v):
+    """Empty rows and columns, one dense row, and repeated counts."""
+    x = RNG.poisson(0.3, (d, v)).astype(np.float32)
+    x[d // 2] = 0.0
+    x[:, v // 2] = 0.0
+    x[-1] = RNG.integers(1, 4, v)
+    _check_csr(x)
+    _check_csr(np.zeros((d, v), np.float32))
+
+
+if HAVE_HYPOTHESIS:
+    @settings(max_examples=40, deadline=None)
+    @given(d=hst.integers(1, 30), v=hst.integers(1, 60),
+           density=hst.floats(0.0, 1.0), seed=hst.integers(0, 2 ** 16),
+           dense_row=hst.booleans())
+    def test_doc_term_csr_gives_back_x_at_random_shapes(d, v, density, seed,
+                                                       dense_row):
+        rng = np.random.default_rng(seed)
+        x = (rng.uniform(size=(d, v)) < density) * rng.integers(1, 5, (d, v))
+        x = x.astype(np.float32)
+        if dense_row:
+            x[rng.integers(d)] = rng.integers(1, 5, v)
+        _check_csr(x)
+
+
+@pytest.mark.parametrize("d,v,k", ESTEP_SHAPES)
+def test_vb_estep_csr_ref_matches_jax(d, v, k):
+    """The plain CSR E-step against the JAX package's jnp reference and
+    its Pallas kernel in interpret mode, on the same numpy inputs."""
+    x, eeb, g0 = _inputs(d, v, k)
+    x[d // 3] = 0.0                       # a document with no words
+    csr = ops.doc_term_csr(torch.from_numpy(x))
+    g, s = vb_estep_csr_ref(csr, torch.from_numpy(eeb), torch.from_numpy(g0),
+                            0.5, 8)
+    assert g.shape == (d, k) and s.shape == (k, v)
+    gk, sk = jax_kernel_estep(jnp.asarray(x), jnp.asarray(eeb),
+                              jnp.asarray(g0), 0.5, 8, interpret=True)
+    gr, sr = jax_ref(jnp.asarray(x), jnp.asarray(eeb), jnp.asarray(g0),
+                     0.5, 8)
+    for want_g, want_s in ((gk, sk), (gr, sr)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_g), **TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **TOL)
+    # and the port's own dense plain version, the card tests' yardstick
+    gd, sd = vb_estep_ref(torch.from_numpy(x), torch.from_numpy(eeb),
+                          torch.from_numpy(g0), 0.5, 8)
+    np.testing.assert_allclose(g.numpy(), gd.numpy(), **TOL)
+    np.testing.assert_allclose(s.numpy(), sd.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1])
+def test_vb_estep_csr_ref_few_iterations(n_iters):
+    x, eeb, g0 = _inputs(12, 40, 5)
+    csr = ops.doc_term_csr(torch.from_numpy(x))
+    g, s = vb_estep_csr_ref(csr, torch.from_numpy(eeb), torch.from_numpy(g0),
+                            0.5, n_iters)
+    gr, sr = jax_ref(jnp.asarray(x), jnp.asarray(eeb), jnp.asarray(g0),
+                     0.5, n_iters)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gr), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr), **TOL)
+
+
+def test_vb_fit_builds_the_csr_once_per_fit(small_cfg, small_corpus,
+                                            monkeypatch):
+    """The conversion (and its one synchronisation) stays out of the
+    per-call path: one build, then one CSR E-step per outer iteration."""
+    corpus, _ = small_corpus
+    x = doc_term_matrix(corpus, 0, 60)
+    builds, calls = [], []
+    real_build, real_estep = ops.doc_term_csr, ops.vb_estep_csr
+
+    def build(t):
+        builds.append(t.shape)
+        return real_build(t)
+
+    def estep(csr, *a, **kw):
+        calls.append(csr)
+        return real_estep(csr, *a, **kw)
+    monkeypatch.setattr(ops, "doc_term_csr", build)
+    monkeypatch.setattr(ops, "vb_estep_csr", estep)
+    tcfg = TorchCfg(**{f: getattr(small_cfg, f) for f in
+                       small_cfg.__dataclass_fields__})
+    tvb.vb_fit(x, torch.Generator().manual_seed(0), tcfg, use_kernel=True)
+    assert builds == [x.shape]
+    assert len(calls) == tcfg.max_iters and all(c is calls[0] for c in calls)
+
+
+@pytest.mark.parametrize("k,max_row", [(100, 88), (100, 1000), (256, 137),
+                                       (6, 76), (1, 1), (256, 10 ** 6)])
+def test_estep_plan_fits_shared_memory(k, max_row):
+    """The kernel's row budget: every row of the longest document where
+    it fits, else chunks; a CTA's shared memory within Hopper's 227 KB,
+    and at the main path's shape (K = 100, rows <= 88) six CTAs an SM."""
+    rows, smem = ops.estep_plan(k, max_row)
+    assert 1 <= rows <= max_row
+    assert smem <= 232448
+    assert rows * 4 * k <= ops.DOC_ROW_BYTES or rows == 1
+    if (k, max_row) == (100, 88):
+        assert rows == 88 and 6 * (smem + 1024) <= 233472
+    if max_row > rows:                     # the chunked path: the budget
+        # is full (a row's stride is under K + 8 floats)
+        assert (rows + 1) * 4 * (k + 8) > ops.DOC_ROW_BYTES
+
+
+def test_dense_wrapper_runs_the_csr_path():
+    """``vb_estep`` converts x and calls ``vb_estep_csr``: the same numbers
+    as the CSR plain version on a prebuilt CSR."""
+    x, eeb, g0 = _inputs(20, 70, 9)
+    args = (torch.from_numpy(eeb), torch.from_numpy(g0), 0.5, 6)
+    g1, s1 = ops.vb_estep(torch.from_numpy(x), *args)
+    g2, s2 = ops.vb_estep_csr(ops.doc_term_csr(torch.from_numpy(x)), *args)
+    assert torch.equal(g1, g2) and torch.equal(s1, s2)
+    with pytest.raises(ValueError):
+        ops.vb_estep_csr(ops.doc_term_csr(torch.from_numpy(x)),
+                         torch.from_numpy(eeb[:, :10]), args[1], 0.5, 6)

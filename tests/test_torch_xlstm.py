@@ -15,23 +15,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.configs import ARCHS as JAX_ARCHS
-from repro.distributed.sharding import set_env, single_device_env
-from repro.kernels.slstm_scan.ops import slstm_scan as jax_slstm_scan
-from repro.kernels.slstm_scan.ref import slstm_scan_ref as jax_slstm_scan_ref
-from repro.launch.serve import generate as jax_generate
-from repro.models import model as jmodel
-from repro.models import recurrent as jrec
-from repro_torch.configs import get_arch
-from repro_torch.data.lm import make_batch
-from repro_torch.kernels.slstm_scan import ops as slstm_ops
-from repro_torch.kernels.slstm_scan.ref import zero_state
-from repro_torch.launch import serve
-from repro_torch.models import recurrent as trec
-from repro_torch.models.convert import params_from_jax
-from repro_torch.models.model import build_model
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
+from repro.distributed.sharding import set_env, single_device_env  # noqa: E402
+from repro.kernels.slstm_scan.ops import slstm_scan as jax_slstm_scan  # noqa: E402
+from repro.kernels.slstm_scan.ref import slstm_scan_ref as jax_slstm_scan_ref  # noqa: E402
+from repro.launch.serve import generate as jax_generate  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import recurrent as jrec  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.data.lm import make_batch  # noqa: E402
+from repro_torch.kernels.slstm_scan import ops as slstm_ops  # noqa: E402
+from repro_torch.kernels.slstm_scan.ref import zero_state  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import recurrent as trec  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 
 FN_TOL = 1e-5
 MODEL_TOL = 1e-4
