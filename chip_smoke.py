@@ -26,8 +26,16 @@ Phases, each of which fails the run if anything in it fails:
    calls must give the same bits) and in f32 (CUDA cores).  The Gibbs
    samplers' plain versions add the conditional in the kernels' warp-scan
    order, so every draw and count must be equal, and the counts must be
-   conserved.  The sLSTM scan must give the same bits on five calls, and
-   its latency floor (the kernel's step with almost no work) is printed;
+   conserved: the blocked sweep (one warp a document) on a 1,000-document
+   window, on the same window with each block's documents interleaved and
+   on an edge shape; the exact scan on a 1,000-document gap, on a stream of
+   repeated words whose documents recur out of order and on an edge shape;
+   five repeat calls give the same bits.  Each sweep's longest chain and
+   its ns per chain step are printed, and one whole ``cgs_fit_blocked`` and
+   one ``cgs_fit`` of a 1,000-document window are timed beside the sum of
+   their sweep kernels' times.  The sLSTM scan must give the same bits on
+   five calls, and its latency floor (the kernel's step with almost no
+   work) is printed;
 3. main path — at the default ``LDAConfig`` widths (K = 100, V = 8192)
    build 32 window models with ``train_range`` on the ``"device"``
    backend, answer a covered ``submit`` (merge only), a ``submit`` with
@@ -169,7 +177,8 @@ def main() -> int:
     from repro_torch.core.lda import log_predictive_probability
     from repro_torch.data.corpus import doc_term_matrix, make_corpus
     from repro_torch.kernels import common
-    from repro_torch.core.gibbs import blocked_layout
+    from repro_torch.core.gibbs import (
+        blocked_layout, cgs_fit, cgs_fit_blocked)
     from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
     from repro_torch.kernels.gibbs_sweep.ref import (
         cgs_sweep_exact_ref, gibbs_sweep_ref)
@@ -476,17 +485,36 @@ def main() -> int:
         bound_by=b_by, library_ms=lib)
 
     # gibbs_sweep: one blocked sweep of a 1,000-document window at the
-    # main path's widths, then an edge shape (K = 6, a ragged last block)
+    # main path's widths (one warp a document: the longest document is the
+    # chain), the same window with each block's slots shuffled (documents
+    # interleaved), then an edge shape (K = 6, a ragged last block)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = []
     t_sweep_s = None
-    for n_docs, k, v, mean_len, bd in [(1000, 100, 8192, 60, 64),
-                                       (90, 6, 150, 12, 16)]:
+
+    def same_bits_5(fn, args, what):
+        first = fn(*args)
+        for _ in range(4):
+            if not all(torch.equal(a, b) for a, b in zip(fn(*args), first)):
+                raise AssertionError(f"{what}: 5 calls gave different bits")
+
+    for label, n_docs, k, v, mean_len, bd in [
+            ("main", 1000, 100, 8192, 60, 64),
+            ("interleaved", 1000, 100, 8192, 60, 64),
+            ("edge", 90, 6, 150, 12, 16)]:
         win, _ = make_corpus(n_docs, v, k, mean_doc_len=mean_len, seed=2)
         words, ldoc, mask = (torch.tensor(a, device=dev) for a in
                              blocked_layout(win.tokens, win.doc_ids,
                                             win.n_docs, bd))
         nb, t = words.shape
+        if label == "interleaved":
+            # shuffle each block's real slots: a document's tokens scatter
+            # over its block (the kernel takes any ldoc order)
+            for i in range(nb):
+                n_real = int(mask[i].sum())
+                perm = torch.randperm(n_real, generator=gen, device=dev)
+                words[i, :n_real] = words[i, :n_real][perm]
+                ldoc[i, :n_real] = ldoc[i, :n_real][perm]
         z = torch.randint(0, k, (nb, t), generator=gen, device=dev,
                           dtype=torch.int32)
         u = torch.rand((nb, t), generator=gen, device=dev)
@@ -502,9 +530,11 @@ def main() -> int:
                             device=dev)             # a store's summed counts
         prior = nkv + glob + cfg0.eta
         prior_k = nkv.sum(1) + glob.sum(1) + v * cfg0.eta
-        args = (words, ldoc, mask, u, z, nkd, prior, prior_k, cfg0.alpha)
+        idx = gibbs_ops.doc_index(ldoc, mask, bd)   # once per fit
+        args = (words, ldoc, mask, u, z, nkd, prior, prior_k, cfg0.alpha,
+                idx)
         z1, nkd1, nkv1 = gibbs_ops.gibbs_sweep(*args)
-        z2, nkd2, nkv2 = gibbs_sweep_ref(*args)
+        z2, nkd2, nkv2 = gibbs_sweep_ref(*args[:-1])
         torch.cuda.synchronize()
         bad = int((z1 != z2).sum())
         real = int(mask.sum())
@@ -515,20 +545,30 @@ def main() -> int:
                                                         doc_len):
             raise AssertionError("gibbs_sweep lost or invented tokens")
         if bad or not (torch.equal(nkd1, nkd2) and torch.equal(nkv1, nkv2)):
-            raise AssertionError(f"gibbs_sweep: {bad} of {real} draws "
-                                 f"differ from the plain version")
+            raise AssertionError(f"gibbs_sweep ({label}): {bad} of {real} "
+                                 f"draws differ from the plain version")
+        same_bits_5(gibbs_ops.gibbs_sweep, args, f"gibbs_sweep ({label})")
         errs.append(float((nkv1 - nkv2).abs().max()))
-        log(f"[kernels] gibbs_sweep docs={n_docs} K={k} V={v} BD={bd} "
-            f"blocks={nb} T_max={t}: {bad} of {real} draws differ from the "
-            f"plain version (tol 0), counts conserved")
-        if k == 100:
-            ms = time_ms(lambda: gibbs_ops.gibbs_sweep(*args), 5)
-            plain = time_ms(lambda: gibbs_sweep_ref(*args), 1)
+        chain = int((idx[0][1:] - idx[0][:-1]).max())
+        log(f"[kernels] gibbs_sweep {label} docs={n_docs} K={k} V={v} "
+            f"BD={bd} blocks={nb} T_max={t} longest chain={chain} tokens: "
+            f"{bad} of {real} draws differ from the plain version (tol 0), "
+            f"counts conserved, 5 calls the same bits")
+        if label == "main":
+            ms = time_ms(lambda: gibbs_ops.gibbs_sweep(*args), 20)
+            per_call = time_ms(lambda: gibbs_ops.gibbs_sweep(*args[:-1]), 5)
+            idx_ms = time_ms(lambda: gibbs_ops.doc_index(ldoc, mask, bd), 5)
+            plain = time_ms(lambda: gibbs_sweep_ref(*args[:-1]), 1)
             t_sweep_s = ms * 1e-3
+            log(f"[kernels] gibbs_sweep: {ms:.4f} ms a sweep with the fit's "
+                f"index, {ms * 1e6 / chain:.0f} ns per chain step "
+                f"({chain} steps); {per_call:.4f} ms building the index "
+                f"per call (doc_index alone {idx_ms:.4f} ms)")
             # bytes: the (B, T) inputs, n_kd in and out, the snapshot,
             # z out and n_kv out once; operations: ~8 per topic per token
             n_bytes = 4 * (6 * nb * t + 2 * nb * bd * k + 2 * k * v + k)
             b_ms, b_by = bound_ms(n_bytes, 8 * k * real)
+            fit_win = win
     report["gibbs_sweep"] = dict(
         name="gibbs_sweep", route="cuda",
         source="src/repro_torch/kernels/csrc/gibbs_sweep.cu",
@@ -538,13 +578,28 @@ def main() -> int:
 
     # cgs_sweep_exact: one sweep of the exact scan over a 1,000-document
     # gap at the main path's widths (~58,000 tokens, the shape of the gs
-    # path's host gaps), and the edge shape
+    # path's host gaps), a stream of repeated words whose documents come
+    # back (unsorted), and the edge shape
     errs = []
     t_token_s = None
-    for n_docs, k, v, mean_len in [(1000, 100, 8192, 60), (40, 6, 150, 12)]:
+    for label, n_docs, k, v, mean_len in [
+            ("main", 1000, 100, 8192, 60),
+            ("repeated words, revisited docs", 60, 100, 8192, 50),
+            ("edge", 40, 6, 150, 12)]:
         part, _ = make_corpus(n_docs, v, k, mean_doc_len=mean_len, seed=3)
         toks = torch.tensor(part.tokens, device=dev)
         docs = torch.tensor(part.doc_ids, device=dev)
+        if label.startswith("repeated"):
+            # runs of one word, and the stream cut in blocks of 7 tokens
+            # taken in a shuffled order, so documents recur out of order
+            toks = toks[torch.arange(toks.shape[0], device=dev) // 3 * 3]
+            order = torch.randperm((toks.shape[0] + 6) // 7, generator=gen,
+                                   device=dev)
+            pos = (order[:, None] * 7 + torch.arange(7, device=dev)).reshape(-1)
+            pos = pos[pos < toks.shape[0]]
+            toks, docs = toks[pos].contiguous(), docs[pos].contiguous()
+            if not bool((docs[1:] < docs[:-1]).any()):
+                raise AssertionError("the revisiting stream is sorted")
         t = toks.shape[0]
         z = torch.randint(0, k, (t,), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -558,6 +613,9 @@ def main() -> int:
                             device=dev)
         args = (toks, docs, u, z, nkd, nkv, nkv.sum(1), glob, glob.sum(1),
                 cfg0.alpha, cfg0.eta)
+        # the fit's entry point: n_kv and the prior in (V, K)
+        args_t = (toks, docs, u, z, nkd, nkv.t().contiguous(), nkv.sum(1),
+                  glob.t().contiguous(), glob.sum(1), cfg0.alpha, cfg0.eta)
         z1, nkd1, nkv1, nk1 = gibbs_ops.cgs_sweep_exact(*args)
         # the plain version at this size is ~30 small launches a token,
         # tens of seconds: its one comparison call is also its timing
@@ -574,24 +632,59 @@ def main() -> int:
             raise AssertionError("cgs_sweep_exact lost or invented tokens")
         if bad or not (torch.equal(nkd1, nkd2) and torch.equal(nkv1, nkv2)
                        and torch.equal(nk1, nk2)):
-            raise AssertionError(f"cgs_sweep_exact: {bad} of {t} draws "
-                                 f"differ from the plain version")
+            raise AssertionError(f"cgs_sweep_exact ({label}): {bad} of {t} "
+                                 f"draws differ from the plain version")
+        zt, nkdt, nkvt, nkt = gibbs_ops.cgs_sweep_exact_t(*args_t)
+        if not (torch.equal(zt, z1) and torch.equal(nkdt, nkd1)
+                and torch.equal(nkvt.t(), nkv1) and torch.equal(nkt, nk1)):
+            raise AssertionError("cgs_sweep_exact_t disagrees with "
+                                 "cgs_sweep_exact")
+        same_bits_5(gibbs_ops.cgs_sweep_exact_t, args_t,
+                    f"cgs_sweep_exact ({label})")
         errs.append(float((nkv1 - nkv2).abs().max()))
-        log(f"[kernels] cgs_sweep_exact docs={n_docs} K={k} V={v} T={t}: "
-            f"{bad} of {t} draws differ from the plain version (tol 0), "
-            f"counts conserved")
-        if k == 100:
-            ms = time_ms(lambda: gibbs_ops.cgs_sweep_exact(*args), 5)
+        log(f"[kernels] cgs_sweep_exact {label} docs={n_docs} K={k} V={v} "
+            f"T={t} (the chain): {bad} of {t} draws differ from the plain "
+            f"version (tol 0), counts conserved, 5 calls the same bits")
+        if label == "main":
+            ms = time_ms(lambda: gibbs_ops.cgs_sweep_exact_t(*args_t), 5)
+            public = time_ms(lambda: gibbs_ops.cgs_sweep_exact(*args), 3)
             plain = ev[0].elapsed_time(ev[1])
             t_token_s = ms * 1e-3 / t
+            log(f"[kernels] cgs_sweep_exact: {ms:.3f} ms a sweep in the "
+                f"fit's (V, K) layout, {ms * 1e6 / t:.0f} ns per chain step "
+                f"({t} steps); {public:.3f} ms through the (K, V) entry "
+                f"point (two transposes)")
             n_bytes = 4 * (5 * t + 2 * part.n_docs * k + 3 * k * v + 3 * k)
             b_ms, b_by = bound_ms(n_bytes, 10 * k * t)
+            fit_part = part
     report["cgs_sweep_exact"] = dict(
         name="cgs_sweep_exact", route="cuda",
         source="src/repro_torch/kernels/csrc/gibbs_sweep.cu",
         replaces="src/repro/core/gibbs.py:34",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+
+    # whole fits of a 1,000-document window, wall (host clock after a
+    # synchronise) beside the sum of their kernel times: the host's share
+    fcfg = LDAConfig()
+    fgen = torch.Generator(device=dev).manual_seed(1)
+    for fit, fdata, per_sweep in (
+            (cgs_fit_blocked, fit_win, report["gibbs_sweep"]["ms"]),
+            (cgs_fit, fit_part, report["cgs_sweep_exact"]["ms"])):
+        fit(fdata.tokens, fdata.doc_ids, fcfg, fgen, sweeps=2)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(fdata.tokens, fdata.doc_ids, fcfg, fgen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if float(out.sum()) != fdata.n_tokens:
+            raise AssertionError(f"{fit.__name__} lost or invented tokens")
+        kern = fcfg.gibbs_sweeps * per_sweep
+        log(f"[kernels] {fit.__name__} of a 1,000-document window "
+            f"({fdata.n_tokens} tokens, {fcfg.gibbs_sweeps} sweeps): "
+            f"{wall:.2f} ms wall, {kern:.2f} ms of sweep kernels "
+            f"({fcfg.gibbs_sweeps} x {per_sweep:.4f}), host share "
+            f"{(wall - kern) / wall:.1%}")
 
     # flash_attention and decode_attention run on the tensor cores in bf16
     # (mma.sync): the SASS of every bf16 instance must hold HMMA or HGMMA

@@ -2,8 +2,10 @@
 
 The exact token sweep is sequential (each draw conditions on all other
 assignments): ``cgs_fit`` runs it one sweep at a time through
-``kernels.gibbs_sweep.cgs_sweep_exact`` — on the card one launch of the
-exact-scan kernel per sweep, on the CPU its plain version.  Distribution
+``kernels.gibbs_sweep.cgs_sweep_exact_t`` — on the card one launch of the
+exact-scan kernel per sweep, on the CPU its plain version — keeping n_kv
+and the global prior in the kernel's (V, K) layout for the whole fit
+(one transpose in, one out).  Distribution
 comes from *partitioning*: each worker runs CGS on its partition against
 a fixed global ``N_kv`` prior (Eq. 8) and emits ``ΔN_kv``; merging
 deltas (Alg. 2) is a reduction.
@@ -12,8 +14,11 @@ deltas (Alg. 2) is a reduction.
 down: documents are split into *doc blocks*, each block keeps its
 ``n_kd`` exact and resamples its tokens in order against a per-sweep
 snapshot of ``n_kv + global N_kv``, and the blocks' new counts are
-summed between sweeps (``kernels.gibbs_sweep.gibbs_sweep``).  The chain
-per sweep shrinks from Σ tokens to the most tokens of any block.  It is
+summed between sweeps (``kernels.gibbs_sweep.gibbs_sweep``).  Since a
+token reads only its own document's counts and the frozen snapshot, the
+kernel runs one chain per document (the per-document index is built once
+per fit): the chain per sweep shrinks from Σ tokens to the most tokens of
+any document.  It is
 the device backend's gap trainer; ``cgs_fit`` is the exact reference
 (and the host backend's trainer).
 
@@ -32,7 +37,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.lda_default import LDAConfig
-from repro_torch.kernels.gibbs_sweep.ops import cgs_sweep_exact, gibbs_sweep
+from repro_torch.kernels.gibbs_sweep.ops import (
+    cgs_sweep_exact_t,
+    doc_index,
+    gibbs_sweep,
+)
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -106,15 +115,18 @@ def cgs_fit(tokens: np.ndarray, doc_ids: np.ndarray, cfg: LDAConfig,
     zl, dl, tl = z.long(), docs.long(), toks.long()
     nkd = torch.zeros((n_docs, k), dtype=torch.float32, device=dev)
     nkd.index_put_((dl, zl), ones, accumulate=True)
-    nkv = torch.zeros((k, vocab), dtype=torch.float32, device=dev)
-    nkv.index_put_((zl, tl), ones, accumulate=True)
+    # n_kv and the prior in the kernel's (V, K) layout for every sweep
+    nkv_t = torch.zeros((vocab, k), dtype=torch.float32, device=dev)
+    nkv_t.index_put_((tl, zl), ones, accumulate=True)
     nk = torch.zeros((k,), dtype=torch.float32, device=dev)
     nk.index_put_((zl,), ones, accumulate=True)
     gk = gnkv.sum(dim=1)
+    g_t = gnkv.t().contiguous()
     for us in _draws(u, sweeps, (toks.shape[0],), gen, dev):
-        z, nkd, nkv, nk = cgs_sweep_exact(toks, docs, us, z, nkd, nkv, nk,
-                                          gnkv, gk, cfg.alpha, cfg.eta)
-    return nkv
+        z, nkd, nkv_t, nk = cgs_sweep_exact_t(toks, docs, us, z, nkd, nkv_t,
+                                              nk, g_t, gk, cfg.alpha,
+                                              cfg.eta)
+    return nkv_t.t().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +179,12 @@ def _blocked_sweeps(words: torch.Tensor, ldoc: torch.Tensor,
     nkv.index_put_((z.reshape(-1).long(), words.reshape(-1).long()),
                    mask.reshape(-1), accumulate=True)
     gk = global_nkv.sum(dim=1)
+    idx = doc_index(ldoc, mask, block_docs)      # once per fit
     for us in _draws(u, sweeps, (b, t), gen, dev):
         prior = nkv + global_nkv + beta           # frozen for this sweep
         prior_k = nkv.sum(dim=1) + gk + vocab * beta
         z, nkd, nkv = gibbs_sweep(words, ldoc, mask, us, z, nkd, prior,
-                                  prior_k, alpha)
+                                  prior_k, alpha, idx)
     return nkv
 
 

@@ -55,9 +55,9 @@ _SIGNATURES = {
     # col_ptr, perm, rows, ratio, exp_elog_theta, eeb_t, sstats, K, V,
     # stream
     "mlego_vb_estep_csr_sstats": (_P,) * 7 + (_I, _I, _P),
-    # words, ldoc, mask, u, z_in, nkd_in, prior_t, prior_k, z_out,
-    # nkd_out, nkv, B, T, BD, K, V, alpha, stream
-    "mlego_gibbs_sweep_blocked": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    # words, mask, u, z_in, doc_ptr, slots, nkd_in, prior_t, prior_k,
+    # z_out, nkd_out, nkv, n_docs, K, V, alpha, stream
+    "mlego_gibbs_sweep_blocked": (_P,) * 12 + (_I,) * 3 + (_F, _P),
     # tokens, doc_ids, u, z, nkd, nkv_t, nk, g_t, gk, T, K, alpha, beta,
     # vbeta, stream
     "mlego_gibbs_sweep_exact": (_P,) * 9 + (_I, _I, _F, _F, _F, _P),

@@ -10,24 +10,32 @@ thousands of tiny launches per sweep, so it has a kernel too.
 
 Both are bound by latency, not by bytes or flops: every token's draw
 depends on the previous one through the counts, so a sweep is a chain of
-dependent steps — T_max per doc block for the blocked sweep, every token
-of the partition for the exact one — each one L2 round trip for the
-token's K-wide row plus a warp scan.  The design gives a chain one warp
-with the topics across its lanes, keeps what a lane reads in the lane
-that writes it (so the chain needs no barrier), and reads each token's
-counts as one contiguous row of a (V, K) transpose, which each wrapper
-builds itself.  The blocked sweep runs its doc blocks in parallel, one
-warp each, with the block's n_kd in shared memory; the exact sweep is
-one warp in one CTA, with n_kd and n_kv^T in device memory (L2).  No
-padding of K, V, T or BD: the kernels mask the ragged edge themselves.
+dependent steps, each a warp scan over the topics.  A chain runs on one
+warp with the topics across its lanes; what a lane reads it alone
+writes, so the chain needs no barrier, and a token's K-wide rows are
+contiguous rows of (V, K) transposes, loaded while the token before it
+draws.
 
+- The blocked sweep reads, for a token, only its own document's n_kd
+  row and the frozen snapshot, so each *document* is a chain: one warp
+  a (block, document), its n_kd row in registers.  ``doc_index`` lists
+  each document's real slots in slot order; ``core.gibbs`` builds it
+  once per fit and ``gibbs_sweep`` builds it itself when none is given.
+- The exact sweep is one warp over the whole token stream, the current
+  document's n_kd row in registers.  ``cgs_sweep_exact_t`` takes n_kv
+  and the global prior in that (V, K) layout, so ``core.gibbs.cgs_fit``
+  transposes once per fit; ``cgs_sweep_exact`` keeps JAX's (K, V)
+  arguments and transposes per call.
+
+No padding of K, V, T or BD: the kernels mask the ragged edge
+themselves.  K is at most 1024, the register budget of 32 topics a lane.
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to the kernel or raises.  ``gibbs_sweep_launches`` and
 ``cgs_sweep_exact_launches`` count kernel launches (one per sweep).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,23 +46,50 @@ from repro_torch.kernels.gibbs_sweep.ref import (
     gibbs_sweep_ref,
 )
 
-MAX_TOPICS = 1024              # 32 lanes x 32 topics per lane
-MAX_SHARED_BYTES = 232448      # shared memory one block may use on sm_90
+MAX_TOPICS = 1024              # the register budget: 32 lanes x 32 topics
 
 gibbs_sweep_launches = 0
 cgs_sweep_exact_launches = 0
 
+DocIndex = Tuple[torch.Tensor, torch.Tensor]
+
+
+def doc_index(ldoc: torch.Tensor, mask: torch.Tensor,
+              block_docs: int) -> DocIndex:
+    """The real slots of a blocked layout, grouped by document.
+
+    ldoc/mask (B, T).  Returns ``(doc_ptr, slots)``, both int32 on
+    ldoc's device: ``slots`` (B·T,) holds flat slot numbers b·T + t,
+    document by document (g = b·BD + ldoc) and in slot order within
+    each, the pad slots (mask 0) last; document g's slots are
+    ``slots[doc_ptr[g]:doc_ptr[g + 1]]`` and ``doc_ptr`` is (B·BD + 1,).
+    Any order of ``ldoc`` within a block is fine.  Torch index
+    operations only (a stable sort and a ``searchsorted``), no sync.
+    """
+    b, t = ldoc.shape
+    n_docs = b * block_docs
+    dev = ldoc.device
+    key = torch.arange(b, device=dev)[:, None] * block_docs + ldoc.long()
+    key = torch.where(mask > 0, key, n_docs).reshape(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    doc_ptr = torch.searchsorted(
+        sorted_key, torch.arange(n_docs + 1, device=dev))
+    return doc_ptr.to(torch.int32), order.to(torch.int32)
+
 
 def gibbs_sweep(words: torch.Tensor, ldoc: torch.Tensor, mask: torch.Tensor,
                 u: torch.Tensor, z: torch.Tensor, nkd: torch.Tensor,
-                prior: torch.Tensor, prior_k: torch.Tensor, alpha: float
+                prior: torch.Tensor, prior_k: torch.Tensor, alpha: float,
+                doc_idx: Optional[DocIndex] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One doc-blocked CGS sweep.
 
-    words/ldoc/z (B, T) int32, mask/u (B, T) float32 (mask 0 or 1),
-    nkd (B, BD, K), prior (K, V) snapshot + global + β, prior_k (K,) its
-    row sums (with Vβ).  Returns (z', nkd', nkv (K, V)) with nkv the new
-    assignments' counts summed over blocks.
+    words/ldoc/z (B, T) int32 with ldoc in [0, BD), mask/u (B, T)
+    float32 (mask 0 or 1), nkd (B, BD, K), prior (K, V) snapshot +
+    global + β, prior_k (K,) its row sums (with Vβ).  ``doc_idx`` is
+    ``doc_index(ldoc, mask, BD)``, built here when not given.  Returns
+    (z', nkd', nkv (K, V)) with nkv the new assignments' counts summed
+    over blocks.
     """
     if words.dim() != 2 or nkd.dim() != 3 or prior.dim() != 2:
         raise ValueError("words must be (B, T), nkd (B, BD, K), prior (K, V)")
@@ -69,8 +104,8 @@ def gibbs_sweep(words: torch.Tensor, ldoc: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"nkd {tuple(nkd.shape)}, prior "
                          f"{tuple(prior.shape)} and prior_k "
                          f"{tuple(prior_k.shape)} disagree on B or K")
-    dev = common.same_device(words=words, ldoc=ldoc, mask=mask, u=u, z=z, nkd=nkd,
-                       prior=prior, prior_k=prior_k)
+    dev = common.same_device(words=words, ldoc=ldoc, mask=mask, u=u, z=z,
+                             nkd=nkd, prior=prior, prior_k=prior_k)
     if dev.type == "cpu":
         return gibbs_sweep_ref(words, ldoc, mask, u, z, nkd, prior, prior_k,
                                alpha)
@@ -79,24 +114,87 @@ def gibbs_sweep(words: torch.Tensor, ldoc: torch.Tensor, mask: torch.Tensor,
     for name, x in (("mask", mask), ("u", u), ("nkd", nkd),
                     ("prior", prior), ("prior_k", prior_k)):
         common.require_cuda(name, x, dev)
-    if not 1 <= k <= MAX_TOPICS or bd * k * 4 > MAX_SHARED_BYTES:
+    if not 1 <= k <= MAX_TOPICS or b * t >= 2 ** 31:
         raise ValueError(
-            f"gibbs_sweep kernel takes 1 <= K <= {MAX_TOPICS} and a block's "
-            f"n_kd (BD x K x 4 bytes) within {MAX_SHARED_BYTES} bytes of "
-            f"shared memory; got K={k}, BD={bd} ({bd * k * 4} bytes)")
+            f"gibbs_sweep kernel takes 1 <= K <= {MAX_TOPICS} (32 topics "
+            f"a lane) and B*T < 2^31 slots; got K={k}, B*T={b * t}")
+    doc_ptr, slots = doc_idx if doc_idx is not None \
+        else doc_index(ldoc, mask, bd)
+    if doc_ptr.shape != (b * bd + 1,) or slots.shape != (b * t,):
+        raise ValueError(f"doc_idx must be ({b * bd + 1},) and ({b * t},), "
+                         f"got {tuple(doc_ptr.shape)} and "
+                         f"{tuple(slots.shape)}")
+    common.require_cuda("doc_ptr", doc_ptr, dev, torch.int32)
+    common.require_cuda("slots", slots, dev, torch.int32)
     prior_t = prior.t().contiguous()
-    z_out = torch.empty_like(z)
+    z_out = z.clone()                      # pad slots keep their topic
     nkd_out = torch.empty_like(nkd)
     nkv = torch.zeros((k, v), dtype=torch.float32, device=dev)
     lib = common.load_library()
     status = lib.mlego_gibbs_sweep_blocked(
-        words.data_ptr(), ldoc.data_ptr(), mask.data_ptr(), u.data_ptr(),
-        z.data_ptr(), nkd.data_ptr(), prior_t.data_ptr(), prior_k.data_ptr(),
-        z_out.data_ptr(), nkd_out.data_ptr(), nkv.data_ptr(), b, t, bd, k, v,
-        float(alpha), common.stream_of(words))
+        words.data_ptr(), mask.data_ptr(), u.data_ptr(), z.data_ptr(),
+        doc_ptr.data_ptr(), slots.data_ptr(), nkd.data_ptr(),
+        prior_t.data_ptr(), prior_k.data_ptr(), z_out.data_ptr(),
+        nkd_out.data_ptr(), nkv.data_ptr(), b * bd, k, v, float(alpha),
+        common.stream_of(words))
     common.check_launch(status, "gibbs_sweep")
     common.count_launch(globals(), "gibbs_sweep_launches")
     return z_out, nkd_out, nkv
+
+
+def cgs_sweep_exact_t(tokens: torch.Tensor, doc_ids: torch.Tensor,
+                      u: torch.Tensor, z: torch.Tensor, nkd: torch.Tensor,
+                      nkv_t: torch.Tensor, nk: torch.Tensor,
+                      g_t: torch.Tensor, gk: torch.Tensor,
+                      alpha: float, beta: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """:func:`cgs_sweep_exact` with n_kv and the global prior in the
+    kernel's (V, K) layout: nkv_t and g_t (V, K).  Returns
+    (z', nkd', nkv_t' (V, K), nk')."""
+    if tokens.dim() != 1 or nkd.dim() != 2 or nkv_t.dim() != 2 \
+            or g_t.shape != nkv_t.shape:
+        raise ValueError(f"tokens must be (T,), nkd (D, K), nkv_t and g_t "
+                         f"one (V, K) shape; got {tuple(tokens.shape)}, "
+                         f"{tuple(nkd.shape)}, {tuple(nkv_t.shape)}, "
+                         f"{tuple(g_t.shape)}")
+    t = tokens.shape[0]
+    v, k = nkv_t.shape
+    for name, x in (("doc_ids", doc_ids), ("u", u), ("z", z)):
+        if x.shape != (t,):
+            raise ValueError(f"{name} must be ({t},), got {tuple(x.shape)}")
+    if nkd.shape[1] != k or nk.shape != (k,) or gk.shape != (k,):
+        raise ValueError(f"nkd {tuple(nkd.shape)}, nk {tuple(nk.shape)} and "
+                         f"gk {tuple(gk.shape)} disagree with K={k}")
+    dev = common.same_device(tokens=tokens, doc_ids=doc_ids, u=u, z=z,
+                             nkd=nkd, nkv_t=nkv_t, nk=nk, g_t=g_t, gk=gk)
+    if dev.type == "cpu":
+        z, nkd, nkv, nk = cgs_sweep_exact_ref(
+            tokens, doc_ids, u, z, nkd, nkv_t.t(), nk, g_t.t(), gk, alpha,
+            beta)
+        return z, nkd, nkv.t().contiguous(), nk
+    for name, x in (("tokens", tokens), ("doc_ids", doc_ids), ("z", z)):
+        common.require_cuda(name, x, dev, torch.int32)
+    for name, x in (("u", u), ("nkd", nkd), ("nkv_t", nkv_t), ("nk", nk),
+                    ("g_t", g_t), ("gk", gk)):
+        common.require_cuda(name, x, dev)
+    if not 1 <= k <= MAX_TOPICS or t < 1:
+        raise ValueError(f"cgs_sweep_exact kernel takes 1 <= K <= "
+                         f"{MAX_TOPICS} (32 topics a lane) and T >= 1; got "
+                         f"K={k}, T={t}")
+    # the kernel updates these in place
+    z_out, nkd_out, nkv_out, nk_out = (x.clone() for x in (z, nkd, nkv_t, nk))
+    # V·β rounded in float32, as JAX forms it from the traced β
+    vbeta = float(np.float32(v) * np.float32(beta))
+    lib = common.load_library()
+    status = lib.mlego_gibbs_sweep_exact(
+        tokens.data_ptr(), doc_ids.data_ptr(), u.data_ptr(), z_out.data_ptr(),
+        nkd_out.data_ptr(), nkv_out.data_ptr(), nk_out.data_ptr(),
+        g_t.data_ptr(), gk.data_ptr(), t, k, float(alpha), float(beta),
+        vbeta, common.stream_of(tokens))
+    common.check_launch(status, "cgs_sweep_exact")
+    common.count_launch(globals(), "cgs_sweep_exact_launches")
+    return z_out, nkd_out, nkv_out, nk_out
 
 
 def cgs_sweep_exact(tokens: torch.Tensor, doc_ids: torch.Tensor,
@@ -112,44 +210,11 @@ def cgs_sweep_exact(tokens: torch.Tensor, doc_ids: torch.Tensor,
     local counts, nk (K,) their row sums, global_nkv (K, V) the DSGS prior
     and gk (K,) its row sums.  Returns (z', nkd', nkv', nk').
     """
-    if tokens.dim() != 1 or nkd.dim() != 2 or nkv.dim() != 2:
-        raise ValueError("tokens must be (T,), nkd (D, K), nkv (K, V)")
-    t = tokens.shape[0]
-    k, v = nkv.shape
-    for name, x in (("doc_ids", doc_ids), ("u", u), ("z", z)):
-        if x.shape != (t,):
-            raise ValueError(f"{name} must be ({t},), got {tuple(x.shape)}")
-    if nkd.shape[1] != k or nk.shape != (k,) or gk.shape != (k,) \
-            or global_nkv.shape != (k, v):
-        raise ValueError(f"nkd {tuple(nkd.shape)}, nk {tuple(nk.shape)}, "
-                         f"global_nkv {tuple(global_nkv.shape)} and gk "
-                         f"{tuple(gk.shape)} disagree with nkv "
-                         f"{tuple(nkv.shape)}")
-    dev = common.same_device(tokens=tokens, doc_ids=doc_ids, u=u, z=z, nkd=nkd,
-                       nkv=nkv, nk=nk, global_nkv=global_nkv, gk=gk)
-    if dev.type == "cpu":
-        return cgs_sweep_exact_ref(tokens, doc_ids, u, z, nkd, nkv, nk,
-                                   global_nkv, gk, alpha, beta)
-    for name, x in (("tokens", tokens), ("doc_ids", doc_ids), ("z", z)):
-        common.require_cuda(name, x, dev, torch.int32)
-    for name, x in (("u", u), ("nkd", nkd), ("nkv", nkv), ("nk", nk),
-                    ("global_nkv", global_nkv), ("gk", gk)):
-        common.require_cuda(name, x, dev)
-    if not 1 <= k <= MAX_TOPICS or t < 1:
-        raise ValueError(f"cgs_sweep_exact kernel takes 1 <= K <= "
-                         f"{MAX_TOPICS} and T >= 1; got K={k}, T={t}")
-    # the kernel updates these in place
-    z_out, nkd_out, nk_out = z.clone(), nkd.clone(), nk.clone()
-    nkv_t = nkv.t().contiguous()
-    g_t = global_nkv.t().contiguous()
-    # V·β rounded in float32, as JAX forms it from the traced β
-    vbeta = float(np.float32(v) * np.float32(beta))
-    lib = common.load_library()
-    status = lib.mlego_gibbs_sweep_exact(
-        tokens.data_ptr(), doc_ids.data_ptr(), u.data_ptr(), z_out.data_ptr(),
-        nkd_out.data_ptr(), nkv_t.data_ptr(), nk_out.data_ptr(),
-        g_t.data_ptr(), gk.data_ptr(), t, k, float(alpha), float(beta),
-        vbeta, common.stream_of(tokens))
-    common.check_launch(status, "cgs_sweep_exact")
-    common.count_launch(globals(), "cgs_sweep_exact_launches")
-    return z_out, nkd_out, nkv_t.t().contiguous(), nk_out
+    if nkv.dim() != 2 or global_nkv.shape != nkv.shape:
+        raise ValueError(f"nkv {tuple(nkv.shape)} and global_nkv "
+                         f"{tuple(global_nkv.shape)} must be one (K, V) "
+                         f"shape")
+    z, nkd, nkv_t, nk = cgs_sweep_exact_t(
+        tokens, doc_ids, u, z, nkd, nkv.t().contiguous(), nk,
+        global_nkv.t().contiguous(), gk, alpha, beta)
+    return z, nkd, nkv_t.t().contiguous(), nk

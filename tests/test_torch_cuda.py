@@ -243,11 +243,27 @@ def test_batched_merge_kernel_matches_plain(cuda, b, n, k, v):
                                rtol=1e-5, atol=1e-5)
 
 
-def _blocked_inputs(b, t, bd, k, v, dev):
-    """A blocked-sweep state: sorted local docs, a ragged last block
-    (pad slots at its tail), and a snapshot prior made from counts."""
+def _ldoc(layout, b, t, bd):
+    """Local documents of a (B, T) layout: "sorted" (as ``blocked_layout``
+    makes them), "interleaved" (each slot's document drawn at random, so
+    a document's tokens are scattered over the block), "gaps" (only the
+    even documents have tokens) and "long" (all tokens in the first two
+    documents, chains longer than 32 and 96 tokens)."""
+    if layout == "sorted":
+        return np.sort(RNG.integers(0, bd, (b, t)), axis=1)
+    if layout == "interleaved":
+        return RNG.integers(0, bd, (b, t))
+    if layout == "gaps":
+        return 2 * RNG.integers(0, (bd + 1) // 2, (b, t))
+    return RNG.integers(0, min(2, bd), (b, t))
+
+
+def _blocked_inputs(b, t, bd, k, v, dev, layout="sorted"):
+    """A blocked-sweep state: local docs laid out as ``_ldoc`` says, a
+    ragged last block (pad slots at its tail), and a snapshot prior made
+    from counts."""
     words = RNG.integers(0, v, (b, t)).astype(np.int32)
-    ldoc = np.sort(RNG.integers(0, bd, (b, t)), axis=1).astype(np.int32)
+    ldoc = _ldoc(layout, b, t, bd).astype(np.int32)
     mask = np.ones((b, t), np.float32)
     mask[-1, t // 2:] = 0.0
     words[-1, t // 2:] = 0
@@ -267,12 +283,8 @@ def _blocked_inputs(b, t, bd, k, v, dev):
             _t(nkd, dev), _t(prior, dev), _t(prior_k, dev))
 
 
-@pytest.mark.parametrize("b,t,bd,k,v", [(3, 57, 7, 6, 150), (5, 200, 32, 8, 300),
-                                        (2, 90, 16, 33, 64),
-                                        (4, 300, 64, 100, 1000),
-                                        (1, 40, 8, 200, 100)])
-def test_gibbs_sweep_kernel_matches_plain(cuda, b, t, bd, k, v):
-    args = _blocked_inputs(b, t, bd, k, v, cuda)
+def _check_blocked(args):
+    """One kernel sweep against the plain version: the same bits."""
     before = gibbs_ops.gibbs_sweep_launches
     z1, nkd1, nkv1 = gibbs_ops.gibbs_sweep(*args, 0.5)
     torch.cuda.synchronize()
@@ -289,23 +301,61 @@ def test_gibbs_sweep_kernel_matches_plain(cuda, b, t, bd, k, v):
     assert torch.equal(nkd1, nkd2) and torch.equal(nkv1, nkv2)
 
 
-@pytest.mark.parametrize("t,d,k,v", [(300, 20, 6, 150), (800, 30, 40, 300),
-                                     (2000, 40, 100, 8192),
-                                     # a 1,000-document gap of the main path
-                                     (58000, 1000, 100, 8192)])
-def test_cgs_sweep_exact_kernel_matches_plain(cuda, t, d, k, v):
-    docs = np.sort(RNG.integers(0, d, t)).astype(np.int32)
-    toks = RNG.integers(0, v, t).astype(np.int32)
+@pytest.mark.parametrize("b,t,bd,k,v", [(3, 57, 7, 6, 150), (5, 200, 32, 8, 300),
+                                        (2, 90, 16, 33, 64),
+                                        (4, 300, 64, 100, 1000),
+                                        (1, 40, 8, 200, 100)])
+def test_gibbs_sweep_kernel_matches_plain(cuda, b, t, bd, k, v):
+    _check_blocked(_blocked_inputs(b, t, bd, k, v, cuda))
+
+
+@pytest.mark.parametrize("layout,b,t,bd,k,v", [
+    ("interleaved", 3, 200, 8, 20, 100),
+    ("interleaved", 4, 300, 64, 100, 1000),
+    ("gaps", 3, 150, 16, 12, 80),            # documents with no tokens
+    ("long", 2, 300, 8, 40, 200),            # chains of ~150 tokens
+    ("long", 3, 97, 1, 7, 50),               # one document a block: 97, 48
+    ("interleaved", 2, 600, 4096, 64, 200),  # BD x K x 4 = 1 MB a block
+    ("interleaved", 3, 120, 8, 1, 40),       # K = 1
+    ("interleaved", 2, 100, 8, 1024, 300),   # K = 1024, 32 topics a lane
+])
+def test_gibbs_sweep_kernel_on_every_doc_layout(cuda, layout, b, t, bd, k, v):
+    """One warp a document: documents scattered over their block, empty
+    documents, chains longer than a 32-slot chunk and than three, a
+    block wider than shared memory could hold, and K at both ends."""
+    _check_blocked(_blocked_inputs(b, t, bd, k, v, cuda, layout))
+
+
+@pytest.mark.parametrize("layout", ["sorted", "interleaved", "gaps", "long"])
+def test_doc_index_on_the_card_matches_the_cpu(cuda, layout):
+    ldoc = torch.tensor(_ldoc(layout, 4, 90, 16), dtype=torch.int32)
+    mask = torch.ones((4, 90))
+    mask[-1, 50:] = 0.0
+    want = gibbs_ops.doc_index(ldoc, mask, 16)
+    got = gibbs_ops.doc_index(ldoc.to(cuda), mask.to(cuda), 16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+def _exact_inputs(dev, t, d, k, v, docs=None, toks=None):
+    docs = np.sort(RNG.integers(0, d, t)) if docs is None else docs
+    toks = RNG.integers(0, v, t) if toks is None else toks
+    docs, toks = docs.astype(np.int32), toks.astype(np.int32)
     z = RNG.integers(0, k, t).astype(np.int32)
     nkd = np.zeros((d, k), np.float32)
     nkv = np.zeros((k, v), np.float32)
     np.add.at(nkd, (docs, z), 1.0)
     np.add.at(nkv, (z, toks), 1.0)
     glob = RNG.integers(0, 4, (k, v)).astype(np.float32)
-    args = (torch.tensor(toks, device=cuda), torch.tensor(docs, device=cuda),
-            _t(RNG.uniform(size=t), cuda), torch.tensor(z, device=cuda),
-            _t(nkd, cuda), _t(nkv, cuda), _t(nkv.sum(1), cuda),
-            _t(glob, cuda), _t(glob.sum(1), cuda))
+    return (torch.tensor(toks, device=dev), torch.tensor(docs, device=dev),
+            _t(RNG.uniform(size=t), dev), torch.tensor(z, device=dev),
+            _t(nkd, dev), _t(nkv, dev), _t(nkv.sum(1), dev),
+            _t(glob, dev), _t(glob.sum(1), dev))
+
+
+def _check_exact(args):
+    """One kernel sweep against the plain version: the same bits."""
+    t = args[0].shape[0]
     before = gibbs_ops.cgs_sweep_exact_launches
     z1, nkd1, nkv1, nk1 = gibbs_ops.cgs_sweep_exact(*args, 0.5, 0.05)
     torch.cuda.synchronize()
@@ -316,6 +366,71 @@ def test_cgs_sweep_exact_kernel_matches_plain(cuda, t, d, k, v):
     torch.testing.assert_close(nk1, nkv1.sum(1), rtol=0, atol=0)
     assert torch.equal(z1, z2) and torch.equal(nkv1, nkv2)
     assert torch.equal(nkd1, nkd2) and torch.equal(nk1, nk2)
+
+
+@pytest.mark.parametrize("t,d,k,v", [(300, 20, 6, 150), (800, 30, 40, 300),
+                                     (2000, 40, 100, 8192),
+                                     # a 1,000-document gap of the main path
+                                     (58000, 1000, 100, 8192)])
+def test_cgs_sweep_exact_kernel_matches_plain(cuda, t, d, k, v):
+    _check_exact(_exact_inputs(cuda, t, d, k, v))
+
+
+def _runs(n, v):
+    """n words in runs of 1-6 equal words (consecutive tokens share one)."""
+    out = np.repeat(RNG.integers(0, v, n), RNG.integers(1, 7, n))
+    return out[:n]
+
+
+@pytest.mark.parametrize("case,t,d,k,v", [
+    ("repeated_words", 3000, 50, 100, 500),   # the live-row patch
+    ("repeated_words", 700, 10, 20, 3),       # V = 3: every row repeats
+    ("revisits", 2000, 30, 40, 300),          # unsorted: documents revisit
+    ("revisits", 500, 5, 1, 30),              # K = 1
+    ("revisits", 600, 20, 1024, 200),         # K = 1024, 32 topics a lane
+    ("alternating", 400, 2, 8, 50),           # a document change each token
+])
+def test_cgs_sweep_exact_kernel_on_every_stream(cuda, case, t, d, k, v):
+    """The cached document row and the prefetched word rows: consecutive
+    tokens of one word, a tiny vocabulary, an unsorted stream that comes
+    back to a document, and K at both ends."""
+    docs = toks = None
+    if case == "repeated_words":
+        toks = _runs(t, v)
+    elif case == "revisits":
+        docs = np.repeat(RNG.integers(0, d, t), RNG.integers(1, 40, t))[:t]
+        toks = _runs(t, v)
+    else:
+        docs = np.arange(t) % d
+        toks = _runs(t, v)
+    args = _exact_inputs(cuda, t, d, k, v, docs, toks)
+    if case != "repeated_words":
+        assert np.any(np.diff(args[1].cpu().numpy()) < 0)
+    _check_exact(args)
+
+
+def test_cgs_sweep_exact_t_takes_the_transposed_layout(cuda):
+    """The fit's (V, K) entry point gives what the (K, V) one does."""
+    args = list(_exact_inputs(cuda, 900, 25, 30, 200))
+    want = gibbs_ops.cgs_sweep_exact(*args, 0.5, 0.05)
+    t_args = list(args)
+    t_args[5], t_args[7] = args[5].t().contiguous(), args[7].t().contiguous()
+    z, nkd, nkv_t, nk = gibbs_ops.cgs_sweep_exact_t(*t_args, 0.5, 0.05)
+    for g, w in zip((z, nkd, nkv_t.t(), nk), want):
+        assert torch.equal(g, w)
+
+
+def test_gibbs_kernels_are_bitwise_repeatable(cuda):
+    """Five calls of each kernel on one input give the same bits (n_kv
+    sums integer counts by atomicAdd: exact in any order)."""
+    blocked = _blocked_inputs(4, 300, 64, 100, 1000, cuda, "interleaved")
+    exact = _exact_inputs(cuda, 3000, 50, 100, 500, toks=_runs(3000, 500))
+    for fn, args in ((gibbs_ops.gibbs_sweep, blocked + (0.5,)),
+                     (gibbs_ops.cgs_sweep_exact, exact + (0.5, 0.05))):
+        first = fn(*args)
+        for _ in range(4):
+            for g, w in zip(fn(*args), first):
+                assert torch.equal(g, w)
 
 
 def _gs_session(backend):
@@ -372,10 +487,10 @@ def test_gibbs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         gibbs_ops.gibbs_sweep(*bad, 0.5)
     big = list(args)
-    big[5] = torch.zeros((2, 4096, 64), device=cuda)   # n_kd over 227 KB
-    big[6] = torch.ones((64, 20), device=cuda)
-    big[7] = torch.ones(64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    big[5] = torch.zeros((2, 4, 1025), device=cuda)    # over 32 topics a lane
+    big[6] = torch.ones((1025, 20), device=cuda)
+    big[7] = torch.ones(1025, device=cuda)
+    with pytest.raises(ValueError, match="32 topics a lane"):
         gibbs_ops.gibbs_sweep(*big, 0.5)
     with pytest.raises(ValueError):
         gibbs_ops.gibbs_sweep(*args[:4], args[4].cpu(), *args[5:], 0.5)

@@ -117,6 +117,97 @@ def test_gibbs_sweep_matches_jax(corpus, seed, with_prior):
     assert float(tnkv.sum()) == corpus.n_tokens
 
 
+def _per_token_to_layout(x, corpus, block_docs):
+    """Scatter a per-token array into ``blocked_layout``'s (B, T) slots
+    (block b's first slots hold its documents' tokens in stream order)."""
+    words, _, mask = jgibbs.blocked_layout(corpus.tokens, corpus.doc_ids,
+                                          corpus.n_docs, block_docs)
+    out = np.zeros(words.shape, x.dtype)
+    out[mask > 0] = x
+    return out
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_documents_are_independent_chains(corpus, with_prior):
+    """A blocked sweep's draws do not depend on how documents are
+    grouped into blocks: with the same per-token z and u, JAX's
+    ``gibbs_sweep_ref`` gives the same per-token z and n_kv laid out
+    with 64 documents a block and with one.  So the kernel may run one
+    chain per document.  The port's plain version gives the same."""
+    rng = np.random.default_rng(7)
+    n = corpus.n_tokens
+    z_tok = rng.integers(0, K, n).astype(np.int32)
+    u_tok = rng.uniform(size=n).astype(np.float32)
+    nkv = np.zeros((K, V), np.float32)
+    np.add.at(nkv, (z_tok, corpus.tokens), 1.0)
+    glob = _integer_prior(9) if with_prior else np.zeros((K, V), np.float32)
+    prior = (nkv + glob + np.float32(CFG.eta)).astype(np.float32)
+    prior_k = (nkv.sum(1) + glob.sum(1) + np.float32(V * CFG.eta)) \
+        .astype(np.float32)
+    results = {}
+    for bd in (64, 1):
+        words, ldoc, mask = jgibbs.blocked_layout(
+            corpus.tokens, corpus.doc_ids, corpus.n_docs, bd)
+        z = _per_token_to_layout(z_tok, corpus, bd)
+        u = _per_token_to_layout(u_tok, corpus, bd)
+        nkd = np.zeros((words.shape[0], bd, K), np.float32)
+        for i in range(words.shape[0]):
+            np.add.at(nkd[i], (ldoc[i], z[i]), mask[i])
+        args = (words, ldoc, mask, u, z, nkd, prior, prior_k)
+        jz, _, jnkv = jax_sweep(*map(jnp.asarray, args), CFG.alpha)
+        tz, _, tnkv = ops.gibbs_sweep(*map(torch.from_numpy, args), CFG.alpha)
+        real = mask > 0
+        np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+        np.testing.assert_array_equal(tnkv.numpy(), np.asarray(jnkv))
+        results[bd] = (np.asarray(jz)[real], np.asarray(jnkv))
+    assert results[64][0].shape == (n,)
+    np.testing.assert_array_equal(results[64][0], results[1][0])
+    np.testing.assert_array_equal(results[64][1], results[1][1])
+    assert np.any(results[64][0] != z_tok)
+
+
+def _doc_index_numpy(ldoc, mask, block_docs):
+    """Each document's real slots in slot order, document by document,
+    then the pad slots: one slot at a time."""
+    b, t = ldoc.shape
+    slots, ptr = [], [0]
+    for g in range(b * block_docs):
+        blk, d = divmod(g, block_docs)
+        slots += [blk * t + i for i in range(t)
+                  if mask[blk, i] > 0 and ldoc[blk, i] == d]
+        ptr.append(len(slots))
+    slots += [i for i in range(b * t) if mask.reshape(-1)[i] == 0]
+    return np.array(ptr, np.int32), np.array(slots, np.int32)
+
+
+@pytest.mark.parametrize("layout", ["corpus", "interleaved", "gaps",
+                                    "one_doc"])
+def test_doc_index_matches_numpy(corpus, layout):
+    """The per-document index of the blocked kernel: any order of ldoc
+    within a block, documents with no tokens and pad slots."""
+    rng = np.random.default_rng(len(layout))
+    bd = 16
+    if layout == "corpus":
+        _, ldoc, mask = jgibbs.blocked_layout(
+            corpus.tokens, corpus.doc_ids, corpus.n_docs, bd)
+    else:
+        b, t = 5, 70
+        hi = {"interleaved": bd, "gaps": bd // 2, "one_doc": 1}[layout]
+        ldoc = rng.integers(0, hi, (b, t)).astype(np.int32)
+        if layout == "gaps":
+            ldoc = 2 * ldoc + 1                     # even documents empty
+        mask = (rng.uniform(size=(b, t)) > 0.2).astype(np.float32)
+        mask[-1, t // 2:] = 0.0
+    assert (mask == 0).any()
+    want = _doc_index_numpy(ldoc, mask, bd)
+    got = ops.doc_index(torch.from_numpy(ldoc), torch.from_numpy(mask), bd)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    if layout == "gaps":
+        assert (np.diff(want[0])[0::2] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # whole fits with JAX's own draws
 # ---------------------------------------------------------------------------
@@ -158,6 +249,56 @@ def test_cgs_fit_matches_jax_with_its_draws(corpus):
     got = tgibbs.cgs_fit(corpus.tokens, corpus.doc_ids, CFG, _gen(),
                          global_nkv=glob, z0=z0, u=u)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_cgs_fit_keeps_one_transposed_layout(corpus, with_prior,
+                                            monkeypatch):
+    """``cgs_fit`` runs every sweep on n_kv and the prior in the
+    kernel's (V, K) layout and still equals JAX given its draws."""
+    glob = _integer_prior(8) if with_prior else None
+    key = jax.random.PRNGKey(5)
+    want = jgibbs.cgs_fit(corpus.tokens, corpus.doc_ids, JCFG, key,
+                          global_nkv=glob)
+    z0, u = _jax_draws(key, (corpus.n_tokens,))
+    shapes = []
+    real = tgibbs.cgs_sweep_exact_t
+
+    def spy(*args):
+        shapes.append((tuple(args[5].shape), tuple(args[7].shape)))
+        return real(*args)
+
+    monkeypatch.setattr(tgibbs, "cgs_sweep_exact_t", spy)
+    got = tgibbs.cgs_fit(corpus.tokens, corpus.doc_ids, CFG, _gen(),
+                         global_nkv=glob, z0=z0, u=u)
+    assert shapes == [((V, K), (V, K))] * SWEEPS
+    assert got.shape == (K, V) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_exact_sweep_entry_points_agree(corpus):
+    """``cgs_sweep_exact_t`` ((V, K) layout) gives what ``cgs_sweep_exact``
+    ((K, V), JAX's) does, on the plain version."""
+    rng = np.random.default_rng(3)
+    n = 800
+    toks = torch.from_numpy(corpus.tokens[:n].copy())
+    docs = torch.from_numpy(corpus.doc_ids[:n].copy())
+    z = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    u = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    nkd = torch.zeros((int(docs.max()) + 1, K))
+    nkd.index_put_((docs.long(), z.long()), torch.ones(n), accumulate=True)
+    nkv = torch.zeros((K, V))
+    nkv.index_put_((z.long(), toks.long()), torch.ones(n), accumulate=True)
+    glob = torch.from_numpy(_integer_prior(4))
+    want = ops.cgs_sweep_exact(toks, docs, u, z, nkd, nkv, nkv.sum(1), glob,
+                               glob.sum(1), CFG.alpha, CFG.eta)
+    got = ops.cgs_sweep_exact_t(toks, docs, u, z, nkd, nkv.t().contiguous(),
+                                nkv.sum(1), glob.t().contiguous(),
+                                glob.sum(1), CFG.alpha, CFG.eta)
+    assert got[2].shape == (V, K) and got[2].is_contiguous()
+    for g, w in zip((got[0], got[1], got[2].t(), got[3]), want):
+        assert torch.equal(g, w)
+    assert not torch.equal(want[0], z)
 
 
 def test_fits_refuse_draws_of_the_wrong_shape(corpus):

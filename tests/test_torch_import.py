@@ -78,6 +78,19 @@ def test_every_c_entry_point_has_a_declared_signature():
         + text.count("return (int)cudaGetLastError();") >= 3
 
 
+def test_every_c_entry_point_takes_its_declared_argument_count():
+    """ctypes passes exactly the arguments ``_SIGNATURES`` declares, so
+    each must match its C definition's parameter list."""
+    import re
+    from repro_torch.kernels import common
+    text = "".join(p.read_text() for p in common.CSRC_DIR.glob("*.cu"))
+    defs = {name: params for name, params in re.findall(
+        r"^int (mlego_\w+)\(([^)]*)\)\s*\{", text, flags=re.M)}
+    assert set(defs) == set(common._SIGNATURES)
+    for name, params in defs.items():
+        assert len(params.split(",")) == len(common._SIGNATURES[name]), name
+
+
 def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
     from repro_torch.kernels import common
     before = common.library_path()
