@@ -33,9 +33,12 @@ Phases, each of which fails the run if anything in it fails:
    five repeat calls give the same bits.  Each sweep's longest chain and
    its ns per chain step are printed, and one whole ``cgs_fit_blocked`` and
    one ``cgs_fit`` of a 1,000-document window are timed beside the sum of
-   their sweep kernels' times.  The sLSTM scan must give the same bits on
-   five calls, and its latency floor (the kernel's step with almost no
-   work) is printed;
+   their sweep kernels' times.  The sLSTM scan is held on each of its
+   three routes (``scan_plan``: a decode step, a thread block cluster
+   per head, the cooperative kernel for an f32 R of 512), each timed at
+   the served shape and giving the same bits on five calls; the route,
+   cluster size and max active clusters of each case and each route's
+   latency floor (its step with almost no work) are printed;
 3. main path — at the default ``LDAConfig`` widths (K = 100, V = 8192)
    build 32 window models with ``train_range`` on the ``"device"``
    backend, answer a covered ``submit`` (merge only), a ``submit`` with
@@ -66,8 +69,8 @@ Phases, each of which fails the run if anything in it fails:
    42 mLSTM and 6 sLSTM, d_model 2,048, 4 heads of 512, vocab 50,304
    padded, tied embeddings, bf16, random weights from ``torch.Generator``
    seed 0): the same batch shape through ``generate`` with 64 greedy
-   steps; exactly 6 sLSTM kernel launches for the prefill and 6 per
-   step, finite logits, tokens in the padded vocabulary, peak memory
+   steps; exactly 6 sLSTM kernel launches for the prefill (cluster
+   route) and 6 per step (step route), finite logits, tokens in the padded vocabulary, peak memory
    allocated at most 10 GB, and, in float32, decode_step after a
    256-token prefill must equal a 257-token prefill at 2e-3.
 
@@ -861,12 +864,16 @@ def main() -> int:
         instances={dt_name[d]: v for d, v in inst.items()},
         single_sequence=single, sass_hmma=sass_hmma["decode_partial_bf16"])
 
-    # slstm_scan: the JAX kernel tests' shapes (f32 R, 1e-5), an odd shape
-    # and a decode step (S = 1) from a nonzero state (1e-5), then the
-    # served shape (xlstm-1.3b: B = 4, S = 2,048, H = 4, hd = 512) with the
-    # model's bf16 R and with an f32 R (1e-4: 2,048 dependent steps), and
-    # in the model's own dtypes (bf16 xpre and R; h comes back in bf16 and
-    # is held to one bf16 rounding, 2^-7, the final state to 1e-4)
+    # slstm_scan: the JAX kernel tests' shapes (f32 R: the cooperative
+    # route, 1e-5), an odd shape in f32 and bf16 R and decode steps (S = 1,
+    # the step route, with the served bf16 xpre and R among them) from a
+    # nonzero state (1e-5), the cluster route's batch chunks and groups
+    # (B = 9) and 16 heads in waves, then the served shape (xlstm-1.3b:
+    # B = 4, S = 2,048, H = 4,
+    # hd = 512) with the model's bf16 R (cluster route) and with an f32 R
+    # (cooperative route) (1e-4: 2,048 dependent steps), and in the
+    # model's own dtypes (bf16 xpre and R; h comes back in bf16 and is
+    # held to one bf16 rounding, 2^-7, the final state to 1e-4)
     def slstm_inputs(b, s, h, hd, x_dt, r_dt, nonzero):
         xpre = (torch.tensor(rng.normal(size=(b, s, 4, h, hd)),
                              dtype=torch.float32, device=dev) * 0.5).to(x_dt)
@@ -880,6 +887,12 @@ def main() -> int:
             rng.normal(size=(b, h, hd)) * 0.5, rng.normal(size=(b, h, hd)))]
         return xpre, r, tuple(st)
 
+    def slstm_plan(b, s, h, hd, r_dt):
+        p = slstm_ops.scan_plan(b, s, h, hd, r_dt)
+        return (f"{p.route} route, {p.ctas} CTAs a head of {p.units} units"
+                + (f", {p.rows} rows a cluster x {p.groups}, {p.smem} B of "
+                   f"shared memory" if p.route == "cluster" else ""))
+
     f32, bf16 = torch.float32, torch.bfloat16
     errs = []
     for b, s, h, hd, x_dt, r_dt, nonzero, tol in [
@@ -887,7 +900,12 @@ def main() -> int:
             (4, 64, 4, 32, f32, f32, False, 1e-5),
             (1, 48, 3, 8, f32, f32, False, 1e-5),
             (1, 33, 3, 8, f32, f32, True, 1e-5),
+            (1, 33, 3, 8, f32, bf16, True, 1e-5),
             (XL_B, 1, XL_H, XL_HD, f32, bf16, True, 1e-5),
+            (XL_B, 1, XL_H, XL_HD, bf16, bf16, True, 1e-5),
+            (8, 1, XL_H, XL_HD, f32, f32, True, 1e-5),
+            (9, 64, XL_H, XL_HD, f32, bf16, True, 1e-5),
+            (1, 64, 16, XL_HD, f32, bf16, True, 1e-5),
             (XL_B, XL_S, XL_H, XL_HD, f32, bf16, False, 1e-4),
             (XL_B, XL_S, XL_H, XL_HD, f32, f32, False, 1e-4),
             (XL_B, XL_S, XL_H, XL_HD, bf16, bf16, False, 1e-4)]:
@@ -899,57 +917,90 @@ def main() -> int:
         err_st = max(close(g, w, tol) for g, w in zip(got_st, want_st))
         errs.append(max(err_h, err_st))
         log(f"[kernels] slstm_scan B={b} S={s} H={h} hd={hd} xpre {x_dt} R "
-            f"{r_dt}{' from a nonzero state' if nonzero else ''}: max abs "
-            f"err h {err_h:.3g} (tol {h_tol:.3g}), final state "
-            f"{err_st:.3g} (tol {tol})")
+            f"{r_dt}{' from a nonzero state' if nonzero else ''} "
+            f"({slstm_plan(b, s, h, hd, r_dt)}): max abs err h {err_h:.3g} "
+            f"(tol {h_tol:.3g}), final state {err_st:.3g} (tol {tol})")
         del want, want_st
-    # the timed calls, in the model's dtypes: a prefill call and a decode
-    # step; bitwise repeatable over five calls
-    xpre, r, st = slstm_inputs(XL_B, XL_S, XL_H, XL_HD, bf16, bf16, False)
-    first = slstm_ops.slstm_scan(xpre, r, *st)
-    for _ in range(5):
-        again = slstm_ops.slstm_scan(xpre, r, *st)
-        if not (torch.equal(again[0], first[0]) and all(
-                torch.equal(a, g) for a, g in zip(again[1], first[1]))):
-            raise AssertionError("slstm_scan: two calls gave different bits")
-    ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), 10)
-    plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), 1)
-    xd, rd, std = slstm_inputs(XL_B, 1, XL_H, XL_HD, bf16, bf16, True)
-    ms_dec = time_ms(lambda: slstm_ops.slstm_scan(xd, rd, *std), 20)
-    plain_dec = time_ms(lambda: slstm_scan_ref(xd, rd, *std), 20)
 
     def slstm_bound(b, s, h, hd, x_el, r_el):
         # bytes: xpre and R read once, h_out written once, the state read
         # and written once; operations: the h·R products (2·hd·4hd per
-        # row, step and head) and ~20 per unit for the gates
+        # row, step and head) and ~20 f32 operations per unit for the
+        # gates.  With bf16 R the f32 product is exact as three bf16
+        # products on the tensor cores (h = hi + mid + lo), so it is
+        # bounded at a third of their peak; with f32 R at the f32 peak
         n_bytes = (b * s * 4 * h * hd * x_el + h * hd * 4 * hd * r_el
                    + b * s * h * hd * x_el + 8 * 4 * b * h * hd)
-        return bound_ms(n_bytes, 2 * b * s * h * hd * 4 * hd
-                        + 20 * b * s * h * hd)
-    b_ms, b_by = slstm_bound(XL_B, XL_S, XL_H, XL_HD, 2, 2)
-    b_dec, b_dec_by = slstm_bound(XL_B, 1, XL_H, XL_HD, 2, 2)
-    # the kernel's own step with almost no work: one CTA (B = 1, H = 1,
-    # hd = 16) and one head of 32 CTAs (B = 1, H = 1, hd = 512), S = 2,048
-    floors = []
-    for hd in (16, XL_HD):
-        xf, rf, stf = slstm_inputs(1, XL_S, 1, hd, bf16, bf16, False)
-        floors.append(time_ms(lambda: slstm_ops.slstm_scan(xf, rf, *stf), 5))
-    log(f"[kernels] slstm_scan served prefill call: {ms:.4f} ms = "
-        f"{ms / XL_S * 1e3:.3f} us per dependent step; bound {b_ms:.4f} ms "
-        f"({b_by}); plain {plain:.1f} ms; decode step (S = 1) {ms_dec:.4f} "
-        f"ms, bound {b_dec:.4f} ms ({b_dec_by}), plain {plain_dec:.4f} ms")
-    log(f"[kernels] slstm_scan latency floor of {XL_S} dependent steps: "
-        f"{floors[0]:.4f} ms with one CTA and no work "
-        f"({floors[0] / XL_S * 1e3:.3f} us a step), {floors[1]:.4f} ms "
-        f"with one head of {XL_HD // slstm_ops.units_per_cta(XL_HD)} "
-        f"waiting CTAs at B = 1 ({floors[1] / XL_S * 1e3:.3f} us a step)")
+        prod = 2 * b * s * h * hd * 4 * hd
+        t_prod = (3 * prod / PEAK_BF16_TC_FLOPS if r_el == 2
+                  else prod / PEAK_F32_FLOPS)
+        t_ops = (t_prod + 20 * b * s * h * hd / PEAK_F32_FLOPS) * 1e3
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    # the timed calls, one a route: the served prefill call in the model's
+    # dtypes (cluster), a decode step (step) and the prefill call with an
+    # f32 R (cooperative); each bitwise repeatable over five calls
+    inst = {}
+    for route, s, x_dt, r_dt, nonzero, reps, plain_reps in [
+            ("cluster", XL_S, bf16, bf16, False, 10, 1),
+            ("step", 1, bf16, bf16, True, 20, 20),
+            ("coop", XL_S, f32, f32, False, 5, 1)]:
+        if slstm_ops.scan_plan(XL_B, s, XL_H, XL_HD, r_dt).route != route:
+            raise AssertionError(f"slstm_scan: the {route} shape planned "
+                                 f"{slstm_plan(XL_B, s, XL_H, XL_HD, r_dt)}")
+        xpre, r, st = slstm_inputs(XL_B, s, XL_H, XL_HD, x_dt, r_dt, nonzero)
+        first = slstm_ops.slstm_scan(xpre, r, *st)
+        for _ in range(5):
+            again = slstm_ops.slstm_scan(xpre, r, *st)
+            if not (torch.equal(again[0], first[0]) and all(
+                    torch.equal(a, g) for a, g in zip(again[1], first[1]))):
+                raise AssertionError(f"slstm_scan {route} route: two calls "
+                                     f"gave different bits")
+        ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), reps)
+        plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), plain_reps)
+        b_ms, b_by = slstm_bound(XL_B, s, XL_H, XL_HD, xpre.element_size(),
+                                 r.element_size())
+        inst[route] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+        log(f"[kernels] slstm_scan {route} route, B={XL_B} S={s} H={XL_H} "
+            f"hd={XL_HD} xpre {x_dt} R {r_dt}: {ms:.4f} ms"
+            + (f" = {ms / s * 1e3:.3f} us per dependent step" if s > 1
+               else "")
+            + f"; bound {b_ms:.4f} ms ({b_by}); plain {plain:.4f} ms; same "
+            f"bits over 5 calls")
+        del xpre, r, st, first, again
+    # each route's step with almost no work, S = 2,048 (the step route:
+    # one call): one CTA (B = 1, H = 1, hd = 16), one head of 16 CTAs
+    # (cluster, hd = 512 bf16) or 32 CTAs (cooperative, hd = 512 f32) at
+    # B = 1
+    floors = {}
+    for label, s, hd, r_dt in [("cluster, one CTA", XL_S, 16, bf16),
+                               ("cluster, one head of 16 CTAs", XL_S,
+                                XL_HD, bf16),
+                               ("coop, one head of 32 CTAs", XL_S, XL_HD,
+                                f32),
+                               ("step, one CTA", 1, 16, bf16)]:
+        xf, rf, stf = slstm_inputs(1, s, 1, hd, r_dt, r_dt, False)
+        floors[label] = time_ms(
+            lambda: slstm_ops.slstm_scan(xf, rf, *stf), 5 if s > 1 else 20)
+        log(f"[kernels] slstm_scan latency floor ({label}, "
+            f"{slstm_plan(1, s, 1, hd, r_dt)}): {floors[label]:.4f} ms"
+            + (f" = {floors[label] / s * 1e3:.3f} us a step" if s > 1
+               else " a call"))
+        del xf, rf, stf
+    occupancy = {f"{k[0]} P={k[1]} rows={k[3]} smem={k[4]}": n
+                 for k, n in slstm_ops.cluster_occupancy.items()}
+    log(f"[kernels] slstm_scan max active clusters "
+        f"(cudaOccupancyMaxActiveClusters, queried once per configuration): "
+        f"{occupancy}")
     report["slstm_scan"] = dict(
         name="slstm_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/slstm_scan.cu",
         replaces="src/repro/kernels/slstm_scan/slstm_scan.py:82",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    del xpre, r, st, first, again, xd, rd, std, xf, rf, stf
+        max_abs_err=max(errs), **inst["cluster"], instances=inst,
+        floors_ms=floors, max_active_clusters=occupancy)
 
     for rep in report.values():
         log(f"[kernels] {rep['name']}: kernel {rep['ms']:.4f} ms, plain "
@@ -1341,10 +1392,14 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     slstm_ops.slstm_scan_launches = 0
+    for route in slstm_ops.ROUTES:
+        setattr(slstm_ops, f"slstm_{route}_launches", 0)
     stats = {}
     toks = generate(xmodel, params, batch, steps=SERVE_STEPS,
                     cache_len=SERVE_CACHE, stats=stats)
     x_launches = slstm_ops.slstm_scan_launches
+    x_routes = {route: getattr(slstm_ops, f"slstm_{route}_launches")
+                for route in slstm_ops.ROUTES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[xlstm] generate B={SERVE_B} prompt={SERVE_PROMPT} "
         f"steps={SERVE_STEPS}: prefill {stats['prefill_s']:.4f} s, decode "
@@ -1355,11 +1410,14 @@ def main() -> int:
         f"end; peak memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB "
         f"of it held by the earlier phases); on {card}")
     log(f"[xlstm] sLSTM kernel launches on the xlstm path: {x_launches} "
-        f"({n_s} a prefill + {n_s} x {SERVE_STEPS} decode steps)")
-    if x_launches != n_s * (1 + SERVE_STEPS):
-        raise AssertionError(f"the xlstm path launched the sLSTM kernel "
-                             f"{x_launches} times, expected "
-                             f"{n_s * (1 + SERVE_STEPS)}")
+        f"({n_s} a prefill + {n_s} x {SERVE_STEPS} decode steps), by route "
+        f"{x_routes}")
+    want_routes = {"step": n_s * SERVE_STEPS, "cluster": n_s, "coop": 0}
+    if x_launches != n_s * (1 + SERVE_STEPS) or x_routes != want_routes:
+        raise AssertionError(f"the xlstm path launched the sLSTM kernels "
+                             f"{x_launches} times, by route {x_routes}; "
+                             f"expected {n_s * (1 + SERVE_STEPS)}, "
+                             f"{want_routes}")
     if not stats["logits_finite"]:
         raise AssertionError("xlstm logits are not finite")
     if toks.shape != (SERVE_B, SERVE_STEPS) or int(toks.min()) < 0 or \
@@ -1372,6 +1430,8 @@ def main() -> int:
     log(f"[xlstm] sample: {toks[0, :16].tolist()}")
     report["slstm_scan"]["launches_by_path"] = {"xlstm": x_launches}
     report["slstm_scan"]["launches"] = x_launches
+    for route, n in x_routes.items():
+        report["slstm_scan"]["instances"][route]["launches"] = n
     del params, batch, toks
     torch.cuda.empty_cache()
 

@@ -70,10 +70,17 @@ _SIGNATURES = {
     # n_split, chunk, stream
     "mlego_decode_attention": (_P,) * 7 + (_I,) * 6 + (_LL,) * 8
     + (_I, _F, _I, _I, _P),
-    # xpre, r_mat, c0, n0, h0, m0, out, c1, n1, h1, m1, hbuf, arrive,
-    # x_dtype, r_dtype, B, S, H, hd, units, 4 strides of xpre (b, s,
-    # gate, head), stream
-    "mlego_slstm_scan": (_P,) * 13 + (_I,) * 7 + (_LL,) * 4 + (_P,),
+    # xpre, r_mat, c0, n0, h0, m0, out, c1, n1, h1, m1, x_dtype, r_dtype,
+    # B, H, hd, 3 strides of xpre (b, gate, head), stream
+    "mlego_slstm_step": (_P,) * 11 + (_I,) * 5 + (_LL,) * 3 + (_P,),
+    # the same 11 pointers (R in bf16), x_dtype, B, S, H, hd, P, units,
+    # rows, smem bytes, 4 strides of xpre (b, s, gate, head), stream
+    "mlego_slstm_cluster": (_P,) * 11 + (_I,) * 8 + (_LL,) * 5 + (_P,),
+    # x_dtype, B, H, hd, P, units, rows, smem bytes, &clusters
+    "mlego_slstm_cluster_occupancy": (_I,) * 7 + (_LL, _P),
+    # the same 11 pointers, hbuf, arrive, x_dtype, r_dtype, B, S, H, hd,
+    # units, 4 strides of xpre (b, s, gate, head), stream
+    "mlego_slstm_coop": (_P,) * 13 + (_I,) * 7 + (_LL,) * 4 + (_P,),
 }
 
 

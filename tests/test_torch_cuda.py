@@ -765,20 +765,115 @@ def test_slstm_scan_kernel_reads_strided_views_and_repeats_bitwise(cuda):
 
 
 def test_slstm_scan_refuses_a_grid_that_cannot_be_resident(cuda):
-    """16 heads of 512 ask for 512 CTAs of ~141 KB of shared memory, one
-    per SM: more than the card holds at once.  The launch is refused with
-    KernelError (never a plain fallback), and the next launch runs."""
+    """16 heads of 512 with an f32 R take the cooperative route and ask
+    for 512 CTAs of ~141 KB of shared memory, one per SM: more than the
+    card holds at once.  The launch is refused with KernelError (never a
+    plain fallback), and the next launch runs.  With a bf16 R the same
+    shape takes the cluster route, whose 16 clusters run in waves."""
     xb, rb, stb = _slstm_inputs(cuda, 1, 2, 16, 512)
+    assert slstm_ops.scan_plan(1, 2, 16, 512, rb.dtype).route == "coop"
     before = slstm_ops.slstm_scan_launches
+    coop = slstm_ops.slstm_coop_launches
     with pytest.raises(KernelError):
         slstm_ops.slstm_scan(xb, rb, *stb)
     assert slstm_ops.slstm_scan_launches == before
+    assert slstm_ops.slstm_coop_launches == coop
+    rb16 = rb.bfloat16()
+    assert slstm_ops.scan_plan(1, 2, 16, 512, rb16.dtype).route == "cluster"
+    got, got_st = slstm_ops.slstm_scan(xb, rb16, *stb)
+    want, want_st = slstm_scan_ref(xb, rb16, *stb)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got_st, want_st):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     xpre, r, st = _slstm_inputs(cuda, 4, 3, 4, 512)
     with pytest.raises(ValueError):                       # f64
         slstm_ops.slstm_scan(xpre.double(), r, *st)
     got, _ = slstm_ops.slstm_scan(xpre, r, *st)
     want, _ = slstm_scan_ref(xpre, r, *st)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _route_counts():
+    return {r: getattr(slstm_ops, f"slstm_{r}_launches")
+            for r in slstm_ops.ROUTES}
+
+
+@pytest.mark.parametrize("b,s,h,hd,x_dtype,r_dtype,nonzero,route,ctas", [
+    # bf16 R at hd = 512: H = 1, 4 and 16 (16 clusters run in waves)
+    (2, 24, 1, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (4, 24, 4, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (2, 12, 16, 512, torch.bfloat16, torch.bfloat16, True, "cluster", 16),
+    # batch rows from a nonzero state: 1 row; 2, 3 and 5 clusters of 4
+    # rows a head (B = 6, 9, 17 at hd = 512 bf16); 2 chunks of 4 rows in
+    # each of 2 clusters (B = 9 at hd = 128 and 256); 3 chunks in one
+    # cluster (hd = 40)
+    (1, 20, 2, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (6, 20, 2, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (9, 20, 2, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (17, 6, 1, 512, torch.float32, torch.bfloat16, True, "cluster", 16),
+    (9, 20, 2, 128, torch.float32, torch.bfloat16, True, "cluster", 1),
+    (9, 20, 2, 256, torch.float32, torch.bfloat16, True, "cluster", 4),
+    (9, 20, 2, 40, torch.float32, torch.bfloat16, True, "cluster", 1),
+    # P = 1, 2, 4, 8 and 16 by hd (bf16 R)
+    (2, 16, 2, 128, torch.float32, torch.bfloat16, True, "cluster", 1),
+    (3, 16, 2, 192, torch.float32, torch.bfloat16, True, "cluster", 2),
+    (3, 16, 2, 256, torch.float32, torch.bfloat16, True, "cluster", 4),
+    (5, 16, 3, 384, torch.float32, torch.bfloat16, True, "cluster", 8),
+    (3, 16, 2, 448, torch.bfloat16, torch.bfloat16, True, "cluster", 16),
+    # f32 R at S >= 2 takes the cooperative route at every hd
+    (9, 20, 2, 40, torch.float32, torch.float32, True, "coop", 3),
+    (4, 16, 2, 64, torch.float32, torch.float32, True, "coop", 4),
+    (3, 16, 2, 128, torch.float32, torch.float32, True, "coop", 8),
+    (3, 16, 2, 256, torch.float32, torch.float32, True, "coop", 16),
+    # the step route (S = 1) at B = 1 and 8, both dtypes of R
+    (1, 1, 4, 512, torch.float32, torch.bfloat16, True, "step", 32),
+    (8, 1, 4, 512, torch.bfloat16, torch.bfloat16, True, "step", 32),
+    (8, 1, 4, 512, torch.float32, torch.float32, True, "step", 64),
+    (3, 1, 3, 40, torch.float32, torch.float32, True, "step", 5),
+    # the cooperative route: f32 R of 512
+    (2, 16, 2, 512, torch.float32, torch.float32, True, "coop", 32),
+])
+def test_slstm_scan_takes_the_planned_route_and_matches_plain(
+        cuda, b, s, h, hd, x_dtype, r_dtype, nonzero, route, ctas):
+    """Each case takes the route and CTA count ``scan_plan`` names (its
+    counter and no other moves) and holds the plain version at 1e-5 (h
+    in bf16 to one bf16 rounding, 2^-7)."""
+    plan = slstm_ops.scan_plan(b, s, h, hd, r_dtype)
+    assert (plan.route, plan.ctas) == (route, ctas)
+    xpre, r, st = _slstm_inputs(cuda, b, s, h, hd, x_dtype, r_dtype,
+                                nonzero)
+    before = _route_counts()
+    got, got_st = slstm_ops.slstm_scan(xpre, r, *st)
+    torch.cuda.synchronize()
+    after = _route_counts()
+    assert after == {k: v + (k == route) for k, v in before.items()}
+    want, want_st = slstm_scan_ref(xpre, r, *st)
+    h_tol = 1e-5 if x_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=h_tol,
+                               atol=h_tol)
+    for g, w in zip(got_st, want_st):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    if route == "cluster":
+        key = (str(x_dtype), plan.ctas, plan.units, plan.rows, plan.smem)
+        assert slstm_ops.cluster_occupancy[key] >= 1
+
+
+@pytest.mark.parametrize("b,s,h,hd,r_dtype,route", [
+    (4, 64, 4, 512, torch.bfloat16, "cluster"),
+    (9, 16, 2, 512, torch.bfloat16, "cluster"),
+    (4, 1, 4, 512, torch.bfloat16, "step"),
+    (4, 16, 2, 512, torch.float32, "coop"),
+])
+def test_slstm_scan_gives_the_same_bits_on_every_route(cuda, b, s, h, hd,
+                                                       r_dtype, route):
+    assert slstm_ops.scan_plan(b, s, h, hd, r_dtype).route == route
+    xpre, r, st = _slstm_inputs(cuda, b, s, h, hd, torch.bfloat16, r_dtype,
+                                True)
+    got, got_st = slstm_ops.slstm_scan(xpre, r, *st)
+    for _ in range(5):
+        again, again_st = slstm_ops.slstm_scan(xpre, r, *st)
+        assert torch.equal(again, got)
+        assert all(torch.equal(a, g) for a, g in zip(again_st, got_st))
 
 
 def test_xlstm_serve_path_launches_the_kernel_and_matches_the_cpu(cuda):
