@@ -72,11 +72,31 @@ Phases, each of which fails the run if anything in it fails:
    steps; exactly 6 sLSTM kernel launches for the prefill (cluster
    route) and 6 per step (step route), finite logits, tokens in the padded vocabulary, peak memory
    allocated at most 10 GB, and, in float32, decode_step after a
-   256-token prefill must equal a 257-token prefill at 2e-3.
+   256-token prefill must equal a 257-token prefill at 2e-3;
+8. service — ``MLegoService`` (``backend="device"``, two workers a pool,
+   a 5 ms coalescing window up to 16 wide) over [0, 24,000) of phase 3's
+   corpus and config: 16 ``"vb"`` and 4 ``"gs"`` windows by
+   ``train_range``; four tenants submit 8 specs each from four threads at
+   once (covered ranges, half-window edges, ``"gs"`` ranges, and a repeat
+   of the first tenant's covered ranges); every answer comes from
+   ``"device"`` with finite β whose rows sum to 1, a window fuses (width
+   >= 2, a ragged launch), another tenant's repeat of a spec answered
+   alone rides the shared plan cache, and a covered β equals a
+   ``"host"`` session's over the service's store at 1e-5.  Then
+   streaming ingest of [24,000, 32,000) in 4 batches (8 slices of 1,000,
+   ``build_errors == 0``, at least one compaction under a byte budget,
+   the E-step kernel launched, the range answered with no training), a
+   speculator that pre-trains a hot gapped range on the card and is hit,
+   a ``profile=True`` session whose covered merge shows its
+   ``mlego.merge_topics`` range in a ``torch.profiler`` capture and its
+   ``kernel_hbm_bytes`` (row 1's bound bytes), and an injected device
+   loss answered by ``"host"`` that trips the device breaker.
+   ``close()`` must join every thread within 300 s.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
-phase 6 for the serve path, phase 7 for the ``"xlstm"`` path),
+phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
+for the ``"service"`` path),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -157,6 +177,408 @@ def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def service_phase(corpus, cfg, device, unit: float, card: str) -> dict:
+    """Phase 8: the multi-tenant query service on ``device``.
+
+    ``corpus`` spans [0, 32·unit); the service starts over [0, 24·unit)
+    and ingests the rest.  Every check that needs no launch counter
+    raises here; the counters' deltas are returned (with the counts of
+    the whole phase, read after ``close()``) for the caller to hold.
+    """
+    import contextlib
+    import functools
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Interval, MLegoSession, QuerySpec
+    from repro_torch.api.backend import make_backend
+    from repro_torch.ingest import CompactionPolicy
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
+    from repro_torch.kernels.merge_topics import ops as merge_ops
+    from repro_torch.kernels.vb_estep import ops as estep_ops
+    from repro_torch.serve import OPEN, MLegoService
+    from repro_torch.testing.faults import FaultRule, injected
+
+    timeout = 300.0
+    k, v = cfg.n_topics, cfg.vocab_size
+
+    def iv(lo, hi):
+        return Interval(lo * unit, hi * unit)
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[service] {msg}")
+
+    def check_beta(r, what):
+        check(r.beta.shape == (k, v) and np.isfinite(r.beta).all(),
+              f"{what}: beta is not finite ({k}, {v})")
+        err = float(np.abs(r.beta.sum(1) - 1.0).max())
+        check(err <= 1e-5, f"{what}: beta rows sum to 1 +- {err}")
+
+    class TrainLog:
+        """Wraps a device backend's trainers.  Recording, it keeps each
+        training's documents, generator seed and result, from whatever
+        thread trains; replaying (``recorded`` given), it trains with the
+        seed recorded for the same documents, which must have been
+        trained exactly once."""
+
+        def __init__(self, backend, recorded=None):
+            self.recorded = recorded
+            self.runs = {}
+            self.lock = threading.Lock()
+            self.inner = backend.trainer
+            backend.trainer = self.trainer
+
+        @staticmethod
+        def key(kind, sub):
+            return (kind, sub.n_docs, sub.n_tokens, float(sub.attr[0]),
+                    float(sub.attr[-1]))
+
+        def snapshot(self):
+            with self.lock:
+                return {key: list(runs) for key, runs in self.runs.items()}
+
+        def trainer(self, kind):
+            fn = self.inner(kind)
+
+            # wraps: the executor reads the trainer's signature
+            @functools.wraps(fn)
+            def train(sub, cfg_, gen, **kw):
+                key = self.key(kind, sub)
+                if self.recorded is not None:
+                    runs = self.recorded.get(key, [])
+                    check(len(runs) == 1, f"the replay trains {key}, which "
+                          f"the service trained {len(runs)} times")
+                    gen = torch.Generator(device=gen.device).manual_seed(
+                        runs[0][0])
+                theta = fn(sub, cfg_, gen, **kw)
+                with self.lock:
+                    self.runs.setdefault(key, []).append(
+                        (gen.initial_seed(), theta))
+                return theta
+            return train
+
+    counters = ((merge_ops, "merge_topics_launches"),
+                (merge_ops, "merge_topics_ragged_launches"),
+                (merge_ops, "merge_topics_batch_launches"),
+                (estep_ops, "launches"),
+                (gibbs_ops, "gibbs_sweep_launches"),
+                (gibbs_ops, "cgs_sweep_exact_launches"))
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    grew = {}
+    elsewhere = {}
+
+    @contextlib.contextmanager
+    def not_the_service(what):
+        """Launches of a session that is not the service (a replay, the
+        profiled session) go to ``elsewhere[what]`` and back out of the
+        service path's counts; no service thread launches meanwhile."""
+        before = [getattr(mod, name) for mod, name in counters]
+        try:
+            yield
+        finally:
+            seen = elsewhere.setdefault(what, {})
+            for (mod, name), b in zip(counters, before):
+                if getattr(mod, name) != b:
+                    seen[name] = seen.get(name, 0) + getattr(mod, name) - b
+                setattr(mod, name, b)
+
+    # 1. the service and its capital
+    t0 = time.perf_counter()
+    svc = MLegoService(corpus.subset(0.0, 24 * unit), cfg, backend="device",
+                       device=device, window_s=0.005, max_width=16,
+                       workers_per_pool=2)
+    trained = TrainLog(svc.backend)
+    for i in range(16):
+        m = svc.train_range(i * unit, (i + 1) * unit)
+        check(m is not None and m.n_docs > 0, f"vb window {i} is empty")
+    for i in range(4):
+        m = svc.train_range(i * unit, (i + 1) * unit, kind="gs")
+        check(m is not None and m.kind == "gs", f"gs window {i} missing")
+    log(f"[service] train_range: 16 vb + 4 gs windows of {unit:g} units in "
+        f"{time.perf_counter() - t0:.2f} s, {len(svc.store)} models; on "
+        f"{card}")
+
+    # 2. four tenants submitting at once, 8 specs each
+    covered = [iv(0, 8), iv(0, 4), iv(4, 8), iv(8, 16), iv(0, 16), iv(2, 6),
+               iv(12, 16), iv(0, 1)]
+    edged = [iv(8.5, 12.5), iv(0.5, 3.5), iv(1.5, 7.5), iv(10.5, 14.5),
+             iv(4.5, 9.5), iv(12.5, 15.5), iv(2.5, 5.5), iv(6.5, 13.5)]
+    gs_ranges = [iv(0, 4), iv(0.5, 4.5), iv(0, 2), iv(2, 4), iv(1, 3),
+                 iv(0, 1), iv(3, 4), iv(1, 4)]
+    plans = {
+        "ana": [QuerySpec(sigma=s) for s in covered],
+        "bob": [QuerySpec(sigma=s, materialize="volatile") for s in edged],
+        "cy": [QuerySpec(sigma=s, kind="gs", materialize="volatile")
+               for s in gs_ranges],
+        "dan": [QuerySpec(sigma=s) for s in covered],   # repeats ana's
+    }
+    futures = {t: [] for t in plans}
+    latency = {t: [] for t in plans}
+    start = threading.Barrier(len(plans))
+
+    def client(tenant):
+        start.wait(timeout=timeout)
+        for spec in plans[tenant]:
+            t_sub = time.perf_counter()
+            fut = svc.submit(spec, tenant=tenant)
+            fut.add_done_callback(
+                lambda _f, t=t_sub, lat=latency[tenant]:
+                lat.append(time.perf_counter() - t))
+            futures[tenant].append(fut)
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in plans]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+        check(not th.is_alive(), f"client {th.name} did not finish")
+    reports = {t: [f.result(timeout=timeout) for f in fs]
+               for t, fs in futures.items()}
+    t_burst = time.perf_counter() - t0
+    rep = svc.report()
+    for t, reps in reports.items():
+        check(len(reps) == len(plans[t]), f"{t}: answers missing")
+        for r in reps:
+            check(r.backend == "device" and r.fallback_from is None,
+                  f"{t}: answered by {r.backend} (from {r.fallback_from})")
+        log(f"[service] tenant {t}: {len(reps)} answers, latency p50 "
+            f"{np.percentile(latency[t], 50) * 1e3:.1f} ms, p95 "
+            f"{np.percentile(latency[t], 95) * 1e3:.1f} ms (host clock, "
+            f"submit to answer), {sum(r.plan_cached for r in reps)} plans "
+            f"cached, {sum(r.n_trained_tokens for r in reps)} trained "
+            f"tokens; on {card}")
+    for r in reports["ana"] + reports["dan"]:
+        check(r.n_trained_tokens == 0, "a covered spec trained tokens")
+        check_beta(r, "covered")
+    for r in reports["bob"] + reports["cy"]:
+        check_beta(r, "gapped")
+    check(any(r.n_trained_tokens > 0 for r in reports["bob"]),
+          "no half-window spec trained a gap")
+    check(rep.errors == 0 and rep.queries == 32,
+          f"{rep.errors} errors in {rep.queries} answers")
+    check(rep.max_coalesce_width >= 2, "no window fused")
+    grew["burst_ragged"] = merge_ops.merge_topics_ragged_launches
+    log(f"[service] burst: 32 answers in {t_burst:.2f} s; {rep.groups} "
+        f"groups, coalesce width mean {rep.mean_coalesce_width:.2f} max "
+        f"{rep.max_coalesce_width}; plan cache {rep.plan_cache_hits} hits "
+        f"{rep.plan_cache_misses} misses; on {card}")
+    # a fused group plans as one batch; a spec that drains alone plans on
+    # its own, and another tenant's repeat of it reuses that plan
+    alone = [svc.submit(QuerySpec(sigma=covered[0]), tenant=t).result(
+        timeout=timeout) for t in ("ana", "dan")]
+    check(not alone[0].plan_cached and alone[1].plan_cached,
+          "dan's repeat of ana's spec did not ride the shared plan cache")
+    host = MLegoSession(svc.corpus, cfg, store=svc.store, backend="host",
+                        device=device)
+    want = host.submit(QuerySpec(sigma=covered[0]))
+    got = reports["ana"][0]
+    diff = float(np.abs(want.beta - got.beta).max())
+    check(want.model_ids == got.model_ids and np.allclose(
+        got.beta, want.beta, rtol=1e-5, atol=1e-5),
+        f"service beta differs from a host session's by {diff}")
+    log(f"[service] covered beta against a host session over the service's "
+        f"store: max abs diff {diff:.3g} (tol 1e-5)")
+    # one gapped answer of each kind, trained by the pool's workers beside
+    # each other, against the same spec answered on this thread by a
+    # device session over the same store, each gap trained with the seed
+    # the service trained it with
+    replay_backend = make_backend("device", device=device)
+    TrainLog(replay_backend, recorded=trained.snapshot())
+    replay = MLegoSession(svc.corpus, cfg, store=svc.store,
+                          backend=replay_backend, device=device)
+    for tenant, tol in (("bob", ESTEP_TOL), ("cy", 0.0)):
+        i = next(i for i, r in enumerate(reports[tenant])
+                 if r.n_trained_tokens > 0)
+        got, spec = reports[tenant][i], plans[tenant][i]
+        with not_the_service("replay"):
+            want = replay.submit(spec)
+        check(want.model_ids == got.model_ids
+              and want.n_trained_tokens == got.n_trained_tokens,
+              f"{tenant}: the replay planned {want.model_ids}, "
+              f"{want.n_trained_tokens} tokens; the service "
+              f"{got.model_ids}, {got.n_trained_tokens}")
+        diff = float(np.abs(want.beta - got.beta).max())
+        check(diff <= tol, f"{tenant}: the gapped answer differs from its "
+              f"one-thread replay by {diff} (tol {tol})")
+        log(f"[service] {tenant}'s gapped {spec.kind or svc.kind!r} answer "
+            f"({got.n_trained_tokens} trained tokens) against its one-thread "
+            f"replay with the service's seeds: max abs diff {diff:.3g} "
+            f"(tol {tol:g})")
+
+    # 3. streaming ingest of [24, 32)·unit with compaction
+    per_model = k * v * 4
+    budget = (len(svc.store.models("vb")) + 8 - 4) * per_model
+    before = estep_ops.launches
+    pipe = svc.attach_ingest(slice_width=unit, start=24 * unit,
+                             compaction=CompactionPolicy(max_bytes=budget))
+    t0 = time.perf_counter()
+    for b in range(4):
+        svc.ingest(corpus.subset((24 + 2 * b) * unit, (26 + 2 * b) * unit))
+    check(pipe.flush(timeout=timeout), "the ingest builder did not drain")
+    pipe.close()
+    t_ingest = time.perf_counter() - t0
+    grew["ingest_estep"] = estep_ops.launches - before
+    ing = pipe.report()
+    check(ing.slices_built == 8 and ing.build_errors == 0,
+          f"{ing.slices_built} slices built, {ing.build_errors} errors")
+    check(ing.compactions >= 1, "the byte budget compacted nothing")
+    fresh = svc.submit(QuerySpec(sigma=iv(24, 32)), tenant="ana").result(
+        timeout=timeout)
+    check(fresh.n_trained_tokens == 0 and fresh.backend == "device",
+          f"the ingested range trained {fresh.n_trained_tokens} tokens")
+    check_beta(fresh, "ingested")
+    # the first slice, built by the builder thread while batches were
+    # still appended, against the same fit on this thread with its seed
+    lo = 24 * unit
+    sub = pipe.corpus.subset(lo, lo + unit)
+    runs = trained.snapshot().get(TrainLog.key("vb", sub), [])
+    check(len(runs) == 1, f"slice [{lo:g}, {lo + unit:g}) was trained "
+          f"{len(runs)} times")
+    seed, built = runs[0]
+    with not_the_service("replay"):
+        again = svc.backend.trainer("vb")(
+            sub, cfg, torch.Generator(device=device).manual_seed(seed))
+    stored = [m for m in svc.store.models("vb")
+              if (m.o.lo, m.o.hi) == (lo, lo + unit)]
+    diff = float(np.abs(again["lam"] - built["lam"]).max())
+    scale = float(np.abs(built["lam"]).max())
+    check(diff <= ESTEP_TOL * (1.0 + scale),
+          f"slice theta differs from its one-thread refit by {diff}")
+    check(all(np.array_equal(m.theta["lam"], built["lam"]) for m in stored),
+          "the stored slice is not the one the builder trained")
+    log(f"[service] slice [{lo:g}, {lo + unit:g}) ({sub.n_docs} docs) against "
+        f"its one-thread refit with the builder's seed: max abs diff "
+        f"{diff:.3g} of max |lam| {scale:.3g} (tol {ESTEP_TOL:g}·(1 + max "
+        f"|lam|)); {len(stored)} stored copy, the same bits")
+    log(f"[service] ingest: {ing.batches} batches, {ing.docs} docs, "
+        f"{ing.slices_built} slices in {t_ingest:.2f} s (append to last "
+        f"slice built), freshness lag mean {ing.freshness_lag_s_mean:.3f} s "
+        f"max {ing.freshness_lag_s_max:.3f} s, {ing.compactions} "
+        f"compactions, {ing.evictions} evictions under a "
+        f"{budget / 1e6:.1f} MB budget; on {card}")
+
+    # 4. speculation: a hot gapped range pre-trained, then a hit
+    hot = QuerySpec(sigma=iv(15.5, 16.5), alpha=0.5, materialize="volatile")
+    first = [svc.submit(hot, tenant="eve").result(timeout=timeout)
+             for _ in range(2)]
+    check(all(r.n_trained_tokens > 0 for r in first),
+          "the hot range has no gap to speculate on")
+    spec_tr = svc.attach_speculator(min_count=2, window_s=60.0, margin=0.0,
+                                    start=False)
+    before = estep_ops.launches
+    t0 = time.perf_counter()
+    n_spec = spec_tr.scan_once()
+    t_spec = time.perf_counter() - t0
+    grew["speculation_estep"] = estep_ops.launches - before
+    check(n_spec >= 1, "the speculator trained no gap")
+    again = svc.submit(hot, tenant="eve").result(timeout=timeout)
+    sp = svc.report().speculation
+    check(sp.hits >= 1, "the hot range's next answer missed the "
+          "speculated capital")
+    log(f"[service] speculation: {sp.trained} gaps, {sp.trained_tokens} "
+        f"tokens pre-trained in {t_spec:.2f} s; the next answer trained "
+        f"{again.n_trained_tokens} tokens (before: "
+        f"{first[0].n_trained_tokens}), {sp.hits} hits; on {card}")
+
+    # 5. profiling: the merge's range in a torch.profiler capture, its
+    # kernel.launch span carrying the bound's bytes
+    psess = MLegoSession(svc.corpus, cfg, store=svc.store, backend="device",
+                         device=device, profile=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with not_the_service("profile"), \
+            torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prep = psess.submit(QuerySpec(sigma=covered[0], alpha=1.0))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    names = {e.name for e in prof.events()}
+    check("mlego.merge_topics" in names,
+          "no mlego.merge_topics range in the profile")
+    n = len(prep.model_ids)
+    spans = [s for s in psess.tracer.spans(trace_id=prep.trace,
+                                           name="kernel.launch")
+             if s.attrs.get("op") == "merge_topics"]
+    want_bytes = 4.0 * (n * k * v + n + k * v)
+    check(spans and spans[0].attrs.get("kernel_hbm_bytes") == want_bytes,
+          f"kernel.launch span bytes {spans and spans[0].attrs} != "
+          f"{want_bytes}")
+    # the capture's device activity (kernels and copies; the mlego.*
+    # ranges projected onto the device timeline are spans, not work)
+    # against the query's wall: a new session's first merge uploads its
+    # parts
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = [e for e in on_card if e.name.startswith("mlego.")
+              or getattr(e, "is_user_annotation", False)]
+    work = [e for e in on_card if all(e is not r for r in ranges)]
+
+    def span_us(events, word=""):
+        return sum(e.time_range.elapsed_us() for e in events
+                   if word in e.name)
+    busy_us = span_us(work)
+    cuda = int(torch.device(device).type == "cuda")
+    check(elsewhere["profile"] == ({"merge_topics_launches": 1} if cuda
+                                   else {}),
+          f"the profiled submit launched {elsewhere['profile']}")
+    log(f"[service] profile: mlego.merge_topics range found; kernel.launch "
+        f"span kernel_hbm_bytes {want_bytes:.0f} for n = {n} parts, "
+        f"kernel_flops {spans[0].attrs['kernel_flops']:.0f}; the profiled "
+        f"submit {t_prof * 1e3:.2f} ms wall, device busy {busy_us:.1f} us "
+        f"in {len(work)} kernels and copies (idle share "
+        f"{1.0 - busy_us * 1e-6 / t_prof:.3f}): copies "
+        f"{span_us(work, 'Memcpy'):.1f} us, merge kernel "
+        f"{span_us(work, 'merge'):.1f} us; the mlego.* ranges span "
+        f"{span_us(ranges):.1f} us of the device timeline; on {card}")
+
+    # 6. device loss: the answer comes from "host", the breaker trips
+    with injected(FaultRule("backend.merge.device", kind="device_lost",
+                            max_failures=1)):
+        lost = svc.submit(QuerySpec(sigma=covered[0]), tenant="ana").result(
+            timeout=timeout)
+    check((lost.backend, lost.fallback_from) == ("host", "device"),
+          f"device loss answered by {lost.backend} (from "
+          f"{lost.fallback_from})")
+    check_beta(lost, "fallback")
+    br = svc.report().breaker.get("device")
+    check(br is not None and br.state == OPEN and br.opens >= 1,
+          f"the device breaker did not trip: {br}")
+    log(f"[service] device loss: answered by host (fallback from device), "
+        f"device breaker {br.state} after {br.opens} open; covered answer "
+        f"{lost.total_s * 1e3:.1f} ms on {card}")
+
+    # 7. close joins every thread
+    final = svc.report()
+    closer = threading.Thread(target=svc.close, daemon=True)
+    closer.start()
+    closer.join(timeout=timeout)
+    alive = [t.name for p in svc._pools_snapshot() for t in p.threads
+             if t.is_alive()]
+    check(not closer.is_alive() and not alive,
+          f"close() left threads running: {alive}")
+    launches = {"merge_topics": merge_ops.merge_topics_launches,
+                "merge_topics_ragged": merge_ops.merge_topics_ragged_launches,
+                "vb_estep": estep_ops.launches,
+                "gibbs_sweep": gibbs_ops.gibbs_sweep_launches}
+    log(f"[service] kernel launches on the service path: {launches}; "
+        f"exact scan {gibbs_ops.cgs_sweep_exact_launches}, batched merge "
+        f"{merge_ops.merge_topics_batch_launches}; step deltas {grew}; "
+        f"left out, launched by the replays and the profiled session: "
+        f"{elsewhere}")
+    return dict(launches=launches, grew=grew,
+                queries=final.queries, groups=final.groups,
+                mean_width=final.mean_coalesce_width,
+                max_width=final.max_coalesce_width)
 
 
 def main() -> int:
@@ -1455,6 +1877,24 @@ def main() -> int:
         f"{XL_CHECK_PROMPT})) vs prefill({XL_CHECK_PROMPT + 1}) max abs diff "
         f"{diff:.3g} over logits up to {scale:.3g} (tol {CONSISTENCY_TOL})")
     del masters, p32, caches
+    torch.cuda.empty_cache()
+
+    # -- 8. the multi-tenant query service ----------------------------------
+    # phase 3's corpus and config; the service's counts are zeroed inside
+    # and read after its close()
+    svc_out = service_phase(corpus, cfg, dev, 1000.0, card)
+    for step, count in svc_out["grew"].items():
+        if count <= 0:
+            raise AssertionError(f"service step {step} launched no kernel")
+    for kname, count in svc_out["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"service path never launched {kname}")
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["service"] = count
+        report[kname]["launches"] = sum(by_path.values())
+    log(f"[service] {svc_out['queries']} answers in {svc_out['groups']} "
+        f"groups (coalesce width mean {svc_out['mean_width']:.2f}, max "
+        f"{svc_out['max_width']})")
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)

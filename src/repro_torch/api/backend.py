@@ -36,7 +36,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, fields, replace
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -60,6 +60,7 @@ from repro_torch.kernels.merge_topics.ops import (
     merge_topics_parts,
     merge_topics_ragged,
 )
+from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs
 from repro_torch.testing.faults import maybe_fail
 
@@ -359,6 +360,10 @@ class DeviceBackend(ExecutionBackend):
                 staler topic-word counts within a sweep).  Kept for
                 parity with ``repro.api.DeviceBackend``; every route
                 still runs the blocked kernel, whatever its value
+    profile   : wrap each launch in a profiler range (``mlego.*``;
+                ``obs.profile.annotate``) and land the single merge's
+                flops/bytes on its ``kernel.launch`` span as
+                ``kernel_*`` attributes (off by default)
 
     "vb" gaps train through the fused E-step kernel and "gs" gaps
     through the doc-blocked sweep kernel (``cgs_fit_blocked``, which is
@@ -373,13 +378,15 @@ class DeviceBackend(ExecutionBackend):
     def __init__(self, capacity: int = 64, *,
                  max_bytes: Optional[int] = None,
                  device: Union[str, torch.device, None] = None,
-                 gibbs_block_docs: int = 64):
+                 gibbs_block_docs: int = 64,
+                 profile: bool = False):
         super().__init__()
         if gibbs_block_docs < 1:
             raise ValueError(f"gibbs_block_docs must be >= 1, got "
                              f"{gibbs_block_docs}")
         self.device = resolve_device(device)
         self.gibbs_block_docs = gibbs_block_docs
+        self.profile = profile
         self.cache = _DeviceModelCache(capacity, max_bytes,
                                        device=self.device)
         self._store: Optional[ModelStore] = None
@@ -415,6 +422,11 @@ class DeviceBackend(ExecutionBackend):
         maybe_fail(f"backend.fetch.{self.name}")
         return self.cache.get(model, stat_key)
 
+    def _annotate(self, name: str):
+        """Profiler range for a launch; no-op unless profiling."""
+        return obs_profile.annotate(name, self.device) if self.profile \
+            else nullcontext()
+
     # -- merge -----------------------------------------------------------
     def merge(self, parts, kind, cfg):
         maybe_fail(f"backend.merge.{self.name}")
@@ -429,12 +441,16 @@ class DeviceBackend(ExecutionBackend):
                          n_parts=len(parts), backend=self.name):
             # the cached tensors go to the kernel as they are: no stacked
             # copy, and the unit weights go by value
-            merged = merge_topics_parts(
-                [self._fetch(m, stat_key) for m in parts],
-                [1.0] * len(parts), bias=bias, base=base)
-            host = merged.cpu().numpy()      # waits for the launch
+            stats = [self._fetch(m, stat_key) for m in parts]
+            with self._annotate("mlego.merge_topics"):
+                merged = merge_topics_parts(stats, [1.0] * len(parts),
+                                            bias=bias, base=base)
+                host = merged.cpu().numpy()      # waits for the launch
             ms = (time.perf_counter() - t0) * 1e3
             obs.set_attrs(merge_device_ms=ms)
+            if self.profile:
+                obs_profile.annotate_span("kernel", obs_profile.merge_features(
+                    len(stats), *stats[0].shape))
         self._sync_cache_counters()
         self._count(merges=1, device_launches=1, merge_device_ms=ms)
         return finish(host)
@@ -464,9 +480,10 @@ class DeviceBackend(ExecutionBackend):
                     torch.stack([self._fetch(m, stat_key) for m in parts]))
                 weights_list.append(torch.ones(
                     (len(parts),), dtype=torch.float32, device=self.device))
-            merged, pad_rows, launches = merge_topics_ragged(
-                stats_list, weights_list, bias=bias, base=base)
-            host = [row.cpu().numpy() for row in merged]
+            with self._annotate("mlego.merge_topics_ragged"):
+                merged, pad_rows, launches = merge_topics_ragged(
+                    stats_list, weights_list, bias=bias, base=base)
+                host = [row.cpu().numpy() for row in merged]
             obs.set_attrs(merge_device_ms=(time.perf_counter() - t0) * 1e3,
                           pad_rows=pad_rows)
         ms = (time.perf_counter() - t0) * 1e3
@@ -518,7 +535,7 @@ class DeviceBackend(ExecutionBackend):
         self._check_generator(gen)
         t0 = time.perf_counter()
         x = doc_term_matrix(corpus)
-        with self._device_guard():
+        with self._device_guard(), self._annotate("mlego.vb_estep"):
             lam = vb_fit(x, gen, cfg, use_kernel=True).cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
         obs.set_attrs(train_device_ms=ms, route="vb_estep")
@@ -532,7 +549,7 @@ class DeviceBackend(ExecutionBackend):
         from repro_torch.core.gibbs import cgs_fit_blocked
         self._check_generator(gen)
         t0 = time.perf_counter()
-        with self._device_guard():
+        with self._device_guard(), self._annotate("mlego.gibbs_sweep"):
             nkv = cgs_fit_blocked(corpus.tokens, corpus.doc_ids, cfg, gen,
                                   global_nkv=global_nkv,
                                   block_docs=self.gibbs_block_docs)
@@ -549,7 +566,8 @@ _FACTORIES = {"host": HostBackend, "device": DeviceBackend}
 def make_backend(name: str, **kwargs) -> ExecutionBackend:
     """Construct a backend by name; ``kwargs`` pass to its constructor
     (host ignores ``device=`` — it merges on the host, and its trainers
-    run on the device of the generator they are handed)."""
+    run on the device of the generator they are handed — and
+    ``profile=``: it has no launches to annotate)."""
     if name == "device_sharded":
         raise ValueError("the 'device_sharded' backend is not ported to "
                          "repro_torch yet; use 'device' or 'host'")
@@ -560,4 +578,5 @@ def make_backend(name: str, **kwargs) -> ExecutionBackend:
                          f"{BACKEND_NAMES}") from None
     if factory is HostBackend:
         kwargs.pop("device", None)
+        kwargs.pop("profile", None)
     return factory(**kwargs)

@@ -108,8 +108,10 @@ class MLegoSession:
                  calibration_path: Optional[str] = None,
                  retry: Optional[RetryPolicy] = None,
                  tracer: Optional[Tracer] = None,
-                 device: Union[str, torch.device, None] = "cuda"):
+                 device: Union[str, torch.device, None] = "cuda",
+                 profile: bool = False):
         self.device = resolve_device(device)
+        self._profile = profile
         self.corpus = corpus
         self.index = DataIndex(corpus)
         self._backends = {}
@@ -165,7 +167,7 @@ class MLegoSession:
             Callable[[str, Optional[str], Optional[BaseException]],
                      None]] = None
         self.backend = self._register_backend(
-            make_backend(backend, device=self.device)
+            make_backend(backend, device=self.device, profile=profile)
             if isinstance(backend, str) else backend,
             adopted=not isinstance(backend, str))
 
@@ -380,7 +382,8 @@ class MLegoSession:
             return self.backend
         if spec.backend not in self._backends:
             self._register_backend(
-                make_backend(spec.backend, device=self.device))
+                make_backend(spec.backend, device=self.device,
+                             profile=self._profile))
         return self._backends[spec.backend]
 
     # device-loss fallback chain: sharded -> single-device -> host
@@ -402,7 +405,8 @@ class MLegoSession:
                 return None
             if name not in self._backends:
                 self._register_backend(
-                    make_backend(name, device=self.device))
+                    make_backend(name, device=self.device,
+                                 profile=self._profile))
             nxt = self._backends[name]
             if not nxt.quarantined:
                 obs.instant("fallback", from_backend=backend.name,

@@ -920,3 +920,83 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _service_case():
+    from repro_torch.configs.lda_default import LDAConfig
+    from repro_torch.data.corpus import make_corpus
+    cfg = LDAConfig(n_topics=6, vocab_size=150, alpha=0.5, eta=0.05,
+                    max_iters=6, e_step_iters=5, gibbs_sweeps=6)
+    corpus, _ = make_corpus(400, 150, 6, mean_doc_len=30, seed=3)
+    return corpus, cfg
+
+
+def test_service_answers_concurrent_tenants_through_the_kernels(cuda):
+    """A CUDA service: a covered query alone (the single merge), then
+    three tenants at once with covered and gapped specs (fused groups: the
+    ragged merge, gaps on the E-step kernel)."""
+    import threading
+    from repro_torch.api import Interval, QuerySpec
+    from repro_torch.serve import MLegoService
+    corpus, cfg = _service_case()
+    with MLegoService(corpus.subset(0.0, 300.0), cfg, backend="device",
+                      device="cuda", window_s=0.2, max_width=16) as svc:
+        for i in range(3):
+            svc.train_range(100.0 * i, 100.0 * (i + 1))
+        before = (merge_ops.merge_topics_launches,
+                  merge_ops.merge_topics_ragged_launches, estep_ops.launches)
+        alone = svc.submit(QuerySpec(sigma=Interval(0.0, 300.0)),
+                           tenant="solo").result(timeout=120)
+        specs = [QuerySpec(sigma=Interval(0.0, 200.0)),
+                 QuerySpec(sigma=Interval(50.0, 250.0), alpha=0.0,
+                           materialize="volatile"),
+                 QuerySpec(sigma=Interval(100.0, 300.0))]
+        barrier = threading.Barrier(3)
+        futs = []
+
+        def client(tenant):
+            barrier.wait(timeout=60)
+            futs.extend(svc.submit(s, tenant=tenant) for s in specs)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in ("ana", "bob", "cy")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        reps = [alone] + [f.result(timeout=120) for f in futs]
+        torch.cuda.synchronize()
+        report = svc.report()
+    grew = (merge_ops.merge_topics_launches - before[0],
+            merge_ops.merge_topics_ragged_launches - before[1],
+            estep_ops.launches - before[2])
+    assert all(g > 0 for g in grew), grew
+    assert report.max_coalesce_width >= 2 and report.errors == 0
+    assert any(r.n_trained_tokens > 0 for r in reps)
+    for r in reps:
+        assert r.backend == "device" and r.fallback_from is None
+        assert np.isfinite(r.beta).all()
+        np.testing.assert_allclose(r.beta.sum(1), 1.0, rtol=1e-5)
+
+
+def test_ingest_pipeline_builds_slices_on_the_estep_kernel(cuda):
+    from repro_torch.api import Interval, QuerySpec
+    from repro_torch.serve import MLegoService
+    corpus, cfg = _service_case()
+    with MLegoService(corpus.subset(0.0, 200.0), cfg, backend="device",
+                      device="cuda", window_s=0.0) as svc:
+        pipe = svc.attach_ingest(slice_width=50.0, start=200.0)
+        assert pipe.device == svc.backend.device
+        before = estep_ops.launches
+        svc.ingest(corpus.subset(200.0, 300.0))
+        svc.ingest(corpus.subset(300.0, 400.0))
+        assert pipe.flush(timeout=120)
+        pipe.close()
+        rep = pipe.report()
+        launched = estep_ops.launches - before
+        q = svc.submit(QuerySpec(sigma=Interval(200.0, 400.0))).result(
+            timeout=120)
+    assert rep.slices_built == 4 and rep.build_errors == 0
+    assert launched == 4 * 2 * cfg.max_iters
+    assert q.n_trained_tokens == 0 and np.isfinite(q.beta).all()
