@@ -91,12 +91,35 @@ Phases, each of which fails the run if anything in it fails:
    ``mlego.merge_topics`` range in a ``torch.profiler`` capture and its
    ``kernel_hbm_bytes`` (row 1's bound bytes), and an injected device
    loss answered by ``"host"`` that trips the device breaker.
-   ``close()`` must join every thread within 300 s.
+   ``close()`` must join every thread within 300 s;
+9. sharded — ``ShardedDeviceBackend`` (``backend="device_sharded"``) over
+   the window models of phases 3 and 5: on ``local_mesh_env()`` (one
+   shard on one card) a covered ``submit`` of [0, 8,000), a gapped one of
+   [8,500, 12,500) (trained on the E-step kernel and the blocked sweep)
+   and a ``submit_many`` of parts [4, 2, 8, 1], both kinds, covered and
+   batched β held to the ``"device"`` backend's at 1e-9 + 1e-5·|want|;
+   the same queries on a (1, 4) grid of the card (2,048 columns a slice)
+   held to the one-shard answers, each merge adding 4 to its kernel's
+   counter and 1 to ``device_launches``, five repeats giving the same
+   bits; a byte budget of two models, under which the 4-slice cache
+   counts each model whole (its slices share the one card) and holds
+   what the ``"device"`` backend holds; an injected device loss answered
+   by ``"device"``, a second by ``"host"``; the elastic repartition onto
+   4 workers (each worker's model against its merge on the card) and a
+   quarantined window retrained on the E-step kernel; both merge kernels
+   held to their plain versions on the path's slices (the 4 slice lists
+   of [0, 8,000), the 4 slice stacks of the batch at counts [4, 2, 8,
+   1]) at ``MERGE_TOL``;
+   ``vb_fit_sharded`` on a (2, 2) grid against ``vb_fit`` on the E-step
+   kernel from one λ0 (2e-4 + 2e-4·|want| after one iteration, the
+   difference after 10 printed); the walls of the covered ``submit`` and
+   ``submit_many`` at 1 shard and 4 slices, and the normaliser's share of
+   the merge wall.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
 phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
-for the ``"service"`` path),
+for the ``"service"`` path, phase 9 for the ``"sharded"`` path),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -129,6 +152,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 
 MERGE_TOL = 1e-5
+BETA_RTOL, BETA_ATOL = 1e-5, 1e-9   # phase 9's β against another backend
 ESTEP_TOL = 2e-4
 SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4, 2048, 2112, 64
 XL_B, XL_S, XL_H, XL_HD = 4, 2048, 4, 512   # the xLSTM path's sLSTM shape
@@ -579,6 +603,449 @@ def service_phase(corpus, cfg, device, unit: float, card: str) -> dict:
                 queries=final.queries, groups=final.groups,
                 mean_width=final.mean_coalesce_width,
                 max_width=final.max_coalesce_width)
+
+
+def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
+                  unit: float, card: str) -> dict:
+    """Phase 9: the vocab-sharded backend (``"device_sharded"``) on
+    ``device``.
+
+    Its store holds the window models of ``vb_store`` and ``gs_store``
+    (phases 3 and 5: [i·unit, (i+1)·unit)), not the gap models those
+    phases persisted, so its gapped queries train.  The ``"device"``
+    answers it is held to are taken first; the launch counters are then
+    zeroed and the sharded path driven.  Its count (returned under
+    ``launches``) adds up the launches of the sharded sessions' queries
+    and of their elastic retraining; the launches of the checks between
+    them (the budget case, the device-loss chain, the card merges the
+    elastic models are held to) are left out.  The merge kernels held
+    against their plain versions on the slices the path gave them, the
+    comparison of ``vb_fit_sharded`` with the E-step kernel's fit and
+    the normaliser's timing come after, uncounted.  β is held at
+    ``BETA_RTOL``·|want| + ``BETA_ATOL``: a typical β is 1/V ≈ 1.2e-4,
+    so an absolute 1e-5 would pass a kernel a few percent off.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (DeviceBackend, Interval, MLegoSession,
+                                 QuerySpec, ShardedDeviceBackend)
+    from repro_torch.core.lda import topics_from_vb
+    from repro_torch.core.merge import device_merge_params
+    from repro_torch.core.store import ModelStore
+    from repro_torch.core.vb import vb_fit, vb_fit_sharded
+    from repro_torch.data.corpus import doc_term_matrix
+    from repro_torch.distributed.elastic import (
+        apply_repartition, plan_repartition, recover_quarantined)
+    from repro_torch.distributed.merge_collective import (
+        merge_topics_sharded, padded_vocab)
+    from repro_torch.distributed.sharding import MeshEnv, local_mesh_env
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
+    from repro_torch.kernels.merge_topics import ops as merge_ops
+    from repro_torch.kernels.merge_topics.ops import (
+        merge_topics_ref, merge_topics_segments_ref)
+    from repro_torch.kernels.vb_estep import ops as estep_ops
+    from repro_torch.testing.faults import FaultRule, injected
+
+    t_phase = time.perf_counter()
+    kinds = {"vb": cfg, "gs": gcfg}
+    # the counters count CUDA launches: a rehearsal on the CPU sees none
+    per_slice = 1 if device.type == "cuda" else 0
+    k, v = cfg.n_topics, cfg.vocab_size
+
+    def iv(lo, hi):
+        return Interval(lo * unit, hi * unit)
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[sharded] {msg}")
+
+    def wait():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    beta_rel = [0.0]     # the largest relative β difference of the phase
+
+    def close(got, want, what, rtol=BETA_RTOL, atol=BETA_ATOL):
+        """Max abs diff; raises unless within atol + rtol·|want|."""
+        diff = float(np.abs(got - want).max())
+        rel = float((np.abs(got - want) / np.abs(want)).max())
+        if rtol == BETA_RTOL:
+            beta_rel[0] = max(beta_rel[0], rel)
+        check(np.allclose(got, want, rtol=rtol, atol=atol),
+              f"{what}: max abs diff {diff:.3g}, max rel {rel:.3g}, over "
+              f"{atol} + {rtol}·|want|")
+        return diff
+
+    def check_report(r, what, backend="device_sharded", fallback=None):
+        check((r.backend, r.fallback_from) == (backend, fallback),
+              f"{what} answered by {r.backend} (fallback from "
+              f"{r.fallback_from}), expected {backend} ({fallback})")
+        check(r.beta.shape == (k, v) and np.isfinite(r.beta).all(),
+              f"{what}: beta is not finite ({k}, {v})")
+        err = float(np.abs(r.beta.sum(1) - 1.0).max())
+        check(err <= 1e-5, f"{what}: beta rows sum to 1 +- {err}")
+
+    store = ModelStore()
+    for src, kind in ((vb_store, "vb"), (gs_store, "gs")):
+        for m in src.models(kind):
+            if m.o.hi - m.o.lo == unit and m.o.lo % unit == 0:
+                store.add(m.o, m.n_docs, m.n_tokens, m.kind, m.theta)
+    n_vb = len(store.models("vb"))
+    covered = QuerySpec(sigma=iv(0, 8))
+    gapped = QuerySpec(sigma=iv(8.5, 12.5))
+    spans = {"vb": ((0, 4), (4, 6), (16, 24), (24, 25)),
+             "gs": ((0, 4), (4, 6), (0, 8), (2, 3))}
+    specs = {kind: [QuerySpec(sigma=iv(a, b)) for a, b in ab]
+             for kind, ab in spans.items()}
+
+    # the answers of the "device" backend, and its budget case: the 8
+    # parts of [0, 8·unit) under a byte cap of 8 slices of 4, two whole
+    # models
+    single = DeviceBackend(device=device)
+    ref = {}
+    for kind, c in kinds.items():
+        s = MLegoSession(corpus, c, kind=kind, store=store, backend=single,
+                         device=device)
+        ref[kind] = (s.submit(covered), s.submit_many(specs[kind]))
+    parts8 = sorted((m for m in store.models("vb") if m.o.hi <= 8 * unit),
+                    key=lambda m: m.o.lo)
+    check(len(parts8) == 8, f"[0, 8 unit) holds {len(parts8)} windows")
+    max_bytes = 8 * k * (padded_vocab(v, 4) // 4) * 4
+    check(max_bytes < 8 * k * v * 4, "the budget would hold 8 whole models")
+    capped = DeviceBackend(max_bytes=max_bytes, device=device)
+    want8 = capped.merge(parts8, "vb", cfg)
+    check(capped.cache.evictions > 0,
+          f"the device backend kept 8 models under {max_bytes} B")
+
+    counters = {"merge_topics": (merge_ops, "merge_topics_launches"),
+                "merge_topics_ragged": (merge_ops,
+                                        "merge_topics_ragged_launches"),
+                "vb_estep": (estep_ops, "launches"),
+                "gibbs_sweep": (gibbs_ops, "gibbs_sweep_launches")}
+
+    def snap():
+        return {k_: getattr(mod, name) for k_, (mod, name) in
+                counters.items()}
+
+    def count_since(s0):
+        for k_, n in snap().items():
+            launches[k_] += n - s0[k_]
+
+    for mod, name in counters.values():
+        setattr(mod, name, 0)
+    launches = dict.fromkeys(counters, 0)
+    s0 = snap()
+
+    # 1. one shard per card (local_mesh_env: 1 shard on one card)
+    env1 = local_mesh_env(device)
+    walls = {}
+    one = {}
+    for kind, c in kinds.items():
+        s = MLegoSession(corpus, c, kind=kind, store=store,
+                         backend="device_sharded", device=device)
+        check(s.backend.shards == env1.tp_size,
+              f"{s.backend.shards} shards on a {env1.tp_size}-card mesh")
+        t0 = time.perf_counter()
+        rc = s.submit(covered)
+        walls[f"{kind} covered submit, 1 shard, first"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        s.submit(covered)
+        walls[f"{kind} covered submit, 1 shard, repeat"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rg = s.submit(gapped)
+        walls[f"{kind} gapped submit, 1 shard"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rb = s.submit_many(specs[kind])
+        walls[f"{kind} submit_many, 1 shard, first"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        s.submit_many(specs[kind])
+        walls[f"{kind} submit_many, 1 shard, repeat"] = \
+            (time.perf_counter() - t0) * 1e3
+        check(rg.n_trained_tokens > 0, f"{kind} gapped query trained nothing")
+        check([r.n_merged for r in rb] == [r.n_merged for r in ref[kind][1]],
+              f"{kind} batch merged {[r.n_merged for r in rb]} parts")
+        for r, what in ((rc, "covered"), (rg, "gapped"), *[
+                (r, f"batch[{i}]") for i, r in enumerate(rb)]):
+            check_report(r, f"{kind} {what}, 1 shard")
+        d_cov = close(rc.beta, ref[kind][0].beta, f"{kind} covered vs device")
+        d_many = max(close(r.beta, w.beta, f"{kind} batch vs device")
+                     for r, w in zip(rb, ref[kind][1]))
+        log(f"[sharded] {kind}, 1 shard: covered {len(rc.model_ids)} parts, "
+            f"gapped {rg.n_trained_tokens} trained tokens, batch parts "
+            f"{[r.n_merged for r in rb]}; beta vs the device backend: "
+            f"covered {d_cov:.3g}, batch {d_many:.3g} (tol {BETA_ATOL} + "
+            f"{BETA_RTOL}·|want|)")
+        one[kind] = (rc, rg, rb)
+
+    # 2. four slices of one card: the same queries
+    env4 = MeshEnv([[device] * 4])
+    b4 = ShardedDeviceBackend(env=env4, device=device)
+    for kind, c in kinds.items():
+        s = MLegoSession(corpus, c, kind=kind, store=store, backend=b4,
+                         device=device)
+        n0, l0 = merge_ops.merge_topics_launches, b4.stats.device_launches
+        rc = s.submit(covered)
+        check((merge_ops.merge_topics_launches - n0,
+               b4.stats.device_launches - l0) == (4 * per_slice, 1),
+              f"{kind} covered merge on 4 slices: "
+              f"{merge_ops.merge_topics_launches - n0} kernel launches, "
+              f"{b4.stats.device_launches - l0} device launches")
+        t0 = time.perf_counter()
+        s.submit(covered)
+        walls[f"{kind} covered submit, 4 slices, repeat"] = \
+            (time.perf_counter() - t0) * 1e3
+        rg = s.submit(gapped)
+        n0, l0 = (merge_ops.merge_topics_ragged_launches,
+                  b4.stats.device_launches)
+        t0 = time.perf_counter()
+        rb = s.submit_many(specs[kind])
+        walls[f"{kind} submit_many, 4 slices, first"] = \
+            (time.perf_counter() - t0) * 1e3
+        check((merge_ops.merge_topics_ragged_launches - n0,
+               b4.stats.device_launches - l0) == (4 * per_slice, 1),
+              f"{kind} ragged merge on 4 slices: "
+              f"{merge_ops.merge_topics_ragged_launches - n0} kernel "
+              f"launches, {b4.stats.device_launches - l0} device launches")
+        for r, what in ((rc, "covered"), (rg, "gapped"), *[
+                (r, f"batch[{i}]") for i, r in enumerate(rb)]):
+            check_report(r, f"{kind} {what}, 4 slices")
+        rc1, rg1, rb1 = one[kind]
+        d_cov = close(rc.beta, rc1.beta, f"{kind} covered, 4 slices vs 1")
+        d_many = max(close(r.beta, w.beta, f"{kind} batch, 4 slices vs 1")
+                     for r, w in zip(rb, rb1))
+        # the one-shard gapped answer persisted its gap models: merging
+        # the same windows and those models gives the same beta
+        same_gap = rg.n_trained_tokens == 0 and set(rg.model_ids) == \
+            set(rg1.model_ids) | {m.model_id for m in rg1.materialized}
+        if same_gap:
+            close(rg.beta, rg1.beta, f"{kind} gapped, 4 slices vs 1")
+        reps = [s.submit(covered).beta for _ in range(5)]
+        check(all(np.array_equal(r, reps[0]) for r in reps),
+              f"{kind}: 5 covered answers on 4 slices differ in their bits")
+        t0 = time.perf_counter()
+        s.submit_many(specs[kind])
+        walls[f"{kind} submit_many, 4 slices, repeat"] = \
+            (time.perf_counter() - t0) * 1e3
+        log(f"[sharded] {kind}, 4 slices of {padded_vocab(v, 4) // 4} "
+            f"columns: beta vs 1 shard: covered {d_cov:.3g}, batch "
+            f"{d_many:.3g}; gapped "
+            f"{'the same parts, held' if same_gap else 'other parts'}"
+            f"; {4 * per_slice} merge launches and 1 device launch a "
+            f"merge; 5 repeats give the same bits")
+
+    count_since(s0)
+
+    # 3. budget: the 4 slices of a model all lie on this one card, so the
+    # cache counts each model at its whole padded bytes and holds as many
+    # as fit whole, as the "device" backend does.  This shows the
+    # accounting only: a per-device budget holds more models only on
+    # distinct cards
+    bb = ShardedDeviceBackend(max_bytes=max_bytes, env=env4, device=device)
+    d8 = close(bb.merge(parts8, "vb", cfg), want8, "budget merge vs device")
+    whole = k * padded_vocab(v, 4) * 4
+    fit = min(8, max_bytes // whole)
+    got = (len(bb.cache), bb.cache.evictions, bb.cache.resident_bytes)
+    check(got == (fit, 8 - fit, fit * whole)
+          and bb.cache.resident_bytes <= max_bytes,
+          f"sharded cache (resident, evictions, bytes) {got}, expected "
+          f"{(fit, 8 - fit, fit * whole)} under {max_bytes} B")
+    log(f"[sharded] budget {max_bytes} B on one card: a model's 4 slices "
+        f"count {whole} B (the whole model), so the sharded cache holds "
+        f"{len(bb.cache)} of 8 parts with {bb.cache.evictions} evictions "
+        f"({bb.cache.resident_bytes} B); the device backend "
+        f"{len(capped.cache)} with {capped.cache.evictions}; this shows the "
+        f"accounting, not a larger budget; beta diff {d8:.3g}")
+
+    # 4. device loss: sharded -> device -> host
+    sl = MLegoSession(corpus, cfg, store=store, backend="device_sharded",
+                      device=device)
+    with injected(FaultRule("backend.merge.device_sharded",
+                            kind="device_lost", max_failures=1)):
+        lost1 = sl.submit(covered)
+    with injected(FaultRule("backend.merge", kind="device_lost",
+                            max_failures=2)):
+        lost2 = sl.submit(covered)
+    check_report(lost1, "first loss", "device", "device_sharded")
+    check_report(lost2, "second loss", "host", "device_sharded")
+    for r in (lost1, lost2):
+        close(r.beta, ref["vb"][0].beta, f"{r.backend} fallback answer")
+    log("[sharded] device loss: answered by device, then by host (both "
+        f"fallback from device_sharded), beta at {BETA_ATOL} + "
+        f"{BETA_RTOL}·|want|")
+
+    # 5. elastic: re-bin the store onto 4 workers, then retrain a
+    # quarantined window through a session on the card
+    se = MLegoSession(corpus, cfg, store=store, backend=b4, device=device)
+    trained = []
+
+    def train_fn(lo, hi):
+        m = se.train_range(lo, hi)
+        trained.append(m)
+        return m
+
+    parts = plan_repartition(store, iv(0, 32), 4)
+    s0 = snap()
+    out = apply_repartition(parts, store, cfg, train_fn)
+    count_since(s0)
+    check(set(out) == {p.worker for p in parts}, "a worker got no model")
+    d_el = 0.0
+    for p in parts:
+        models = [store.get(mid) for mid in p.model_ids] + \
+            [m for m in trained if m is not None and p.span.contains(m.o)]
+        d_el = max(d_el, close(b4.merge(models, "vb", cfg),
+                               topics_from_vb(out[p.worker].theta["lam"]),
+                               f"worker {p.worker}'s merged model"))
+    lost = next(m for m in store.models("vb") if m.o.lo == 20 * unit)
+    store.quarantine(lost.model_id, reason="device loss")
+    e0, s0 = estep_ops.launches, snap()
+    fresh = recover_quarantined(store, se.train_range)
+    count_since(s0)
+    check([m.o for m in fresh] == [lost.o] and not store.quarantined
+          and estep_ops.launches - e0 >= per_slice,
+          f"recovery retrained {[str(m.o) for m in fresh]} with "
+          f"{estep_ops.launches - e0} E-step launches, ledger "
+          f"{store.quarantined}")
+    log(f"[sharded] elastic: {n_vb} vb windows onto 4 workers "
+        f"({[len(p.model_ids) for p in parts]} models, {len(trained)} "
+        f"retrained), each worker's model vs its card merge {d_el:.3g}; "
+        f"quarantined {lost.o} retrained with {estep_ops.launches - e0} "
+        f"E-step launches, ledger empty")
+
+    log(f"[sharded] beta against the other backends and shard counts: max "
+        f"relative difference {beta_rel[0]:.3g} (tol {BETA_ATOL} + "
+        f"{BETA_RTOL}·|want|)")
+    log(f"[sharded] kernel launches on the sharded path (its sessions' "
+        f"queries and elastic retraining): {launches}")
+
+    # 6. the merge kernels on the slices the path gave them, against
+    # their plain versions (uncounted): each of the 4 slice lists of
+    # [0, 8·unit), and each slice stack of the batch
+    kernel_errs = {"merge_topics": 0.0, "merge_topics_ragged": 0.0}
+
+    def hold(got, want, what):
+        err = (got - want).abs()
+        bad = err > MERGE_TOL + MERGE_TOL * want.abs()
+        check(not bool(bad.any()) and bool(torch.isfinite(got).all()),
+              f"{what}: kernel disagrees with its plain version, max abs "
+              f"err {float(err.max()):.3g}, {int(bad.sum())} elements over "
+              f"{MERGE_TOL} + {MERGE_TOL}·|want|")
+        return float(err.max())
+
+    for kind, c in kinds.items():
+        stat_key, bias, base, _ = device_merge_params(kind, c)
+        windows = sorted((m for m in store.models(kind)
+                          if m.o.hi - m.o.lo == unit),
+                         key=lambda m: m.o.lo)
+        by_spec = [[m for m in windows if iv(a, b).contains(m.o)]
+                   for a, b in spans[kind]]
+        counts = [len(ps) for ps in by_spec]
+        eight = [b4.cache.get(m, stat_key) for m in windows[:8]]
+        batch = [b4.cache.get(m, stat_key) for ps in by_spec for m in ps]
+        for s in range(4):
+            sl_ = [e[s] for e in eight]
+            w_ = torch.ones(len(sl_), dtype=torch.float32, device=device)
+            kernel_errs["merge_topics"] = max(
+                kernel_errs["merge_topics"],
+                hold(merge_ops.merge_topics_parts(sl_, [1.0] * len(sl_),
+                                                  bias=bias, base=base),
+                     merge_topics_ref(torch.stack(sl_), w_, bias, base),
+                     f"{kind} merge_topics_parts, slice {s}"))
+            st = torch.stack([e[s] for e in batch])
+            w_ = torch.ones(st.shape[0], dtype=torch.float32, device=device)
+            kernel_errs["merge_topics_ragged"] = max(
+                kernel_errs["merge_topics_ragged"],
+                hold(merge_ops.merge_topics_segments(st, w_, counts, bias,
+                                                     base),
+                     merge_topics_segments_ref(st, w_, counts, bias, base),
+                     f"{kind} merge_topics_segments, slice {s}"))
+        log(f"[sharded] {kind}: merge_topics_parts on the 4 slice lists of "
+            f"{len(eight)} parts, {tuple(eight[0][0].shape)} each, and "
+            f"merge_topics_segments on the 4 slice stacks at counts "
+            f"{counts}, against their plain versions: max abs err "
+            f"{kernel_errs['merge_topics']:.3g} / "
+            f"{kernel_errs['merge_topics_ragged']:.3g} (tol {MERGE_TOL} + "
+            f"{MERGE_TOL}·|want|)")
+
+    # 7. vb_fit_sharded on a (2, 2) grid against vb_fit on the E-step
+    # kernel, from one lam0 (uncounted: a comparison)
+    d = min(1000, corpus.n_docs)
+    x = doc_term_matrix(corpus, 0, d)
+    lam0 = np.random.default_rng(0).gamma(100.0, 0.01, (k, v)).astype(
+        np.float32)
+    env22 = MeshEnv([[device] * 2] * 2)
+    gen = torch.Generator(device=device)
+    diffs = {}
+    for iters in (1, 10):
+        c = dataclasses.replace(cfg, max_iters=iters)
+        t0 = time.perf_counter()
+        got = vb_fit_sharded(x, gen, c, env22, lam0=lam0)
+        wait()
+        t_sh = time.perf_counter() - t0
+        want = vb_fit(x, gen, c, use_kernel=True, lam0=lam0).cpu().numpy()
+        # the same fit on a (1, 1) grid: how far the sums' order alone
+        # moves the iteration
+        one_cell = vb_fit_sharded(x, gen, c, MeshEnv([[device]]),
+                                  lam0=lam0).cpu().numpy()
+        got = got.cpu().numpy()
+        diffs[iters] = dict(
+            abs=float(np.abs(got - want).max()),
+            rel=float((np.abs(got - want) / np.abs(want)).max()),
+            of_max=float(np.abs(got - want).max() / np.abs(want).max()),
+            grids=float(np.abs(got - one_cell).max()), s=t_sh)
+        if iters == 1:
+            close(got, want, "vb_fit_sharded vs the E-step kernel's fit",
+                  rtol=2e-4, atol=2e-4)
+    for iters, dd in diffs.items():
+        log(f"[sharded] vb_fit_sharded on a (2, 2) grid, {d} documents, "
+            f"K={k}, V={v}, {iters} iteration(s): vs vb_fit on the E-step "
+            f"kernel max abs {dd['abs']:.3g} (max rel {dd['rel']:.3g}, "
+            f"{dd['of_max']:.3g} of max |lambda|), vs the (1, 1) grid max "
+            f"abs {dd['grids']:.3g}; {dd['s']:.2f} s on {card}"
+            + (" (held at 2e-4 + 2e-4·|want|)" if iters == 1 else ""))
+
+    # 8. the normaliser's share of the sharded merge's wall: the merge of
+    # the 8 cached parts on 4 slices against its 4 kernel launches alone
+    stat_key, bias, base, _ = device_merge_params("vb", cfg)
+    entries = [b4.cache.get(m, stat_key) for m in parts8]
+    slices = [[e[s] for e in entries] for s in range(4)]
+    w = [1.0] * 8
+
+    def whole():
+        merge_topics_sharded(slices, w, env4, bias=bias, base=base,
+                             num_offset=0.0, v_true=v)
+
+    def kernels():
+        for sl_ in slices:
+            merge_ops.merge_topics_parts(sl_, w, bias=bias, base=base)
+
+    def wall_ms(fn, n=50):
+        for _ in range(3):
+            fn()
+        wait()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wait()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    t_whole = min(wall_ms(whole) for _ in range(3))
+    t_kern = min(wall_ms(kernels) for _ in range(3))
+    share = (t_whole - t_kern) / t_whole
+    for name, ms in walls.items():
+        log(f"[sharded] wall {name}: {ms:.2f} ms on {card}")
+    log(f"[sharded] merge of 8 parts on 4 slices: {t_whole:.4f} ms a call "
+        f"(host clock, synchronised, best of 3 x 50), its 4 kernel launches "
+        f"alone {t_kern:.4f} ms; normaliser (mask, row sums, cross-slice "
+        f"sum, division) {share * 100:.1f}% of the merge wall on {card}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[sharded] phase ran {seconds:.1f} s")
+    return dict(launches=launches, walls=walls, normaliser_share=share,
+                fit_diffs=diffs, kernel_errs=kernel_errs, seconds=seconds)
 
 
 def main() -> int:
@@ -1895,6 +2362,22 @@ def main() -> int:
     log(f"[service] {svc_out['queries']} answers in {svc_out['groups']} "
         f"groups (coalesce width mean {svc_out['mean_width']:.2f}, max "
         f"{svc_out['max_width']})")
+
+    # -- 9. the vocab-sharded backend ---------------------------------------
+    # phase 3's and phase 5's window models; the counts are zeroed inside,
+    # after the "device" answers it is held to
+    sh_out = sharded_phase(corpus, cfg, gcfg, session.store, gs.store, dev,
+                           1000.0, card)
+    for kname, count in sh_out["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"sharded path never launched {kname}")
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["sharded"] = count
+        report[kname]["launches"] = sum(by_path.values())
+    # the merge kernels' errors on the sharded path's slices join the
+    # kernels section's
+    for kname, err in sh_out["kernel_errs"].items():
+        report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)

@@ -15,6 +15,7 @@ from repro_torch.api.backend import (
     DeviceBackend,
     ExecutionBackend,
     HostBackend,
+    ShardedDeviceBackend,
     make_backend,
 )
 from repro_torch.api.executor import StalePlanError
@@ -88,6 +89,7 @@ __all__ = [
     "QueryReport",
     "QuerySpec",
     "RetryPolicy",
+    "ShardedDeviceBackend",
     "StalePlanError",
     "Tracer",
     "TransientExecutionError",

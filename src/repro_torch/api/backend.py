@@ -20,6 +20,14 @@ backend uses, runs the exact-scan kernel on the card).  A
 freshly trained persisted gap model is warm-inserted into the LRU
 (``note_trained``) so the merge that follows reads it back as a hit.
 
+``ShardedDeviceBackend`` ("device_sharded") lifts the one-device
+memory ceiling: every cached model is resident as contiguous vocabulary
+slices, one per device of the mesh's "model" axis; each shard merges
+its slices with the same kernels, and only the per-topic row sums cross
+shards (``distributed/merge_collective.py``).  Its byte accounting is
+per device: an entry counts at the bytes of the device that holds most
+of its slices.
+
 ``DeviceBackend.merge`` hands the cached (K, V) tensors to the kernel
 through a table of pointers, with no copy.  ``merge_many`` still stacks
 each query's parts and the ragged wrapper concatenates the stacks: two
@@ -52,9 +60,19 @@ from repro_torch.api.trainers import (
 from repro_torch.configs.lda_default import LDAConfig
 from repro_torch.core.errors import DeviceLostError
 from repro_torch.core.lda import MaterializedModel
-from repro_torch.core.merge import device_merge_params, device_stat_key
+from repro_torch.core.merge import (
+    device_merge_params,
+    device_norm_offset,
+    device_stat_key,
+)
 from repro_torch.core.store import ModelStore
 from repro_torch.data.corpus import Corpus, doc_term_matrix
+from repro_torch.distributed.merge_collective import (
+    merge_topics_ragged_sharded,
+    merge_topics_sharded,
+    padded_vocab,
+)
+from repro_torch.distributed.sharding import MeshEnv, local_mesh_env
 from repro_torch.kernels.common import KernelError, resolve_device
 from repro_torch.kernels.merge_topics.ops import (
     merge_topics_parts,
@@ -73,6 +91,10 @@ _CUDA_ERRORS = tuple(
     t for t in (torch.cuda.OutOfMemoryError,
                 getattr(torch, "AcceleratorError", None))
     if isinstance(t, type))
+
+
+# a cache entry: one resident tensor, or a sharded cache's list of slices
+Entry = Union[torch.Tensor, List[torch.Tensor]]
 
 
 def _is_cuda_runtime_error(exc: BaseException) -> bool:
@@ -234,10 +256,20 @@ class _DeviceModelCache:
 
     Mutation is lock-serialized: one device cache may be shared by
     every session of a multi-tenant service over the same store.
+
+    ``prepare`` maps a host statistic array to its resident form
+    (default: one f32 tensor on ``device``); the sharded backend
+    substitutes a pad-and-slice upload whose entry is a list of
+    per-shard slices.  ``nbytes`` gives the bytes an entry is counted
+    at in the bounds and counters (default: the tensor's bytes); the
+    sharded backend counts an entry at the bytes of the device that
+    holds most of its slices, so ``max_bytes`` bounds what any one
+    device holds.
     """
 
     def __init__(self, capacity: int, max_bytes: Optional[int] = None,
-                 *, device: Union[str, torch.device] = "cuda"):
+                 *, device: Union[str, torch.device] = "cuda",
+                 prepare=None, nbytes=None):
         if capacity < 1:
             raise ValueError(f"cache capacity must be >= 1, got {capacity}")
         if max_bytes is not None and max_bytes < 1:
@@ -245,7 +277,9 @@ class _DeviceModelCache:
         self.capacity = capacity
         self.max_bytes = max_bytes
         self.device = torch.device(device)
-        self._entries: "OrderedDict[int, torch.Tensor]" = OrderedDict()
+        self._prepare = prepare or self._upload
+        self._nb = nbytes or self._tensor_bytes
+        self._entries: "OrderedDict[int, Entry]" = OrderedDict()
         self._lock = threading.RLock()
         self.resident_bytes = 0
         self.hits = self.misses = self.evictions = self.invalidations = 0
@@ -261,7 +295,7 @@ class _DeviceModelCache:
     def __contains__(self, model_id: int) -> bool:
         return model_id in self._entries
 
-    def _prepare(self, arr: np.ndarray) -> torch.Tensor:
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
         return host.to(self.device)
 
@@ -271,7 +305,7 @@ class _DeviceModelCache:
                     and self.resident_bytes > self.max_bytes))
 
     @staticmethod
-    def _nb(arr: torch.Tensor) -> int:
+    def _tensor_bytes(arr: torch.Tensor) -> int:
         return arr.numel() * arr.element_size()
 
     def _evict_lru(self) -> None:
@@ -281,13 +315,13 @@ class _DeviceModelCache:
         self.epoch += 1
         obs.instant("cache.evict", model_id=mid, bytes=self._nb(arr))
 
-    def _fits_alone(self, arr: torch.Tensor) -> bool:
+    def _fits_alone(self, arr: Entry) -> bool:
         """A model bigger than the whole byte budget must pass through
         uncached — inserting it would evict every resident entry
         before LRU order finally evicted the newcomer itself."""
         return self.max_bytes is None or self._nb(arr) <= self.max_bytes
 
-    def get(self, model: MaterializedModel, stat_key: str) -> torch.Tensor:
+    def get(self, model: MaterializedModel, stat_key: str) -> Entry:
         mid = model.model_id
         with self._lock:
             if mid >= 0 and mid in self._entries:
@@ -387,9 +421,12 @@ class DeviceBackend(ExecutionBackend):
         self.device = resolve_device(device)
         self.gibbs_block_docs = gibbs_block_docs
         self.profile = profile
-        self.cache = _DeviceModelCache(capacity, max_bytes,
-                                       device=self.device)
+        self.cache = self._make_cache(capacity, max_bytes)
         self._store: Optional[ModelStore] = None
+
+    def _make_cache(self, capacity: int,
+                    max_bytes: Optional[int]) -> _DeviceModelCache:
+        return _DeviceModelCache(capacity, max_bytes, device=self.device)
 
     # -- lifecycle -------------------------------------------------------
     def bind_store(self, store: ModelStore) -> None:
@@ -418,7 +455,7 @@ class DeviceBackend(ExecutionBackend):
         self.cache.clear()
         self._sync_cache_counters()
 
-    def _fetch(self, model, stat_key: str) -> torch.Tensor:
+    def _fetch(self, model, stat_key: str) -> Entry:
         maybe_fail(f"backend.fetch.{self.name}")
         return self.cache.get(model, stat_key)
 
@@ -560,7 +597,155 @@ class DeviceBackend(ExecutionBackend):
         return {"delta_nkv": nkv}
 
 
-_FACTORIES = {"host": HostBackend, "device": DeviceBackend}
+class ShardedDeviceBackend(DeviceBackend):
+    """Vocab-sharded merges: each model shard owns a ``Vp/shards`` slice.
+
+    The cache uploads every model statistic as contiguous ``(K,
+    Vp/shards)`` slices, one on each device of the mesh's "model" axis
+    (``Vp = padded_vocab(V, shards)``; pad columns are masked out of the
+    row sums, so their value never matters); an entry is the model's
+    list of slices.  Merges run through ``distributed/merge_collective``:
+    every shard merges its slices with the merge kernels (one
+    ``merge_topics_parts`` launch a query, one ``merge_topics_segments``
+    launch a batch: the kernel modules count one launch per shard),
+    applies the family's finisher offset, and joins the (K,) row sums —
+    the *only* cross-shard traffic, added in shard order on the first
+    device.  β therefore comes back normalised and the host finisher is
+    bypassed.  ``stats.device_launches`` counts 1 a merge call, as the
+    JAX package's one ``shard_map`` launch does.
+
+    ``max_bytes`` bounds **per-device** residency: an entry counts at
+    the bytes of the device that holds most of its slices.  On a grid of
+    distinct devices that is its padded bytes / shards, so a model stack
+    whose f32 bytes exceed one device's budget stays resident; on a grid
+    that names one device for every shard it is the whole padded model,
+    as it is in that device's memory.  (The JAX package divides by the
+    shard count: its mesh never repeats a device.)  ``env``
+    defaults to ``local_mesh_env(device)``, a (1, n) grid over every
+    local card (one shard on a one-card host: the unsharded semantics);
+    a grid may name one device several times.  Only data row 0 of the
+    grid holds slices (the JAX package replicates the model list over
+    the data axis).  Gap training is inherited unchanged and runs on the
+    grid's first device: ``"vb"`` gaps on the E-step kernel, ``"gs"``
+    gaps on the blocked sweep; trained models are warm-inserted as
+    slices.
+    """
+
+    name = "device_sharded"
+
+    def __init__(self, capacity: int = 64, *,
+                 max_bytes: Optional[int] = None,
+                 device: Union[str, torch.device, None] = None,
+                 env: Optional[MeshEnv] = None,
+                 gibbs_block_docs: int = 64,
+                 profile: bool = False):
+        self.env = env if env is not None else local_mesh_env(device)
+        if device is not None and resolve_device(device) != self.env.first:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {self.env.first}")
+        self.shards = self.env.tp_size
+        super().__init__(capacity, max_bytes=max_bytes,
+                         device=self.env.first,
+                         gibbs_block_docs=gibbs_block_docs, profile=profile)
+
+    def _make_cache(self, capacity, max_bytes):
+        return _DeviceModelCache(capacity, max_bytes, device=self.device,
+                                 prepare=self._prepare_stat,
+                                 nbytes=self._entry_bytes)
+
+    def _entry_bytes(self, slices: List[torch.Tensor]) -> int:
+        """The bytes of an entry's slices on its most-loaded device."""
+        per_device: Dict[torch.device, int] = {}
+        for dev, t in zip(self.env.devices[0], slices):
+            per_device[dev] = (per_device.get(dev, 0)
+                               + t.numel() * t.element_size())
+        return max(per_device.values())
+
+    def _prepare_stat(self, arr: np.ndarray) -> List[torch.Tensor]:
+        """Pad V with zeros to ``padded_vocab`` and upload one contiguous
+        (K, Vp/shards) slice to each shard's device."""
+        x = np.asarray(arr, np.float32)
+        vs = padded_vocab(x.shape[-1], self.shards) // self.shards
+        out = []
+        for s, dev in enumerate(self.env.devices[0]):
+            piece = np.zeros((x.shape[0], vs), np.float32)
+            cols = x[:, s * vs:(s + 1) * vs]
+            piece[:, :cols.shape[1]] = cols
+            out.append(torch.from_numpy(piece).to(dev))
+        return out
+
+    # -- merge -----------------------------------------------------------
+    def merge(self, parts, kind, cfg):
+        maybe_fail(f"backend.merge.{self.name}")
+        fam = merge_family_name(kind)
+        if fam is None:                  # custom merge callable: host only
+            self._count(merges=1, host_fallbacks=1)
+            return get_merge(kind)(list(parts), cfg)
+        stat_key, bias, base, _ = device_merge_params(fam, cfg)
+        v_true = int(parts[0].theta[stat_key].shape[-1])
+        t0 = time.perf_counter()
+        with self._device_guard(), \
+                obs.span("kernel.launch", "backend",
+                         op="merge_topics_sharded", n_parts=len(parts),
+                         backend=self.name, shards=self.shards):
+            entries = [self._fetch(m, stat_key) for m in parts]
+            with self._annotate("mlego.merge_topics_sharded"):
+                beta = merge_topics_sharded(
+                    [[e[s] for e in entries] for s in range(self.shards)],
+                    [1.0] * len(parts), self.env, bias=bias, base=base,
+                    num_offset=device_norm_offset(fam, cfg), v_true=v_true)
+                host = self._allgather(beta)     # waits for the launches
+            ms = (time.perf_counter() - t0) * 1e3
+            obs.set_attrs(merge_device_ms=ms)
+        self._sync_cache_counters()
+        self._count(merges=1, device_launches=1, merge_device_ms=ms)
+        return host[:, :v_true]
+
+    def merge_many(self, part_lists, kind, cfg):
+        """§V.C batch merge stage: one ragged segmented launch a shard."""
+        fam = merge_family_name(kind)
+        if fam is None:
+            return ExecutionBackend.merge_many(self, part_lists, kind, cfg)
+        if len(part_lists) == 1:
+            return [self.merge(part_lists[0], kind, cfg)]
+        maybe_fail(f"backend.merge.{self.name}")
+        stat_key, bias, base, _ = device_merge_params(fam, cfg)
+        v_true = int(part_lists[0][0].theta[stat_key].shape[-1])
+        counts = [len(parts) for parts in part_lists]
+        t0 = time.perf_counter()
+        with self._device_guard(), \
+                obs.span("kernel.launch", "backend",
+                         op="merge_topics_ragged_sharded",
+                         n_plans=len(part_lists), backend=self.name,
+                         shards=self.shards):
+            entries = [self._fetch(m, stat_key)
+                       for parts in part_lists for m in parts]
+            with self._annotate("mlego.merge_topics_ragged_sharded"):
+                beta = merge_topics_ragged_sharded(
+                    [[e[s] for e in entries] for s in range(self.shards)],
+                    [1.0] * len(entries), counts, self.env, bias=bias,
+                    base=base, num_offset=device_norm_offset(fam, cfg),
+                    v_true=v_true)
+                host = self._allgather(beta)     # waits for the launches
+            ms = (time.perf_counter() - t0) * 1e3
+            obs.set_attrs(merge_device_ms=ms)
+        self._sync_cache_counters()
+        self._count(merges=len(part_lists), device_launches=1,
+                    merge_device_ms=ms)
+        return [host[i, :, :v_true] for i in range(len(counts))]
+
+    def _allgather(self, beta: List[torch.Tensor]) -> np.ndarray:
+        """Copy every shard's β slice to the host, joined along V.  Each
+        copy waits for the work queued before it on its device's current
+        stream, which holds this merge's launches."""
+        with obs.span("allgather", "backend", backend=self.name,
+                      bytes=sum(b.numel() * 4 for b in beta),
+                      shards=self.shards):
+            return torch.cat([b.cpu() for b in beta], dim=-1).numpy()
+
+
+_FACTORIES = {"host": HostBackend, "device": DeviceBackend,
+              "device_sharded": ShardedDeviceBackend}
 
 
 def make_backend(name: str, **kwargs) -> ExecutionBackend:
@@ -568,9 +753,6 @@ def make_backend(name: str, **kwargs) -> ExecutionBackend:
     (host ignores ``device=`` — it merges on the host, and its trainers
     run on the device of the generator they are handed — and
     ``profile=``: it has no launches to annotate)."""
-    if name == "device_sharded":
-        raise ValueError("the 'device_sharded' backend is not ported to "
-                         "repro_torch yet; use 'device' or 'host'")
     try:
         factory = _FACTORIES[name]
     except KeyError:

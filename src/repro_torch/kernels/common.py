@@ -226,6 +226,21 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(what: str, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``device`` made current and
+    raise ``KernelError`` if it returns a nonzero status.
+
+    Every entry point launches onto the stream it is handed
+    (``stream_of``: the current stream of a tensor's device), and CUDA
+    refuses a launch onto a stream of a device that is not current; so a
+    tensor on any card of a host launches where it lies, whichever card
+    the calling thread had current."""
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(device):
+        status = fn(*args)
+    check_launch(status, what)
+
+
 _count_lock = threading.Lock()
 
 

@@ -107,14 +107,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            device=dev)
     part_ml = torch.empty((b, kvh, n_split, 2 * g), dtype=torch.float32,
                           device=dev)
-    lib = common.load_library()
-    status = lib.mlego_decode_attention(
+    common.launch(
+        "decode_attention", "mlego_decode_attention", dev,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), 0 if q.dtype == torch.float32 else 1, b, s, h,
         kvh, hd, q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], int(window), float(hd ** -0.5), n_split,
         chunk, common.stream_of(q))
-    common.check_launch(status, "decode_attention")
     common.count_launch(globals(), "decode_attention_launches")
     return out

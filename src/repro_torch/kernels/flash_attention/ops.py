@@ -76,13 +76,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"and at most {MAX_GROUP} query heads per KV head;"
                          f" got hd={hd}, H={h}, KVH={kvh}")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_flash_attention(
+    common.launch(
+        "flash_attention", "mlego_flash_attention", dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if q.dtype == torch.float32 else 1, b, s, h, kvh, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(bool(causal)), int(window), float(hd ** -0.5),
         common.stream_of(q))
-    common.check_launch(status, "flash_attention")
     common.count_launch(globals(), "flash_attention_launches")
     return out

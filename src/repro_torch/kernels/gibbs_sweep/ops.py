@@ -130,14 +130,13 @@ def gibbs_sweep(words: torch.Tensor, ldoc: torch.Tensor, mask: torch.Tensor,
     z_out = z.clone()                      # pad slots keep their topic
     nkd_out = torch.empty_like(nkd)
     nkv = torch.zeros((k, v), dtype=torch.float32, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_gibbs_sweep_blocked(
+    common.launch(
+        "gibbs_sweep", "mlego_gibbs_sweep_blocked", dev,
         words.data_ptr(), mask.data_ptr(), u.data_ptr(), z.data_ptr(),
         doc_ptr.data_ptr(), slots.data_ptr(), nkd.data_ptr(),
         prior_t.data_ptr(), prior_k.data_ptr(), z_out.data_ptr(),
         nkd_out.data_ptr(), nkv.data_ptr(), b * bd, k, v, float(alpha),
         common.stream_of(words))
-    common.check_launch(status, "gibbs_sweep")
     common.count_launch(globals(), "gibbs_sweep_launches")
     return z_out, nkd_out, nkv
 
@@ -186,13 +185,12 @@ def cgs_sweep_exact_t(tokens: torch.Tensor, doc_ids: torch.Tensor,
     z_out, nkd_out, nkv_out, nk_out = (x.clone() for x in (z, nkd, nkv_t, nk))
     # V·β rounded in float32, as JAX forms it from the traced β
     vbeta = float(np.float32(v) * np.float32(beta))
-    lib = common.load_library()
-    status = lib.mlego_gibbs_sweep_exact(
+    common.launch(
+        "cgs_sweep_exact", "mlego_gibbs_sweep_exact", dev,
         tokens.data_ptr(), doc_ids.data_ptr(), u.data_ptr(), z_out.data_ptr(),
         nkd_out.data_ptr(), nkv_out.data_ptr(), nk_out.data_ptr(),
         g_t.data_ptr(), gk.data_ptr(), t, k, float(alpha), float(beta),
         vbeta, common.stream_of(tokens))
-    common.check_launch(status, "cgs_sweep_exact")
     common.count_launch(globals(), "cgs_sweep_exact_launches")
     return z_out, nkd_out, nkv_out, nk_out
 

@@ -126,11 +126,11 @@ def merge_topics_parts(parts: Sequence[torch.Tensor],
         if not on_device:
             dev_w = table.data_ptr() + 8 * n
     out = torch.empty((k, v), dtype=torch.float32, device=dev)
-    status = common.load_library().mlego_merge_topics_parts(
+    common.launch(
+        "merge_topics", "mlego_merge_topics_parts", dev,
         ptrs.ctypes.data, None if host_w is None else host_w.ctypes.data,
         None if table is None else table.data_ptr(), dev_w, n, k * v,
         float(bias), float(base), out.data_ptr(), common.stream_of(out))
-    common.check_launch(status, "merge_topics")
     common.count_launch(globals(), "merge_topics_launches")
     return out
 
@@ -154,10 +154,10 @@ def merge_topics_batch(stats: torch.Tensor, weights: torch.Tensor,
     common.require_cuda("stats", stats, dev)
     common.require_cuda("weights", weights, dev)
     out = torch.empty((b, k, v), dtype=torch.float32, device=dev)
-    status = common.load_library().mlego_merge_topics_batched(
+    common.launch(
+        "merge_topics_batch", "mlego_merge_topics_batched", dev,
         stats.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n, k * v,
         float(bias), float(base), common.stream_of(stats))
-    common.check_launch(status, "merge_topics_batch")
     common.count_launch(globals(), "merge_topics_batch_launches")
     return out
 
@@ -184,12 +184,11 @@ def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
                            dtype=torch.int32).pin_memory().to(
                                dev, non_blocking=True)
     out = torch.empty((len(counts), k, v), dtype=torch.float32, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_merge_topics_ragged(
+    common.launch(
+        "merge_topics_ragged", "mlego_merge_topics_ragged", dev,
         stats.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
         out.data_ptr(), len(counts), k * v, float(bias), float(base),
         common.stream_of(stats))
-    common.check_launch(status, "merge_topics_ragged")
     common.count_launch(globals(), "merge_topics_ragged_launches")
     return out
 

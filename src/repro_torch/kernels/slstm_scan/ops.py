@@ -43,7 +43,7 @@ import ctypes
 import dataclasses
 import logging
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -168,20 +168,24 @@ _CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def max_active_clusters(plan: ScanPlan, x_dtype: torch.dtype, b: int,
-                        h: int, hd: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of a cluster plan on the current
-    card: queried once per process and configuration (and logged), before
-    that configuration's first launch.  Fewer than H clusters is legal
-    (the heads run in waves); none raises ``KernelError``."""
+                        h: int, hd: int,
+                        device: Optional[torch.device] = None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of a cluster plan on ``device``
+    (the current card by default): queried once per process and
+    configuration (and logged), before that configuration's first launch.
+    Fewer than H clusters is legal (the heads run in waves); none raises
+    ``KernelError``."""
     key = (str(x_dtype), plan.ctas, plan.units, plan.rows, plan.smem)
     with _occupancy_lock:
         if key in cluster_occupancy:
             return cluster_occupancy[key]
         out = ctypes.c_int(0)
-        status = common.load_library().mlego_slstm_cluster_occupancy(
+        common.launch(
+            "slstm_scan cluster occupancy query",
+            "mlego_slstm_cluster_occupancy",
+            device if device is not None else torch.cuda.current_device(),
             _CODE[x_dtype], b, h, hd, plan.ctas, plan.units, plan.rows,
             plan.smem, ctypes.addressof(out))
-        common.check_launch(status, "slstm_scan cluster occupancy query")
         n = int(out.value)
         cluster_occupancy[key] = n
     _log.info("slstm_scan: %d clusters of %d CTAs (%d bytes of shared "
@@ -235,25 +239,22 @@ def slstm_scan(xpre: torch.Tensor, r_mat: torch.Tensor, c0: torch.Tensor,
     xs_b, xs_s, xs_g, xs_h = xpre.stride()[:4]
     ptrs = [t.data_ptr() for t in (xpre, r_mat, c0, n0, h0, m0, out, c1,
                                    n1, h1, m1)]
-    lib = common.load_library()
-    with torch.cuda.device(dev):
-        stream = common.stream_of(xpre)
-        if plan.route == "step":
-            status = lib.mlego_slstm_step(*ptrs, xc, rc, b, h, hd, xs_b,
-                                          xs_g, xs_h, stream)
-        elif plan.route == "cluster":
-            max_active_clusters(plan, xpre.dtype, b, h, hd)
-            status = lib.mlego_slstm_cluster(
-                *ptrs, xc, b, s, h, hd, plan.ctas, plan.units,
-                plan.rows, plan.smem, xs_b, xs_s, xs_g, xs_h, stream)
-        else:
-            hbuf = torch.empty((2, b, h, hd), dtype=torch.float32,
-                               device=dev)
-            arrive = torch.zeros(h, dtype=torch.int32, device=dev)
-            status = lib.mlego_slstm_coop(
-                *ptrs, hbuf.data_ptr(), arrive.data_ptr(), xc, rc, b, s, h,
-                hd, plan.units, xs_b, xs_s, xs_g, xs_h, stream)
-    common.check_launch(status, f"slstm_scan ({plan.route} route)")
+    stream = common.stream_of(xpre)
+    what = f"slstm_scan ({plan.route} route)"
+    if plan.route == "step":
+        common.launch(what, "mlego_slstm_step", dev, *ptrs, xc, rc, b, h,
+                      hd, xs_b, xs_g, xs_h, stream)
+    elif plan.route == "cluster":
+        max_active_clusters(plan, xpre.dtype, b, h, hd, dev)
+        common.launch(what, "mlego_slstm_cluster", dev, *ptrs, xc, b, s, h,
+                      hd, plan.ctas, plan.units, plan.rows, plan.smem, xs_b,
+                      xs_s, xs_g, xs_h, stream)
+    else:
+        hbuf = torch.empty((2, b, h, hd), dtype=torch.float32, device=dev)
+        arrive = torch.zeros(h, dtype=torch.int32, device=dev)
+        common.launch(what, "mlego_slstm_coop", dev, *ptrs, hbuf.data_ptr(),
+                      arrive.data_ptr(), xc, rc, b, s, h, hd, plan.units,
+                      xs_b, xs_s, xs_g, xs_h, stream)
     common.count_launch(globals(), "slstm_scan_launches")
     common.count_launch(globals(), f"slstm_{plan.route}_launches")
     return out, (c1, n1, h1, m1)

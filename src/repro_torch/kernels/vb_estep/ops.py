@@ -108,19 +108,18 @@ def vb_estep_csr(csr: DocTermCSR, exp_elog_beta: torch.Tensor,
     # the ratios, then one int of scratch: launch (a)'s document counter
     ratio = torch.empty((csr.nnz + 1,), dtype=torch.float32, device=dev)
     sstats = torch.empty((k, v), dtype=torch.float32, device=dev)
-    lib = common.load_library()
-    status = lib.mlego_vb_estep_csr_iters(
+    common.launch(
+        "vb_estep (iterations)", "mlego_vb_estep_csr_iters", dev,
         csr.indptr.data_ptr(), csr.indices.data_ptr(), csr.values.data_ptr(),
         eeb_t.data_ptr(), gamma0.data_ptr(), gamma.data_ptr(),
         ee_theta.data_ptr(), ratio.data_ptr(),
         ratio.data_ptr() + 4 * csr.nnz, d, k, r, float(alpha), int(n_iters),
         stream)
-    common.check_launch(status, "vb_estep (iterations)")
-    status = lib.mlego_vb_estep_csr_sstats(
+    common.launch(
+        "vb_estep (sstats)", "mlego_vb_estep_csr_sstats", dev,
         csr.col_ptr.data_ptr(), csr.perm.data_ptr(), csr.rows.data_ptr(),
         ratio.data_ptr(), ee_theta.data_ptr(), eeb_t.data_ptr(),
         sstats.data_ptr(), k, v, stream)
-    common.check_launch(status, "vb_estep (sstats)")
     common.count_launch(globals(), "launches", 2)
     return gamma, sstats
 

@@ -1000,3 +1000,82 @@ def test_ingest_pipeline_builds_slices_on_the_estep_kernel(cuda):
     assert rep.slices_built == 4 and rep.build_errors == 0
     assert launched == 4 * 2 * cfg.max_iters
     assert q.n_trained_tokens == 0 and np.isfinite(q.beta).all()
+
+
+def test_launch_makes_the_tensors_card_current(cuda):
+    """A merge of tensors on the last card, launched while card 0 is
+    current, runs on the last card (every wrapper enters the tensors'
+    device before its launch).  Needs two cards or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    last = torch.device("cuda", n - 1)
+    st = _t(RNG.normal(size=(3, 8, 300)), last)
+    w = _t(RNG.uniform(0.2, 2.0, 3), last)
+    with torch.cuda.device(0):
+        got = merge_ops.merge_topics(st, w, bias=0.05, base=0.05)
+        seg = merge_ops.merge_topics_segments(st, w, [1, 2], 0.05, 0.05)
+    torch.cuda.synchronize(last)
+    assert got.device == last
+    torch.testing.assert_close(got, merge_topics_ref(st, w, 0.05, 0.05),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        seg, merge_topics_segments_ref(st, w, [1, 2], 0.05, 0.05),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["vb", "gs"])
+@pytest.mark.parametrize("shards,v", [(1, 8192), (4, 8192), (4, 150),
+                                      (8, 1000)])
+def test_sharded_backend_launches_one_merge_a_slice(cuda, kind, shards, v):
+    """Slices on a (1, shards) grid of one card: each merge adds one
+    launch a slice to the kernel's counter and one to device_launches,
+    β matches the host merge at 1e-5 and repeats bit for bit."""
+    from repro_torch.api import HostBackend, ShardedDeviceBackend
+    from repro_torch.configs.lda_default import LDAConfig
+    from repro_torch.core.lda import MaterializedModel
+    from repro_torch.core.plans import Interval
+    from repro_torch.distributed.sharding import MeshEnv
+    cfg = LDAConfig(n_topics=100, vocab_size=v)
+    key = "lam" if kind == "vb" else "delta_nkv"
+    ms = [MaterializedModel(i, Interval(i, i + 1.0), 10, 100, kind,
+                            {key: RNG.gamma(1.0, 1.0, (100, v))
+                             .astype(np.float32)}) for i in range(8)]
+    b = ShardedDeviceBackend(env=MeshEnv([[cuda] * shards]), device=cuda)
+    before = (merge_ops.merge_topics_launches,
+              merge_ops.merge_topics_ragged_launches)
+    got = b.merge(ms[:5], kind, cfg)
+    assert merge_ops.merge_topics_launches == before[0] + shards
+    assert b.stats.device_launches == 1
+    np.testing.assert_allclose(got, HostBackend().merge(ms[:5], kind, cfg),
+                               rtol=1e-5, atol=1e-5)
+    for _ in range(4):
+        np.testing.assert_array_equal(b.merge(ms[:5], kind, cfg), got)
+    batches = [ms[:4], ms[4:6], ms[6:7], ms[7:]]
+    many = b.merge_many(batches, kind, cfg)
+    assert merge_ops.merge_topics_ragged_launches == before[1] + shards
+    assert b.stats.device_launches == 6
+    for g, w in zip(many, HostBackend().merge_many(batches, kind, cfg)):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2), (1, 3)])
+def test_sharded_vb_fit_matches_the_estep_kernel_fit(cuda, grid):
+    """vb_fit_sharded (plain torch on every cell) against vb_fit on the
+    E-step kernel, from one lam0, at the E-step's 2e-4."""
+    import dataclasses
+    from repro_torch.configs.lda_default import LDAConfig
+    from repro_torch.core.vb import vb_fit, vb_fit_sharded
+    from repro_torch.data.corpus import doc_term_matrix, make_corpus
+    from repro_torch.distributed.sharding import MeshEnv
+    cfg = dataclasses.replace(LDAConfig(n_topics=20, vocab_size=1000),
+                              max_iters=2)
+    corpus, _ = make_corpus(300, 1000, 20, mean_doc_len=40, seed=4)
+    x = doc_term_matrix(corpus)
+    lam0 = RNG.gamma(100.0, 0.01, (20, 1000)).astype(np.float32)
+    gen = torch.Generator(device=cuda)
+    got = vb_fit_sharded(x, gen, cfg, MeshEnv([[cuda] * grid[1]] * grid[0]),
+                         lam0=lam0)
+    want = vb_fit(x, gen, cfg, use_kernel=True, lam0=lam0)
+    assert got.device == want.device
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -30,6 +30,11 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.launch.serve, repro_torch.data.lm\n"
         "import repro_torch.serve, repro_torch.ingest, "
         "repro_torch.obs.profile\n"
+        "import repro_torch.distributed\n"
+        "import repro_torch.distributed.merge_collective\n"
+        "import repro_torch.distributed.elastic\n"
+        "import repro_torch.core.query, repro_torch.core.delta_merge\n"
+        "from repro_torch.api import ShardedDeviceBackend\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'triton')\n"
@@ -62,7 +67,8 @@ def test_no_module_imports_jax_or_repro(path):
 
 def test_port_mirrors_the_jax_package_layout():
     for sub in ("configs", "core", "data", "obs", "testing", "kernels",
-                "api", "models", "launch", "serve", "ingest"):
+                "api", "models", "launch", "serve", "ingest",
+                "distributed"):
         assert (PORT / sub / "__init__.py").is_file()
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
         == ["decode_attention.cu", "flash_attention.cu", "gibbs_sweep.cu",

@@ -199,6 +199,8 @@ def test_cuda_device_raises_without_a_card(corpora):
         tapi.MLegoSession(corpora[1][0], CFG)          # default: "cuda"
     with pytest.raises(DeviceUnavailableError):
         tapi.make_backend("device", device="cuda")
+    with pytest.raises(DeviceUnavailableError):
+        tapi.make_backend("device_sharded")
 
 
 def test_unported_kinds_and_backends_raise(corpora):
@@ -206,8 +208,8 @@ def test_unported_kinds_and_backends_raise(corpora):
     assert set(tapi.available_trainers()) >= {"vb", "gs"}
     with pytest.raises(ValueError, match="unknown model kind"):
         tapi.resolve_kind("lsa")
-    with pytest.raises(ValueError, match="not ported"):
-        tapi.make_backend("device_sharded")
+    sharded = tapi.make_backend("device_sharded", device="cpu")
+    assert (sharded.name, sharded.shards) == ("device_sharded", 1)
 
 
 @pytest.fixture(scope="module")
