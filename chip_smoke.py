@@ -112,14 +112,50 @@ Phases, each of which fails the run if anything in it fails:
    1]) at ``MERGE_TOL``;
    ``vb_fit_sharded`` on a (2, 2) grid against ``vb_fit`` on the E-step
    kernel from one λ0 (2e-4 + 2e-4·|want| after one iteration, the
-   difference after 10 printed); the walls of the covered ``submit`` and
+   difference after 10 printed, and after 10 each of the float32 fits —
+   the kernel's, the (1, 1) and the (2, 2) grid's — within 3x the
+   fits' spread from ``vb_fit``'s loop in float64 on the host); the walls of the covered ``submit`` and
    ``submit_many`` at 1 shard and 4 slices, and the normaliser's share of
-   the merge wall.
+   the merge wall;
+10. families — ``families_phase``: the serving paths of the other
+   families through ``generate``, random weights from ``torch.Generator``
+   seed 0 drawn and cast layer by layer, one model at a time (each freed
+   before the next; the memory the earlier phases hold is printed):
+   recurrentgemma-9b at full width (38 layers: 26 ``"rec"``, 12
+   ``"local"``; d_model 4,096, 16 query heads on one KV head of 256, d_ff
+   12,288, vocab 256,000, window 2,048, bf16), 2 prompts of 4,096 tokens
+   and 64 greedy steps: exactly 12 flash launches a prefill and none of
+   either kernel a step, peak memory allocated at most 24 GB over the
+   weights' draw and cast and over the whole path (each checked), and, in
+   float32 over its first 3 layers (rec, rec, local), decode_step after
+   a 2,100-token prefill equal to a 2,101-token prefill at 2e-3 (the
+   window and the ring cache crossed); llava-next-34b at 8 of its 60
+   layers (d_model 7,168, 56/8 heads of 128, d_ff 20,480, vocab 64,000,
+   untied, bf16), 2 prompts of 4,096 tokens whose first 2,880 positions
+   are patch embeddings, 64 steps: 8 flash launches a prefill and 8
+   decode launches a step, and other patch embeddings move the logits;
+   whisper-tiny at full width (4 encoder and 4 decoder layers, d_model
+   384, 6 heads of 64, LayerNorm, GELU, vocab 51,865 padded), a batch of
+   4 with 1,536 frames each, 384-token prompts, 64 steps in a
+   448-position cache: 8 flash launches a prefill (4 bidirectional, 4
+   causal) and 4 decode launches a step, and the float32 check at a
+   384-token prompt; finite logits and tokens in the padded vocabulary
+   for each.  Then the flash kernel at the four prefill shapes the phase
+   gave it: recurrentgemma's ``"local"`` layers (B = 2, S = 4,096, H = 16,
+   KVH = 1, hd = 256, window 2,048), llava's layers (B = 2, S = 4,096,
+   H = 56, KVH = 8, hd = 128, causal), whisper's encoder (B = 4,
+   S = 1,536, H = 6, KVH = 6, hd = 64, bidirectional) and its decoder
+   (B = 4, S = 384, H = 6, KVH = 6, hd = 64, causal); and the decode
+   kernel at llava's and whisper's decode shapes; each held in bf16
+   against its plain version, five repeat calls giving the same bits,
+   and timed beside its bound and SDPA (with the boolean causal or band
+   mask).
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
 phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
-for the ``"service"`` path, phase 9 for the ``"sharded"`` path),
+for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
+10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -163,6 +199,18 @@ TRAIN_BUDGET_S = 300.0     # seconds the main path may spend in VB training
 N_WINDOWS = 32
 GS_TRAIN_BUDGET_S = 120.0  # seconds the gs path may spend in train_range
 GS_WINDOWS = 16
+# the three families of phase 10 at full width: (arch, depth or None,
+# batch, prompt tokens, greedy steps, cache positions, float32 check
+# prompt and depth or None)
+FAMILIES = {
+    "hybrid": dict(arch="recurrentgemma-9b", n_layers=None, b=2,
+                   prompt=4096, steps=64, cache=4160, check=(2100, 3)),
+    "vlm": dict(arch="llava-next-34b", n_layers=8, b=2, prompt=4096,
+                steps=64, cache=4160, check=None),
+    "audio": dict(arch="whisper-tiny", n_layers=None, b=4, prompt=384,
+                  steps=64, cache=448, check=(384, None)),
+}
+HYBRID_PEAK_GB = 24.0      # peak memory the hybrid path may allocate
 T_START = time.perf_counter()
 
 
@@ -633,7 +681,8 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
     from repro_torch.core.lda import topics_from_vb
     from repro_torch.core.merge import device_merge_params
     from repro_torch.core.store import ModelStore
-    from repro_torch.core.vb import vb_fit, vb_fit_sharded
+    from repro_torch.core.vb import (_exp_dirichlet_expectation, vb_estep,
+                                     vb_fit, vb_fit_sharded)
     from repro_torch.data.corpus import doc_term_matrix
     from repro_torch.distributed.elastic import (
         apply_repartition, plan_repartition, recover_quarantined)
@@ -979,7 +1028,7 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
         np.float32)
     env22 = MeshEnv([[device] * 2] * 2)
     gen = torch.Generator(device=device)
-    diffs = {}
+    diffs, fits10 = {}, {}
     for iters in (1, 10):
         c = dataclasses.replace(cfg, max_iters=iters)
         t0 = time.perf_counter()
@@ -992,6 +1041,9 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
         one_cell = vb_fit_sharded(x, gen, c, MeshEnv([[device]]),
                                   lam0=lam0).cpu().numpy()
         got = got.cpu().numpy()
+        if iters == 10:
+            fits10 = {"vb_fit (E-step kernel)": want, "(1, 1) grid": one_cell,
+                      "(2, 2) grid": got}
         diffs[iters] = dict(
             abs=float(np.abs(got - want).max()),
             rel=float((np.abs(got - want) / np.abs(want)).max()),
@@ -1007,6 +1059,37 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
             f"{dd['of_max']:.3g} of max |lambda|), vs the (1, 1) grid max "
             f"abs {dd['grids']:.3g}; {dd['s']:.2f} s on {card}"
             + (" (held at 2e-4 + 2e-4·|want|)" if iters == 1 else ""))
+    # the 10-iteration fits against vb_fit's loop in float64 on the plain
+    # E-step (on the host: the plain E-step takes CPU tensors only; ~10 s):
+    # rounding puts each float32 fit about as far from it as the float32
+    # fits lie from each other (within 3x), where a fault would put one
+    # fit alone far off
+    t0 = time.perf_counter()
+    x64 = torch.as_tensor(x, dtype=torch.float64)
+    lam64 = torch.as_tensor(lam0, dtype=torch.float64)
+    gamma64 = torch.ones((d, k), dtype=torch.float64)
+    for _ in range(10):
+        _, ss64 = vb_estep(x64, _exp_dirichlet_expectation(lam64), gamma64,
+                           cfg.alpha, cfg.e_step_iters)
+        lam64 = cfg.eta + ss64
+    lam64 = lam64.cpu().numpy()
+    to64 = {name: float(np.abs(f - lam64).max()) for name, f in fits10.items()}
+    spread = max(float(np.abs(f - g).max()) for f in fits10.values()
+                 for g in fits10.values())
+    rounding = all(spread / 3 <= dist <= 3 * spread for dist in to64.values())
+    diffs["float64"] = dict(to64=to64, spread=spread, rounding=rounding)
+    log(f"[sharded] the 10-iteration float32 fits against vb_fit in float64 "
+        f"(max |lambda| {float(np.abs(lam64).max()):.4g}): max abs "
+        + ", ".join(f"{name} {dist:.4g}" for name, dist in to64.items())
+        + f"; the float32 fits' largest spread {spread:.4g}; largest "
+        f"distance / spread {max(to64.values()) / spread:.3f}, smallest "
+        f"{min(to64.values()) / spread:.3f}: "
+        + ("within 3x, rounding" if rounding else "NOT within 3x")
+        + f"; the float64 fit {time.perf_counter() - t0:.1f} s on the host")
+    if not rounding:
+        raise AssertionError(f"a 10-iteration float32 fit lies outside 3x "
+                             f"the fits' spread {spread:.4g} from the float64"
+                             f" fit: {to64}")
 
     # 8. the normaliser's share of the sharded merge's wall: the merge of
     # the 8 cached parts on 4 slices against its 4 kernel launches alone
@@ -1046,6 +1129,221 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
     log(f"[sharded] phase ran {seconds:.1f} s")
     return dict(launches=launches, walls=walls, normaliser_share=share,
                 fit_diffs=diffs, kernel_errs=kernel_errs, seconds=seconds)
+
+
+def rec_split(model, params, tokens, device) -> dict:
+    """Where a ``"rec"`` layer's prefill time goes, in ms (synchronised
+    host clock, mean of 3 calls after one warm-up): the whole layer (a
+    one-layer model's ``prefill`` over the first layer, with the embedding
+    and the last position's logits), its ``rglru_seq`` (conv4, the float32
+    gates, the scan) and the doubling scan alone, at the prompt's shape."""
+    import torch
+
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.model import build_model
+
+    one = build_model(dataclasses.replace(model.cfg, n_layers=1))
+    p = params["layers"][0]
+    p1 = {"embed": params["embed"], "final_norm": params["final_norm"],
+          "layers": [p]}
+    tokens = tokens.to(device)
+    b, s = tokens.shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    xin = torch.randn((b, s, model.cfg.d_model), generator=gen,
+                      device=device).to(model.dtype)
+    a = torch.rand((b, s, model.cfg.d_model), generator=gen, device=device)
+    gated = torch.randn((b, s, model.cfg.d_model), generator=gen,
+                        device=device)
+
+    def ms(fn):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    return dict(
+        rec_layer_ms=ms(lambda: one.prefill(p1, {"tokens": tokens})),
+        rglru_ms=ms(lambda: rec.rglru_seq(
+            xin, p["w_rg"], p["b_rg"], p["w_ig"], p["b_ig"], p["conv_w"],
+            p["conv_b"], p["lam"])),
+        scan_ms=ms(lambda: rec.linear_scan(a, gated)))
+
+
+def families_phase(device, card: str) -> dict:
+    """Phase 10: the serving paths of the hybrid (recurrentgemma-9b), the
+    VLM (llava-next-34b at 8 of its 60 layers) and the encoder–decoder
+    (whisper-tiny) on the card ``device``, one model at a time, at the
+    sizes of ``FAMILIES``.
+
+    Each model's weights are drawn from ``torch.Generator`` seed 0 and
+    cast layer by layer (``Model.init(cast=True)``: only one layer's
+    float32 masters exist at a time); one short ``generate`` warms up,
+    then the flash and decode counters are zeroed, the batch of
+    ``make_batch`` goes through ``generate`` and the counters are read
+    (returned under ``launches``, by path).  Checks: the launch counts
+    (a prefill launches the flash kernel once per attention layer; a
+    decode step launches the decode kernel once per ``"attn"`` layer, and
+    nothing for ``"local"``, ``"rec"`` or cross attention), finite logits,
+    tokens in the padded vocabulary, the hybrid's peak memory allocated
+    at most ``HYBRID_PEAK_GB`` (the peak counter is reset before the
+    draw and read twice: after the draw and cast, and after the timed
+    ``generate``), the VLM's logits moved by its patch embeddings, and, in
+    float32 for the hybrid (its first 3 layers: rec, rec, local) and the
+    encoder–decoder, ``decode_step`` after a prompt equal to a one-longer
+    prefill at ``CONSISTENCY_TOL``.
+    """
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    out = {"launches": {}, "runs": {}}
+
+    def check(ok, path, msg):
+        if not ok:
+            raise AssertionError(f"[{path}] {msg}")
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    for path, sz in FAMILIES.items():
+        t_model = time.perf_counter()
+        cfg = get_arch(sz["arch"])
+        if sz["n_layers"]:
+            log(f"[{path}] reduced: n_layers {cfg.n_layers} → "
+                f"{sz['n_layers']} (one card's time and memory)")
+            cfg = dataclasses.replace(cfg, n_layers=sz["n_layers"])
+        model = build_model(cfg)
+        kinds = model.kinds
+        n_attn = kinds.count("attn")
+        n_flash = n_attn + kinds.count("local") + cfg.n_encoder_layers
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            cast=True)
+        torch.cuda.synchronize()
+        init_peak = peak_gb()
+        log(f"[{path}] {cfg.name}: {model.param_count(params) / 1e9:.3f} B "
+            f"parameters ({cfg.n_layers} layers "
+            + ", ".join(f"{kinds.count(k)} {k!r}" for k in sorted(set(kinds)))
+            + (f" + {cfg.n_encoder_layers} encoder" if cfg.n_encoder_layers
+               else "")
+            + f"; d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}"
+            + (f", window {cfg.window}" if cfg.window else "")
+            + f"), {cfg.dtype}; init + cast {time.perf_counter() - t0:.1f} s,"
+            f" peak memory allocated {init_peak:.2f} GB; {held:.2f} GB held "
+            f"by the earlier phases")
+        b, s, steps, cache = sz["b"], sz["prompt"], sz["steps"], sz["cache"]
+        batch = make_batch(cfg, b, s, 0, 0)
+        batch.pop("labels")
+        # a short warm-up through the same entry point, not counted
+        generate(model, params, batch, steps=2, cache_len=cache)
+        torch.cuda.synchronize()
+        flash_ops.flash_attention_launches = 0
+        decode_ops.decode_attention_launches = 0
+        stats = {}
+        toks = generate(model, params, batch, steps=steps, cache_len=cache,
+                        stats=stats)
+        got = {"flash_attention": flash_ops.flash_attention_launches,
+               "decode_attention": decode_ops.decode_attention_launches}
+        peak = peak_gb()
+        n_gen = b * steps
+        run = dict(prefill_s=stats["prefill_s"],
+                   decode_ms=stats["decode_s"] / steps * 1e3,
+                   decode_tok_s=n_gen / stats["decode_s"],
+                   e2e_tok_s=n_gen / (stats["prefill_s"] + stats["decode_s"]),
+                   init_peak_gb=init_peak, peak_gb=peak, held_gb=held)
+        log(f"[{path}] generate B={b} prompt={s} cache_len={cache} "
+            f"steps={steps}: prefill {run['prefill_s']:.4f} s, decode "
+            f"{stats['decode_s']:.4f} s = {run['decode_ms']:.3f} ms per "
+            f"step, {run['decode_tok_s']:.1f} generated tokens/s in decode, "
+            f"{run['e2e_tok_s']:.1f} end to end; peak memory allocated "
+            f"{peak:.2f} GB from the draw on ({held:.2f} GB of it held by "
+            f"the earlier phases); on {card}")
+        log(f"[{path}] kernel launches on the {path} path: {got}")
+        want = {"flash_attention": n_flash,
+                "decode_attention": n_attn * steps}
+        check(got == want, path, f"launches {got}, expected {want}")
+        check(stats["logits_finite"], path, "logits are not finite")
+        check(toks.shape == (b, steps) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.padded_vocab, path,
+              f"generated tokens {tuple(toks.shape)} outside "
+              f"[0, {cfg.padded_vocab})")
+        if path == "hybrid":
+            for what, gb in (("the draw and cast", init_peak),
+                             ("the whole path", peak)):
+                check(gb <= HYBRID_PEAK_GB, path,
+                      f"{what} allocated {gb:.2f} GB at its peak, more than "
+                      f"{HYBRID_PEAK_GB} GB")
+        log(f"[{path}] sample: {toks[0, :16].tolist()}")
+        if "patch_embeds" in batch:
+            # the patch embeddings reach the logits
+            with torch.inference_mode():
+                dev_batch = {k: v.to(device) for k, v in batch.items()}
+                lg, _ = model.prefill(params, dev_batch)
+                dev_batch["patch_embeds"] = torch.randn(
+                    dev_batch["patch_embeds"].shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1)
+                ).mul_(0.02)
+                lg2, _ = model.prefill(params, dev_batch)
+            moved = float((lg - lg2).abs().max())
+            check(moved > 1e-3, path, f"other patch embeddings moved the "
+                  f"logits by {moved:.3g}")
+            log(f"[{path}] other patch embeddings move the last logits by "
+                f"up to {moved:.3g} (of {float(lg.abs().max()):.3g})")
+            del lg, lg2, dev_batch
+        if path == "hybrid":
+            run.update(rec_split(model, params, batch["tokens"], device))
+            log(f"[{path}] one \"rec\" layer's prefill (B={b}, S={s}): "
+                f"{run['rec_layer_ms']:.3f} ms, of it rglru_seq (conv4, the "
+                f"float32 gates, the scan) {run['rglru_ms']:.3f} ms and the "
+                f"doubling scan alone {run['scan_ms']:.3f} ms "
+                f"({run['scan_ms'] / run['rec_layer_ms']:.1%}); on {card}")
+        out["launches"][path] = {k: n for k, n in got.items() if want[k]}
+        out["runs"][path] = run
+        del params, batch, toks
+        torch.cuda.empty_cache()
+        if sz["check"]:
+            # the same draw in float32: decode_step after the prompt must
+            # give the logits of a one-longer prefill (the JAX package's
+            # consistency check, tests/test_arch_smoke.py, at its 2e-3)
+            cs, depth = sz["check"]
+            c32 = dataclasses.replace(cfg, dtype="float32",
+                                      n_layers=depth or cfg.n_layers)
+            m32 = build_model(c32)
+            p32 = m32.init(torch.Generator(device=device).manual_seed(0))
+            full = make_batch(c32, 2, cs + 1, 0, 1, device=device)
+            full.pop("labels")
+            head = {k: (v[:, :cs] if k == "tokens" else v)
+                    for k, v in full.items()}
+            with torch.inference_mode():
+                _, caches = m32.prefill(p32, head, cache_len=cache)
+                lg_dec, _ = m32.decode_step(p32, caches,
+                                            full["tokens"][:, cs:], cs)
+                lg_full, _ = m32.prefill(p32, full, cache_len=cache)
+            diff = float((lg_dec - lg_full).abs().max())
+            check(bool(torch.isfinite(lg_full).all()) and torch.allclose(
+                lg_dec, lg_full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL),
+                path, f"float32 decode_step differs from prefill by {diff} "
+                f"(tol {CONSISTENCY_TOL})")
+            log(f"[{path}] float32, {c32.n_layers} layers {m32.kinds} at "
+                f"full width: decode_step(prefill({cs})) vs prefill({cs + 1})"
+                f" max abs diff {diff:.3g} over logits up to "
+                f"{float(lg_full.abs().max()):.3g} (tol {CONSISTENCY_TOL})")
+            del p32, caches, full, head
+            torch.cuda.empty_cache()
+        log(f"[{path}] ran {time.perf_counter() - t_model:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2378,6 +2676,127 @@ def main() -> int:
     # kernels section's
     for kname, err in sh_out["kernel_errs"].items():
         report[kname]["max_abs_err"] = max(report[kname]["max_abs_err"], err)
+
+    # -- 10. the other families' serving paths ------------------------------
+    # each path's counts are zeroed inside, just before its generate
+    fam_out = families_phase(dev, card)
+    for path, counts in fam_out["launches"].items():
+        for kname, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"{path} path never launched {kname}")
+            by_path = report[kname].setdefault("launches_by_path", {})
+            by_path[path] = count
+            report[kname]["launches"] = sum(by_path.values())
+
+    # the attention kernels at the shapes phase 10 gave them, held against
+    # their plain versions and timed (uncounted) in bf16, five repeat calls
+    # giving the same bits (the SASS check of phase 2 covers every bf16
+    # instance, hd 64 and 256 among them): the flash kernel at each of the
+    # four prefill shapes of phase 10 — recurrentgemma-9b's "local" layers
+    # (16 query heads on one KV head of 256, window 2,048: a CTA holds
+    # 64 / 16 = 4 query positions), llava-next-34b's layers (56 query
+    # heads on 8 KV heads of 128: G = 7 leaves 1 of a CTA's 64 rows idle),
+    # whisper-tiny's bidirectional encoder and its causal decoder; the
+    # decode kernel at
+    # llava-next-34b's and whisper-tiny's decoder steps.  The library
+    # figure is SDPA, with the boolean band mask for the window
+    # time_ms's L2 flush again (freed after phase 2)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    shapes = {"flash_attention": {}, "decode_attention": {}}
+    for label, b, s, h, kvh, hd, causal, window in [
+            ("hybrid local", 2, 4096, 16, 1, 256, True, 2048),
+            ("vlm prefill", 2, 4096, 56, 8, 128, True, 0),
+            ("audio encoder", 4, 1536, 6, 6, 64, False, 0),
+            ("audio decoder", 4, 384, 6, 6, 64, True, 0)]:
+        q, k, v = (torch.tensor(rng.normal(size=(b, s, n, hd)),
+                                dtype=torch.float32, device=dev).to(
+                                    torch.bfloat16)
+                   for n in (h, kvh, kvh))
+        got = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+        err, msg = attn_close(got, want, torch.bfloat16)
+        del want
+        for _ in range(5):
+            if not torch.equal(flash_ops.flash_attention(
+                    q, k, v, causal=causal, window=window), got):
+                raise AssertionError(f"flash_attention ({label}) gives "
+                                     "other bits on a repeat call")
+        pos = torch.arange(s, device=dev)
+        dd = pos[:, None] - pos[None, :]
+        mask = None
+        if causal:
+            mask = (dd >= 0) & ((dd < window) if window else True)
+        # the (query, key) pairs the mask keeps: 4·hd flops each
+        pairs = (int(mask.sum()) if mask is not None else s * s)
+        del pos, dd
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(lambda: flash_ops.flash_attention(
+            q, k, v, causal=causal, window=window), 10)
+        plain = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), 3)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
+        n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+        n_ops = 4 * hd * b * h * pairs
+        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        shapes["flash_attention"][label] = dict(
+            shape=f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
+                  f"window={window} bf16", max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"[kernels] flash_attention ({label}) B={b} S={s} H={h} "
+            f"KVH={kvh} hd={hd} causal={causal} window={window} bf16: {msg}; "
+            f"{ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP, "
+            f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; bound {b_ms:.4f} ms "
+            f"({b_by}); plain {plain:.3f} ms; SDPA {lib:.4f} ms; same bits "
+            f"over 5 calls; on {card}")
+        del q, k, v, qt, kt, vt, got, mask
+    for label, b, s, h, kvh, hd, pos in [
+            ("vlm decode", 2, 4160, 56, 8, 128, 4150),
+            ("audio decode", 4, 448, 6, 6, 64, 447)]:
+        q = torch.tensor(rng.normal(size=(b, 1, h, hd)), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16)
+        kc, vc = (torch.tensor(rng.normal(size=(b, s, kvh, hd)),
+                               dtype=torch.float32, device=dev).to(
+                                   torch.bfloat16) for _ in range(2))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        got = decode_ops.decode_attention(q, kc, vc, p)
+        want = decode_attention_ref(q.float(), kc.float(), vc.float(), pos)
+        err, msg = attn_close(got, want, torch.bfloat16)
+        for _ in range(5):
+            if not torch.equal(decode_ops.decode_attention(q, kc, vc, p),
+                               got):
+                raise AssertionError(f"decode_attention ({label}) gives "
+                                     "other bits on a repeat call")
+        qt = q.transpose(1, 2)
+        kt, vt = (x[:, :pos + 1].transpose(1, 2) for x in (kc, vc))
+        ms = time_ms(lambda: decode_ops.decode_attention(q, kc, vc, p), 20)
+        plain = time_ms(lambda: decode_attention_ref(q, kc, vc, pos), 20)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), 20)
+        n_bytes = q.element_size() * (2 * b * (pos + 1) * kvh * hd
+                                      + 2 * b * h * hd)
+        n_ops = 4 * hd * b * h * (pos + 1)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        n_split, chunk = decode_ops.split_plan(s, b * kvh)
+        shapes["decode_attention"][label] = dict(
+            shape=f"B={b} S={s} pos={pos} H={h} KVH={kvh} hd={hd} bf16",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib)
+        log(f"[kernels] decode_attention ({label}) B={b} S={s} pos={pos} "
+            f"H={h} KVH={kvh} hd={hd} bf16 ({n_split} splits of {chunk}): "
+            f"{msg}; {ms:.4f} ms, {n_bytes / (ms * 1e-3) / 1e12:.3f} TB/s; "
+            f"bound {b_ms:.4f} ms ({b_by}); plain {plain:.4f} ms; SDPA "
+            f"{lib:.4f} ms; same bits over 5 calls; on {card}")
+        del q, kc, vc, qt, kt, vt, got, want
+    for kname, rows in shapes.items():
+        report[kname]["shapes"] = rows
+        report[kname]["max_abs_err"] = max(
+            [report[kname]["max_abs_err"]]
+            + [r["max_abs_err"] for r in rows.values()])
+    del flush
+    torch.cuda.empty_cache()
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)

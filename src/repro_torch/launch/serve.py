@@ -5,8 +5,9 @@
         [--seed 0]
 
 The port of ``src/repro/launch/serve.py``, for the architectures
-``build_model`` takes: the dense transformers and xlstm-1.3b (whose
-recurrent caches ignore the cache length).  It runs on the CUDA card
+``build_model`` takes: every family but MoE (the recurrent caches ignore
+the cache length; the VLM's patch embeddings and the encoder–decoder's
+frames are the configs' stubs from ``make_batch``).  It runs on the CUDA card
 unless ``--device cpu`` is given, and raises ``DeviceUnavailableError``
 when a card is asked for and there is none.  Weights are random, drawn
 from ``torch.Generator(seed)`` on the device, and the prompts come from
@@ -39,20 +40,21 @@ def generate(model: Model, params: Params, batch: Dict[str, torch.Tensor],
     ``generate`` does (it also runs ``steps`` decode steps, the last one's
     token unused).  The argmax runs over the padded vocabulary.
 
-    ``params`` are ``model.cast_params``'s.  The decode position lives on
+    ``params`` are ``model.cast_params``'s.  Every entry of ``batch``
+    goes to ``prefill`` (the VLM's ``patch_embeds``, the encoder–decoder's
+    ``frames``), as in JAX.  The decode position lives on
     the device and is advanced there, so the loop makes no host round
     trip.  With ``stats`` (a dict) the call synchronises after the prefill
     and at the end and records ``prefill_s``, ``decode_s`` (host clock)
     and ``logits_finite`` (every logit of every step finite).
     """
     dev = params["embed"].device
-    tokens = batch["tokens"].to(dev)
-    s = tokens.shape[1]
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    s = batch["tokens"].shape[1]
     finite = torch.ones((), dtype=torch.bool, device=dev)
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": tokens},
-                                       cache_len=cache_len)
+        logits, caches = model.prefill(params, batch, cache_len=cache_len)
         tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         if stats is not None:
             finite &= torch.isfinite(logits).all()
@@ -93,7 +95,7 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = model.cast_params(model.init(gen))
+    params = model.init(gen, cast=True)
     batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, 0)
     batch.pop("labels", None)
     t0 = time.perf_counter()

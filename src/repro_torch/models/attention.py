@@ -8,11 +8,15 @@ The port of ``src/repro/models/attention.py``'s one-device paths:
   * ``decode_attention`` — one new token: the cache write at ``pos``,
     then split-K flash over the cache through the decode kernel
     (``kernels/decode_attention``);
-  * ``window_decode_attention`` — the rolling-window decode, plain torch
-    as in JAX.
+  * ``window_decode_attention`` — the rolling-window decode of the
+    ``"local"`` layers, plain torch as in JAX;
+  * ``cross_attention`` — the decoder's attention over the encoder's
+    K/V, in prefill and in decode (``ring_attention`` with ``causal=False`` and S_q != S_kv in
+    JAX, plain jnp there), plain torch here: the flash kernel takes one
+    S for q and k.  Teaching it S_q != S_kv is later kernel work.
 
-The ring over ranks of ``ring_attention`` and ``cross_attention`` wait
-for the sharded item of ROADMAP.md.
+The ring over ranks of ``ring_attention`` waits for ROADMAP.md Queue 1
+item 6.
 
 Numerics: the scores are summed and scaled in float32 inside the kernels.
 In bf16 both kernels run P·V on the tensor cores with the probabilities
@@ -97,3 +101,22 @@ def window_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return (out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache, kpos)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bidirectional attention of q (B, S_q, H, hd) over a memory k, v
+    (B, S_kv, KVH, hd) -> (B, S_q, H, hd) in q's dtype (plain torch).
+    JAX's one-device ``ring_attention(causal=False)`` step: q scaled in
+    its own dtype, scores in float32, probabilities cast to v's dtype
+    before P·V, the sum normalised in float32 at the end (JAX does it
+    chunk by chunk with an online softmax: equal to rounding)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd) * (hd ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float())
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype).float(),
+                       v.float()) / l
+    return out.reshape(b, sq, h, hd).to(q.dtype)

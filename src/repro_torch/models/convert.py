@@ -6,8 +6,12 @@ port's parameters.  JAX stacks the layers of each position of the block
 pattern on a leading axis: layer ``g * period + j`` of kind ``kind`` is
 ``tree["stack"][f"{j}_{kind}"][g]``, and the unrolled tail's layer
 ``n_groups * period + j`` is ``tree["tail"][f"{j}_{kind}"]`` (a dense
-stack is the case period 1, ``"0_attn"``, no tail).  The port keeps one
-dict per layer, in layer order, and every weight its ``(d_in, d_out)``
+stack is the case period 1, ``"0_attn"``, no tail; recurrentgemma's 38
+layers are 12 groups of ``("0_rec", "1_rec", "2_local")`` and a tail of
+``("0_rec", "1_rec")``).  The encoder–decoder's ``enc_stack`` and
+``cross_stack`` are stacked the same way, one entry per layer.  The port
+keeps one dict per layer, in layer order (``"layers"``, ``"enc_layers"``,
+``"cross_layers"``), and every weight its ``(d_in, d_out)``
 orientation.  The same weights give the same logits; the tests use it to
 hold the port to the JAX model.
 """
@@ -40,8 +44,7 @@ def _depth(tree: Any) -> int:
 
 def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]) -> Params:
     """The port's float32 master parameters, on the CPU, from a JAX
-    parameter tree of numpy arrays (the configs ``build_model`` takes:
-    stacks of ``"attn"``, ``"m"`` and ``"s"`` layers)."""
+    parameter tree of numpy arrays (the configs ``build_model`` takes)."""
     build_model(cfg)
     pattern = cfg.block_pattern
     period = len(pattern)
@@ -69,4 +72,13 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]) -> Params:
     }
     if "unembed" in tree:
         params["unembed"] = _to_torch(tree["unembed"])
+    if cfg.is_encoder_decoder:
+        for key, name, n in (("enc_stack", "enc_layers",
+                              cfg.n_encoder_layers),
+                             ("cross_stack", "cross_layers", cfg.n_layers)):
+            if _depth(tree[key]) != n:
+                raise ValueError(f"expected {n} stacked layers in {key}, "
+                                 f"got {_depth(tree[key])}")
+            params[name] = [_to_torch(tree[key], i) for i in range(n)]
+        params["enc_norm"] = _to_torch(tree["enc_norm"])
     return params

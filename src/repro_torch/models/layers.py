@@ -74,6 +74,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) float32 sinusoidal position embeddings (the encoder's):
+    sin at the even columns, cos at the odd ones, of pos / 10000^(2i/d)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, :d // 2])
+    return pe
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------

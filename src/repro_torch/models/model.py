@@ -1,33 +1,49 @@
-"""Decoder-only language models: prefill and greedy decode.
+"""Language models: prefill and greedy decode.
 
-The port of ``src/repro/models/model.py`` for stacks built of the block
-kinds ported so far: ``"attn"`` (the dense transformers: qwen3, smollm,
-gemma, qwen2.5) and the xLSTM blocks ``"m"`` (mLSTM) and ``"s"`` (sLSTM),
-in any pattern (xlstm-1.3b: seven ``"m"`` then one ``"s"``).  The same
-parameters, the same math, the same per-kind caches: {"k", "v"}
-(B, cache_len, KVH, hd) for ``"attn"``, {"c", "n"} for ``"m"``,
-{"c", "n", "h", "m"} for ``"s"``.  The other kinds (``"local"``,
-``"rec"``), MoE, encoder–decoder and VLM patch embeddings are not ported
-yet; :func:`build_model` refuses them and names the ROADMAP item.
+The port of ``src/repro/models/model.py`` for every family but MoE:
+stacks of the block kinds ``"attn"`` (the dense transformers: qwen3,
+smollm, gemma, qwen2.5), ``"local"`` (sliding-window attention) and
+``"rec"`` (the Griffin recurrent block: conv4 + RG-LRU; recurrentgemma's
+(rec, rec, local) pattern), the xLSTM blocks ``"m"`` (mLSTM) and ``"s"``
+(sLSTM), in any pattern; the VLM's precomputed patch embeddings spliced
+over the first positions (llava-next); and the encoder–decoder (whisper:
+a bidirectional encoder over stub frame embeddings, then decoder layers
+of self-attention, cross-attention and FFN).  The same parameters, the
+same math, the same per-kind caches: {"k", "v"} (B, cache_len, KVH, hd)
+for ``"attn"``, the rolling window {"k", "v"} (B, W, KVH, hd) with the
+global position of each slot {"kpos"} (W,) (-1 = empty) for ``"local"``,
+{"h", "tail"} for ``"rec"``, {"c", "n"} for ``"m"``, {"c", "n", "h",
+"m"} for ``"s"``; an encoder–decoder layer adds its cross K/V
+{"cross_k", "cross_v"} (B, F, KVH, hd) to its {"k", "v"}.  MoE is not
+ported yet; :func:`build_model` refuses it and names the ROADMAP item.
 
 Differences from the JAX model, all of form and none of result:
   * parameters are a dict with a Python list of per-layer dicts under
     ``"layers"``, one per layer in layer order (JAX stacks each kind of
     the block pattern on a leading axis and runs ``lax.scan`` over the
-    pattern groups); the layer loop is plain Python;
+    pattern groups), and, for the encoder–decoder, ``"enc_layers"`` and
+    ``"cross_layers"`` (JAX's ``enc_stack`` and ``cross_stack``); the
+    layer loop is plain Python;
   * ``cast_params`` casts to the compute dtype ONCE, when the weights are
     loaded, the leaves JAX casts inside every call: those ≥2-D in JAX's
-    stacked layout (every leaf of a layer in a pattern group, the sLSTM's
-    ``r_mat`` among them; ≥2-D leaves of the tail and the top level);
+    stacked layout (every leaf of a layer in a pattern group, the
+    encoder and the cross layers, the sLSTM's ``r_mat`` among them; ≥2-D
+    leaves of the tail and the top level);
   * ``decode_step`` writes the new K/V into the attention caches in place,
     puts the new recurrent states into the caches' dicts, and returns the
-    same cache objects;
+    same cache objects; the cross K/V of the encoder–decoder live in each
+    decoder layer's cache (JAX keeps them stacked under ``"enc_kv"``);
   * attention runs the flash and decode kernels, whose numerics are the
     Pallas kernels': probabilities stay float32 through P·V, where the
     jnp stand-in of the JAX model casts them to the value dtype first
-    (``attention.py:112``).  The two agree to rounding in float32;
+    (``attention.py:112``).  The two agree to rounding in float32.
+    ``"local"`` decode, cross attention and the RG-LRU are plain torch,
+    as they are plain jnp in JAX;
   * the sLSTM runs the scan kernel once per layer and prefill, which
-    returns the final state from the same pass (JAX runs the scan twice).
+    returns the final state from the same pass (JAX runs the scan twice);
+  * a ``"rec"`` layer's conv tail after a prompt of fewer than 3 tokens
+    is zero-padded on the left to 3 rows (JAX keeps the short slice,
+    whose decode step then fails).
 """
 from __future__ import annotations
 
@@ -38,24 +54,43 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.data.lm import encoder_frames
 from repro_torch.kernels.slstm_scan.ref import M_INIT
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
+    act_fn,
     apply_rope,
     dense_init,
     mlp_apply,
     mlp_init,
     norm_apply,
     norm_init,
+    sinusoidal_positions,
 )
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
+# per-layer lists that JAX stacks on a leading axis whatever their kind
+STACKED_LISTS = ("enc_layers", "cross_layers")
+
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _cast(tree: Any, dt: torch.dtype, min_dim: int) -> Any:
+    """``tree``'s float32 leaves of at least ``min_dim`` dimensions in
+    ``dt``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dt, min_dim) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dt, min_dim) for v in tree]
+    if tree.dim() >= min_dim and tree.dtype == torch.float32 and \
+            dt != tree.dtype:
+        return tree.to(dt)
+    return tree
 
 
 def cast_params(params: Params, dt: torch.dtype, n_stacked: int = 0
@@ -64,17 +99,13 @@ def cast_params(params: Params, dt: torch.dtype, n_stacked: int = 0
     ``cast_params`` casts, every one that is ≥2-D in JAX's layout.  JAX
     stacks the layers of its pattern groups on a leading axis, so there
     every leaf of the first ``n_stacked`` layers is ≥2-D and is cast, norm
-    scales and biases included; the 1-D leaves of the unrolled tail and
-    of the top level (``final_norm``) stay float32.  Call once, when the
-    weights are loaded."""
-    def cast(x, min_dim):
-        if isinstance(x, dict):
-            return {k: cast(v, min_dim) for k, v in x.items()}
-        if x.dim() >= min_dim and x.dtype == torch.float32 and dt != x.dtype:
-            return x.to(dt)
-        return x
-    out = {k: cast(v, 2) for k, v in params.items() if k != "layers"}
-    out["layers"] = [cast(p, 1 if i < n_stacked else 2)
+    scales and biases included, as is every leaf of the encoder and cross
+    layers (``STACKED_LISTS``); the 1-D leaves of the unrolled tail and
+    of the top level (``final_norm``, ``enc_norm``) stay float32.  Call
+    once, when the weights are loaded."""
+    out = {k: _cast(v, dt, 1 if k in STACKED_LISTS else 2)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [_cast(p, dt, 1 if i < n_stacked else 2)
                      for i, p in enumerate(params["layers"])]
     return out
 
@@ -105,8 +136,24 @@ def _layer_params(cfg: ArchConfig, kind: str, gen: torch.Generator
     d = cfg.d_model
     dev = gen.device
     p: Params = {"norm1": norm_init(cfg, d, dev)}
-    if kind == "attn":
+    if kind in ("attn", "local"):
         p["attn"] = _attn_params(cfg, gen)
+        p["norm2"] = norm_init(cfg, d, dev)
+        p["mlp"] = mlp_init(cfg, gen, d, cfg.d_ff)
+    elif kind == "rec":
+        # Griffin recurrent block: gate and recurrent input projections,
+        # conv4, RG-LRU gates, output projection, then its own MLP
+        p["proj_gate"] = dense_init(gen, d, d)
+        p["proj_in"] = dense_init(gen, d, d)
+        p["conv_w"] = torch.randn((4, d), generator=gen,
+                                  device=dev).mul_(0.1)
+        p["conv_b"] = torch.zeros(d, device=dev)
+        p["w_rg"] = dense_init(gen, d, d)
+        p["b_rg"] = torch.zeros(d, device=dev)
+        p["w_ig"] = dense_init(gen, d, d)
+        p["b_ig"] = torch.zeros(d, device=dev)
+        p["lam"] = torch.full((d,), 0.7, device=dev)   # a ≈ 0.96^c init
+        p["wo"] = dense_init(gen, d, d)
         p["norm2"] = norm_init(cfg, d, dev)
         p["mlp"] = mlp_init(cfg, gen, d, cfg.d_ff)
     elif kind == "m":
@@ -142,8 +189,10 @@ def _qk_norm(cfg: ArchConfig, x: torch.Tensor, scale: torch.Tensor
 
 
 def _attn_qkv(cfg: ArchConfig, p: Params, h: torch.Tensor,
-              positions: torch.Tensor
+              positions: Optional[torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of an attention layer; RoPE at ``positions`` unless None
+    (the encoder's layers)."""
     b, s, _ = h.shape
     dt = h.dtype
     q = h @ p["wq"]
@@ -159,8 +208,9 @@ def _attn_qkv(cfg: ArchConfig, p: Params, h: torch.Tensor,
     if cfg.qk_norm:
         q = _qk_norm(cfg, q, p["q_norm"])
         k = _qk_norm(cfg, k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -171,6 +221,38 @@ def _pad_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
     out = k.new_zeros((k.shape[0], cache_len) + tuple(k.shape[2:]))
     out[:, :s] = k
     return out
+
+
+def _window_cache(k: torch.Tensor, v: torch.Tensor, window: int,
+                  cache_len: int) -> Dict[str, torch.Tensor]:
+    """The rolling-window cache a ``"local"`` layer leaves after a prompt
+    (``model.py:646``): the last min(W, S) keys at their ``pos % W``
+    slots, W = min(window, cache_len), so decode writes continue the
+    ring."""
+    b, s = k.shape[:2]
+    w = min(window, cache_len)
+    keep = min(w, s)
+    kpos = torch.arange(s - keep, s, device=k.device)
+    idx = kpos % w
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        ring = t.new_zeros((b, w) + tuple(t.shape[2:]))
+        ring[:, idx] = t[:, s - keep:]
+        cache[name] = ring
+    kp = torch.full((w,), -1, dtype=torch.int32, device=k.device)
+    kp[idx] = kpos.to(torch.int32)
+    cache["kpos"] = kp
+    return cache
+
+
+def _conv_tail(xin: torch.Tensor) -> torch.Tensor:
+    """The last 3 rows of the recurrent branch's input (B, S, dr) in
+    float32, zero-padded on the left when S < 3."""
+    tail = xin[:, -3:].float()
+    if tail.shape[1] < 3:
+        tail = torch.cat([tail.new_zeros((tail.shape[0], 3 - tail.shape[1],
+                                          tail.shape[2])), tail], dim=1)
+    return tail
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,34 +268,58 @@ class Model:
         """The block kind of every layer, in layer order."""
         return self.cfg.layer_kinds()
 
+    @property
+    def n_stacked(self) -> int:
+        """Layers in JAX's stacked pattern groups (the rest are its
+        tail)."""
+        period = len(self.cfg.block_pattern)
+        return self.cfg.n_layers // period * period
+
     # --- init ---------------------------------------------------------------
-    def init(self, gen: torch.Generator) -> Params:
+    def init(self, gen: torch.Generator, *, cast: bool = False) -> Params:
         """Float32 master weights drawn from ``gen`` on ``gen.device``, with
         the JAX package's distributions: embeddings N(0, 0.02²), dense
         N(0, 1/d_in), attention ``wo`` N(0, 1/q_dim), norm and qk-norm
-        scales 0, the mLSTM gate bias [0…, 3…], the sLSTM ``r_mat``
-        N(0, 1/hd) and ``b_zifo`` 0."""
+        scales 0 (LayerNorm: scale 1, bias 0), the mLSTM gate bias
+        [0…, 3…], the sLSTM ``r_mat`` N(0, 1/hd) and ``b_zifo`` 0, the
+        conv4 weights N(0, 0.01), the RG-LRU ``lam`` 0.7.
+
+        With ``cast=True`` each tensor is cast as its layer is drawn: the
+        result is ``cast_params(init(gen))`` exactly, the same draws,
+        while only one layer's float32 masters exist at a time."""
         cfg = self.cfg
+        dt = self.dtype
+
+        def done(tree, min_dim):
+            return _cast(tree, dt, min_dim) if cast else tree
+
         v, d = cfg.padded_vocab, cfg.d_model
         params: Params = {
-            "embed": torch.randn((v, d), generator=gen,
-                                 device=gen.device).mul_(0.02),
+            "embed": done(torch.randn((v, d), generator=gen,
+                                      device=gen.device).mul_(0.02), 2),
             "final_norm": norm_init(cfg, d, gen.device),
         }
         if not cfg.tie_embeddings:
-            params["unembed"] = torch.randn(
-                (v, d), generator=gen, device=gen.device).mul_(0.02)
-        params["layers"] = [_layer_params(cfg, kind, gen)
-                            for kind in self.kinds]
+            params["unembed"] = done(torch.randn(
+                (v, d), generator=gen, device=gen.device).mul_(0.02), 2)
+        params["layers"] = [
+            done(_layer_params(cfg, kind, gen), 1 if i < self.n_stacked
+                 else 2) for i, kind in enumerate(self.kinds)]
+        if cfg.is_encoder_decoder:
+            params["enc_layers"] = [
+                done(_layer_params(cfg, "attn", gen), 1)
+                for _ in range(cfg.n_encoder_layers)]
+            params["enc_norm"] = norm_init(cfg, d, gen.device)
+            params["cross_layers"] = [
+                done({"attn": _attn_params(cfg, gen),
+                      "norm": norm_init(cfg, d, gen.device)}, 1)
+                for _ in range(cfg.n_layers)]
         return params
 
     def cast_params(self, params: Params) -> Params:
         """The parameters ``prefill`` and ``decode_step`` take: the leaves
         JAX casts in the config's compute dtype (identity for float32)."""
-        cfg = self.cfg
-        period = len(cfg.block_pattern)
-        return cast_params(params, self.dtype,
-                           cfg.n_layers // period * period)
+        return cast_params(params, self.dtype, self.n_stacked)
 
     @staticmethod
     def param_count(params: Params) -> int:
@@ -241,16 +347,34 @@ class Model:
 
     # --- layers -------------------------------------------------------------
     def _attn_layer(self, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor, attend
+                    positions: Optional[torch.Tensor], attend, cross=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Self-attention through ``attend(q, k, v)``, then ``cross(x)``
+        when given (the decoder's cross-attention: whisper's order), then
+        the FFN.  Returns (x, k, v)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = norm_apply(cfg, x, p["norm1"])
         q, k, v = _attn_qkv(cfg, p["attn"], h, positions)
         o = attend(q, k, v)
         x = x + o.reshape(b, s, cfg.q_dim) @ p["attn"]["wo"]
+        if cross is not None:
+            x = cross(x)
         h2 = norm_apply(cfg, x, p["norm2"])
         return x + mlp_apply(cfg, p["mlp"], h2), k, v
+
+    def _rec_inputs(self, p: Params, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The GELU gate and the recurrent branch's input of a ``"rec"``
+        block, both in x's dtype."""
+        h = norm_apply(self.cfg, x, p["norm1"])
+        return act_fn("gelu")(h @ p["proj_gate"]), h @ p["proj_in"]
+
+    def _rec_out(self, p: Params, x: torch.Tensor, gate: torch.Tensor,
+                 hr: torch.Tensor) -> torch.Tensor:
+        x = x + (gate * hr) @ p["wo"]
+        h2 = norm_apply(self.cfg, x, p["norm2"])
+        return x + mlp_apply(self.cfg, p["mlp"], h2)
 
     def _mlstm_inputs(self, p: Params, x: torch.Tensor):
         """q, k, v (B, S, H, hd) and the raw i/f gates (B, S, H) of an
@@ -274,31 +398,100 @@ class Model:
         pre = (h @ p["w_zifo"]).reshape(b, s, 4, hn, d // hn)
         return pre + p["b_zifo"].to(x.dtype)
 
+    # --- encoder–decoder ----------------------------------------------------
+    def _run_encoder(self, params: Params, frames: torch.Tensor
+                     ) -> torch.Tensor:
+        """Whisper's encoder: sinusoidal positions added to the stub frame
+        embeddings (B, F, d), then bidirectional attention layers (no
+        RoPE) through the flash kernel, then ``enc_norm``."""
+        cfg = self.cfg
+        x = frames + sinusoidal_positions(
+            frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+        for p in params["enc_layers"]:
+            x, _, _ = self._attn_layer(
+                p, x, None, lambda q, k, v: attn.flash_attention_local(
+                    q, k, v, causal=False))
+        return norm_apply(cfg, x, params["enc_norm"])
+
+    def _enc_kv(self, pc: Params, enc: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decoder layer's cross K/V (B, F, KVH, hd) from the encoder's
+        output (no bias, as JAX's ``_enc_kv``)."""
+        cfg = self.cfg
+        b, f, _ = enc.shape
+        return tuple((enc @ pc["attn"][w]).reshape(b, f, cfg.n_kv_heads,
+                                                   cfg.hd)
+                     for w in ("wk", "wv"))
+
+    def _cross_layer(self, pc: Params, x: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor) -> torch.Tensor:
+        """Decoder cross-attention over the encoder's K/V (``model.py:495``),
+        in prefill and for the one token of a decode step.  JAX's decode
+        step (``model.py:751``) normalises the probabilities before it
+        casts them to the model dtype, ``cross_attention`` after P·V:
+        equal to rounding, and the same in float32."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = norm_apply(cfg, x, pc["norm"])
+        q = (h @ pc["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+        o = attn.cross_attention(q, ck, cv)
+        return x + o.reshape(b, s, cfg.q_dim) @ pc["attn"]["wo"]
+
     # --- prefill -------------------------------------------------------------
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Forward over the prompt ``batch["tokens"]`` (B, S); returns
-        (last-position logits (B, 1, padded_vocab) float32, caches): one
-        dict per layer, {"k", "v"} (B, cache_len, KVH, hd) holding the
-        prompt's K/V (default cache_len: S) for ``"attn"``, the final
-        recurrent state for ``"m"`` and ``"s"`` (which ignore
-        ``cache_len``)."""
+        """Forward over the prompt ``batch["tokens"]`` (B, S) — with
+        ``batch["patch_embeds"]`` (B, P, d) over the first P positions for
+        the VLM, and the encoder over ``batch["frames"]`` (B, F, d) for the
+        encoder–decoder; returns (last-position logits (B, 1,
+        padded_vocab) float32, caches): one dict per layer, {"k", "v"}
+        (B, cache_len, KVH, hd) holding the prompt's K/V (default
+        cache_len: S) for ``"attn"`` (and the encoder's cross K/V for the
+        encoder–decoder), the rolling window for ``"local"``, the final
+        recurrent state for ``"rec"``, ``"m"`` and ``"s"``."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache_len = cache_len or s
         x = self._embed(params, tokens)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         d = x.shape[-1]
         positions = torch.arange(s, device=x.device)
         caches: Cache = []
-        for kind, p in zip(self.kinds, params["layers"]):
-            if kind == "attn":
+        enc = None
+        if cfg.is_encoder_decoder:
+            enc = self._run_encoder(params, batch["frames"].to(x.dtype))
+        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+            if kind in ("attn", "local"):
+                window = cfg.window if kind == "local" else 0
+                cross, cache = None, {}
+                if enc is not None:
+                    pc = params["cross_layers"][i]
+                    ck, cv = self._enc_kv(pc, enc)
+                    cache = {"cross_k": ck, "cross_v": cv}
+                    cross = (lambda x, pc=pc, ck=ck, cv=cv:
+                             self._cross_layer(pc, x, ck, cv))
                 x, k, v = self._attn_layer(
                     p, x, positions,
-                    lambda q, k, v: attn.flash_attention_local(q, k, v,
-                                                               causal=True))
-                caches.append({"k": _pad_cache(k, cache_len),
-                               "v": _pad_cache(v, cache_len)})
+                    lambda q, k, v: attn.flash_attention_local(
+                        q, k, v, causal=True, window=window), cross)
+                if kind == "local":
+                    cache.update(_window_cache(k, v, cfg.window, cache_len))
+                else:
+                    cache.update(k=_pad_cache(k, cache_len),
+                                 v=_pad_cache(v, cache_len))
+                caches.append(cache)
+            elif kind == "rec":
+                gate, xin = self._rec_inputs(p, x)
+                hr = rec.rglru_seq(xin, p["w_rg"], p["b_rg"], p["w_ig"],
+                                   p["b_ig"], p["conv_w"], p["conv_b"],
+                                   p["lam"])
+                x = self._rec_out(p, x, gate, hr)
+                caches.append({"h": hr[:, -1].float(),
+                               "tail": _conv_tail(xin)})
             elif kind == "m":
                 o, (c, n) = rec.mlstm_with_state(*self._mlstm_inputs(p, x))
                 x = x + o.reshape(b, s, d) @ p["wo"]
@@ -308,24 +501,43 @@ class Model:
                                              p["r_mat"])
                 x = x + o.reshape(b, s, d) @ p["wo"]
                 caches.append(dict(zip(("c", "n", "h", "m"), st)))
-        x = norm_apply(self.cfg, x, params["final_norm"])
+        x = norm_apply(cfg, x, params["final_norm"])
         return self._logits(params, x[:, -1:]).float(), caches
 
     # --- decode --------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int,
                    device: Union[str, torch.device]) -> Cache:
         """Empty caches, one dict per layer, as JAX's ``_layer_cache``
-        (``model.py:263``): zero K/V, zero (c, n) and, for ``"s"``, zero
-        h and m = -1e30."""
+        (``model.py:263``) and ``init_cache`` (``model.py:712``): zero K/V
+        (``"local"``: a ring of min(window, cache_len) slots, all empty),
+        zero (c, n) and, for ``"s"``, zero h and m = -1e30; zero h and
+        tail for ``"rec"``; zero cross K/V of ``encoder_frames`` frames
+        for the encoder–decoder."""
         cfg = self.cfg
-        hn, hdm = cfg.n_heads, cfg.d_model // cfg.n_heads
+        hn, hdm, d = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_model
         caches: Cache = []
         for kind in self.kinds:
-            if kind == "attn":
-                shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
-                caches.append({
-                    "k": torch.zeros(shape, dtype=self.dtype, device=device),
-                    "v": torch.zeros(shape, dtype=self.dtype, device=device)})
+            if kind in ("attn", "local"):
+                n = min(cfg.window, cache_len) if kind == "local" \
+                    else cache_len
+                shape = (batch, n, cfg.n_kv_heads, cfg.hd)
+                c = {"k": torch.zeros(shape, dtype=self.dtype, device=device),
+                     "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+                if kind == "local":
+                    c["kpos"] = torch.full((n,), -1, dtype=torch.int32,
+                                           device=device)
+                if cfg.is_encoder_decoder:
+                    shape = (batch, encoder_frames(cfg), cfg.n_kv_heads,
+                             cfg.hd)
+                    c["cross_k"] = torch.zeros(shape, dtype=self.dtype,
+                                               device=device)
+                    c["cross_v"] = torch.zeros_like(c["cross_k"])
+                caches.append(c)
+                continue
+            if kind == "rec":
+                caches.append({"h": torch.zeros((batch, d), device=device),
+                               "tail": torch.zeros((batch, 3, d),
+                                                   device=device)})
                 continue
             z = torch.zeros((batch, hn, hdm), device=device)
             if kind == "m":
@@ -345,16 +557,36 @@ class Model:
         attention caches in place and the new recurrent states into their
         caches' dicts; returns (logits (B, 1, padded_vocab) float32,
         caches)."""
+        cfg = self.cfg
         x = self._embed(params, token)
         b, _, d = x.shape
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         positions = pos.reshape(1)
-        for kind, p, c in zip(self.kinds, params["layers"], caches):
+        for i, (kind, p, c) in enumerate(zip(self.kinds, params["layers"],
+                                             caches)):
             if kind == "attn":
+                cross = None
+                if cfg.is_encoder_decoder:
+                    pc = params["cross_layers"][i]
+                    cross = (lambda x, pc=pc, c=c: self._cross_layer(
+                        pc, x, c["cross_k"], c["cross_v"]))
                 x, _, _ = self._attn_layer(
                     p, x, positions,
-                    lambda q, k, v: attn.decode_attention(
-                        q, c["k"], c["v"], k, v, pos)[0])
+                    lambda q, k, v, c=c: attn.decode_attention(
+                        q, c["k"], c["v"], k, v, pos)[0], cross)
+            elif kind == "local":
+                x, _, _ = self._attn_layer(
+                    p, x, positions,
+                    lambda q, k, v, c=c: attn.window_decode_attention(
+                        q, c["k"], c["v"], c["kpos"], k, v, pos,
+                        window=cfg.window)[0])
+            elif kind == "rec":
+                gate, xin = self._rec_inputs(p, x[:, 0])
+                (c["h"], c["tail"]), hr = rec.rglru_decode_step(
+                    (c["h"], c["tail"]), xin, p["w_rg"], p["b_rg"],
+                    p["w_ig"], p["b_ig"], p["conv_w"], p["conv_b"],
+                    p["lam"])
+                x = self._rec_out(p, x, gate[:, None], hr[:, None])
             elif kind == "m":
                 q, k, v, i_raw, f_raw = (
                     t[:, 0] for t in self._mlstm_inputs(p, x))
@@ -366,29 +598,23 @@ class Model:
                 (c["c"], c["n"], c["h"], c["m"]), o = rec.slstm_decode_step(
                     st, self._slstm_inputs(p, x)[:, 0], p["r_mat"])
                 x = x + (o.reshape(b, d) @ p["wo"])[:, None]
-        x = norm_apply(self.cfg, x, params["final_norm"])
+        x = norm_apply(cfg, x, params["final_norm"])
         return self._logits(params, x).float(), caches
 
 
-PORTED_KINDS = ("attn", "m", "s")
+PORTED_KINDS = ("attn", "local", "rec", "m", "s")
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """A :class:`Model` for a stack of ``"attn"``, ``"m"`` and ``"s"``
-    layers; the other kinds and families raise ``NotImplementedError``
-    naming the ROADMAP item that ports them."""
+    """A :class:`Model` for any family but MoE, which raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     kinds = set(cfg.layer_kinds())
     if kinds - set(PORTED_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds - set(PORTED_KINDS))} "
-            f"are not ported yet (ported: {list(PORTED_KINDS)}; ROADMAP.md "
-            "Queue 1 item 2b, the remaining model families: the "
-            "\"local\"/\"rec\" hybrid)")
-    for flag, what in ((cfg.is_moe, "MoE"),
-                       (cfg.is_encoder_decoder, "encoder–decoder"),
-                       (cfg.n_patches > 0, "VLM patch embeddings")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP.md Queue 1 "
-                "item 2b, the remaining model families)")
+            f"are not ported (ported: {list(PORTED_KINDS)})")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE is not ported yet (ROADMAP.md Queue 1, MoE "
+            "(models/moe.py))")
     return Model(cfg)

@@ -1,19 +1,19 @@
-"""Recurrent sequence mixers of the xLSTM blocks: mLSTM and sLSTM.
+"""Recurrent sequence mixers: mLSTM and sLSTM (xLSTM), RG-LRU (Griffin).
 
 The port of ``src/repro/models/recurrent.py``'s single-device paths, and
 of the two final-state helpers of ``src/repro/models/model.py:832,848``.
-The mLSTM is plain torch, as it is plain jnp in JAX.  The sLSTM
-recurrence runs the scan kernel (``kernels/slstm_scan``) in prefill and
-decode alike; on a CPU tensor the kernel's wrapper takes its plain
-version.
+The mLSTM and the RG-LRU are plain torch, as they are plain jnp in JAX.
+The sLSTM recurrence runs the scan kernel (``kernels/slstm_scan``) in
+prefill and decode alike; on a CPU tensor the kernel's wrapper takes its
+plain version.
 
 Same numerical conventions as the JAX module (documented simplifications
 of arXiv:2405.04517): the mLSTM input gate is log-sigmoid (bounded), the
 sLSTM keeps exponential gating with the (c, n, m) stabiliser state.
 
-Waiting for later items: the exclusive ring prefix and the ``shard_map``
-branches (the sharded item of ROADMAP.md; on one device they are the
-identity), and the RG-LRU of the Griffin blocks (the remaining families).
+Waiting for ROADMAP.md Queue 1 item 6 (the ring over ranks): the
+exclusive ring prefix and the ``shard_map`` branches; on one device they
+are the identity.
 
 Where JAX contracts three operands in one ``einsum``
 (``"blhd,blhv,blh->bhdv"``), the port first folds the weights into k and
@@ -177,3 +177,90 @@ def slstm_decode_step(state: State, xpre_t: torch.Tensor,
     in xpre_t's dtype."""
     hs, carry = slstm_ops.slstm_scan(xpre_t[:, None], r_mat, *state)
     return carry, hs[:, 0]
+
+
+# ===========================================================================
+# RG-LRU (Griffin recurrent block core)
+# ===========================================================================
+
+RGLRU_C = 8.0
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``softplus`` form, ``logaddexp(x, 0)``."""
+    return -logsig(-x)
+
+
+def causal_conv4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution of width 4.  x: (B, S, dr); w: (4, dr);
+    b: (dr,); tail: (B, 3, dr), the three inputs before x[:, 0]."""
+    xp = torch.cat([tail, x], dim=1)
+    out = b
+    for j in range(4):
+        out = out + xp[:, 3 - j:xp.shape[1] - j] * w[j]
+    return out
+
+
+def _rglru_gates(y: torch.Tensor, w_rg: torch.Tensor, b_rg: torch.Tensor,
+                 w_ig: torch.Tensor, b_ig: torch.Tensor, lam: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, sqrt(1 - a²)·i·y) of the recurrence h = a·h + that, from the
+    convolved input y (float32); the weights are used in float32, as JAX
+    does with ``w.astype(f32)``."""
+    r_g = torch.sigmoid(y @ w_rg.float() + b_rg.float())
+    i_g = torch.sigmoid(y @ w_ig.float() + b_ig.float())
+    a = torch.exp(-RGLRU_C * _softplus(lam.float()) * r_g)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_g * y)
+    return a, gated
+
+
+def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t · h_{t-1} + x_t along dim 1 from h_{-1} = 0, in log2(S)
+    doubling steps (Hillis–Steele): step d composes each position with
+    the one d before it, ``(a, h) <- (a · a[-d], a · h[-d] + h)``.  Every
+    product of a's stays in [0, 1], so nothing overflows (a running
+    ``exp(cumsum(log a))`` would, within a few dozen positions)."""
+    h = x
+    d = 1
+    while d < x.shape[1]:
+        h = torch.cat([h[:, :d], a[:, d:] * h[:, :-d] + h[:, d:]], dim=1)
+        if 2 * d < x.shape[1]:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return h
+
+
+def rglru_seq(x_br: torch.Tensor, w_rg: torch.Tensor, b_rg: torch.Tensor,
+              w_ig: torch.Tensor, b_ig: torch.Tensor, conv_w: torch.Tensor,
+              conv_b: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Conv4 + RG-LRU over a sequence from the zero state (JAX's one-device
+    ``local`` branch).  x_br: (B, S, dr), the recurrent branch's input.
+    Returns h (B, S, dr) in x_br's dtype, computed in float32.  The scan
+    associates in another order than ``lax.associative_scan``: the two
+    agree to rounding."""
+    b, _, dr = x_br.shape
+    xf = x_br.float()
+    tail = xf.new_zeros((b, 3, dr))
+    y = causal_conv4(xf, conv_w.float(), conv_b.float(), tail)
+    a, gated = _rglru_gates(y, w_rg, b_rg, w_ig, b_ig, lam)
+    return linear_scan(a, gated).to(x_br.dtype)
+
+
+def rglru_decode_step(state: Tuple[torch.Tensor, torch.Tensor],
+                      x_t: torch.Tensor, w_rg: torch.Tensor,
+                      b_rg: torch.Tensor, w_ig: torch.Tensor,
+                      b_ig: torch.Tensor, conv_w: torch.Tensor,
+                      conv_b: torch.Tensor, lam: torch.Tensor
+                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                 torch.Tensor]:
+    """One decode step.  state = (h (B, dr) float32, conv tail (B, 3, dr)
+    float32); x_t: (B, dr).  Returns the new state and h (B, dr) in x_t's
+    dtype."""
+    h_prev, tail = state
+    xf = x_t.float()
+    y = causal_conv4(xf[:, None], conv_w.float(), conv_b.float(), tail)[:, 0]
+    a, gated = _rglru_gates(y, w_rg, b_rg, w_ig, b_ig, lam)
+    h = a * h_prev + gated
+    new_tail = torch.cat([tail[:, 1:], xf[:, None]], dim=1)
+    return (h, new_tail), h.to(x_t.dtype)

@@ -529,6 +529,8 @@ def _n(shape, dev, dtype):
     (2, 17, 4, 2, 64, True, 0),       # across one 16-row mma tile
     (1, 256, 4, 2, 128, True, 37),    # a window that starts mid-tile
     (1, 130, 40, 8, 128, True, 0),    # qwen2.5-14b's heads: G = 5
+    (2, 4096, 16, 1, 256, True, 2048),  # recurrentgemma-9b's "local"
+    (4, 1536, 6, 6, 64, False, 0),    # whisper-tiny's encoder
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
                                               causal, window):
@@ -610,6 +612,7 @@ def test_bf16_attention_wrappers_refuse_misaligned_views(cuda):
     (1, 512, 4, 2, 128, 100, 64),     # a window across splits 0 and 1
     (1, 2112, 16, 8, 128, 2100, 0),   # one sequence: 33 chunks of 1 tile
     (1, 2112, 8, 1, 256, 2100, 0),    # gemma-2b's MQA, one sequence
+    (4, 448, 6, 6, 64, 447, 0),       # whisper-tiny's decoder: G = 1
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh,
                                                hd, pos, window):
@@ -689,6 +692,52 @@ def test_serve_path_launches_the_kernels_and_matches_the_cpu(cuda):
                    cache_len=24)
     out_c = generate(model, to_cpu, {"tokens": toks[:, :20]}, steps=4,
                      cache_len=24)
+    assert torch.equal(out.cpu(), out_c)
+
+
+@pytest.mark.parametrize("arch,flash,decode", [
+    ("recurrentgemma-9b", 1, 0),     # (rec, rec, local, rec): plain decode
+    ("llava-next-34b", 2, 2),
+    ("whisper-tiny", 4, 2),          # 2 encoder + 2 decoder layers
+])
+def test_family_serve_path_launches_the_kernels_and_matches_the_cpu(
+        cuda, arch, flash, decode):
+    """A reduced float32 hybrid, VLM and encoder–decoder on the card: the
+    flash launches of a prefill and the decode launches of a step, and
+    the logits and every cache of the CPU path (plain attention, the
+    plain RG-LRU on CPU tensors) at 1e-4; ``generate`` gives the CPU's
+    tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    to_cpu = _tree_to(params, "cpu")
+    batch = make_batch(cfg, 2, 21, seed=0, cursor=0)   # past the window
+    batch.pop("labels")
+    prompt = {k: (v[:, :20] if k == "tokens" else v)
+              for k, v in batch.items()}
+    tok = batch["tokens"][:, 20:]
+    f0 = flash_ops.flash_attention_launches
+    lg, caches = model.prefill(params, _tree_to(prompt, cuda), cache_len=24)
+    assert flash_ops.flash_attention_launches == f0 + flash
+    lg_c, caches_c = model.prefill(to_cpu, prompt, cache_len=24)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    for c, c_c in zip(caches, caches_c):
+        for name in c:
+            torch.testing.assert_close(c[name].cpu(), c_c[name], rtol=1e-4,
+                                       atol=1e-4)
+    d0 = decode_ops.decode_attention_launches
+    lg, caches = model.decode_step(params, caches, tok.to(cuda),
+                                   torch.tensor(20, dtype=torch.int32,
+                                                device=cuda))
+    assert decode_ops.decode_attention_launches == d0 + decode
+    lg_c, _ = model.decode_step(to_cpu, caches_c, tok, 20)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    out = generate(model, params, prompt, steps=4, cache_len=24)
+    out_c = generate(model, to_cpu, prompt, steps=4, cache_len=24)
     assert torch.equal(out.cpu(), out_c)
 
 

@@ -7,7 +7,10 @@ its sums split across cells, so it is held to the port's plain
 ``lam0`` it draws λ0 as ``vb_fit`` does from the same generator state.
 The data-axis merge is the JAX test's identity
 (``tests/test_multidevice.py``): the sstats of two document halves add
-up to the whole's, here in both packages.
+up to the whole's, here in both packages.  After 10 iterations the
+float32 fits part by rounding only, which the iteration amplifies: they
+lie as far from a float64 fit as from each other, as far as a one-ulp
+change of λ0 moves them, and within ``DRIFT_BOUND`` of the float64 fit.
 """
 import dataclasses
 
@@ -30,6 +33,10 @@ from repro_torch.distributed.sharding import MeshEnv  # noqa: E402
 
 CFG = LDAConfig(n_topics=4, vocab_size=64, max_iters=5, e_step_iters=4)
 TOL = dict(rtol=1e-4, atol=1e-4)
+# every float32 fit after 10 iterations lies within this of the float64
+# fit: twice the largest distance measured (7.90e-5, the (2, 2) grid's;
+# λ up to 10.9) at these widths
+DRIFT_BOUND = 1.6e-4
 
 
 def _x(seed=2, d=16, v=64):
@@ -94,3 +101,53 @@ def test_data_axis_merge_is_the_sum_of_partition_sstats():
     _, j_all = jax_vb_estep(jnp.asarray(x), jnp.asarray(eeb.numpy()),
                             jnp.ones((16, 4), jnp.float32), CFG.alpha, 4)
     np.testing.assert_allclose(s_all.numpy(), np.asarray(j_all), **TOL)
+
+
+def _vb_fit64(x, cfg, lam0):
+    """``vb_fit``'s loop in float64 (the plain E-step takes any dtype)."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    lam = torch.as_tensor(lam0, dtype=torch.float64)
+    gamma0 = torch.ones((x.shape[0], cfg.n_topics), dtype=torch.float64)
+    for _ in range(cfg.max_iters):
+        _, sstats = vb_estep(x, _exp_dirichlet_expectation(lam), gamma0,
+                             cfg.alpha, cfg.e_step_iters)
+        lam = cfg.eta + sstats
+    return lam.numpy()
+
+
+def test_ten_iterations_part_the_fits_by_rounding_only():
+    """The (2, 2) grid's drift after 10 iterations is rounding, not a
+    fault: from one λ0, ``vb_fit`` in float64, and ``vb_fit`` and
+    ``vb_fit_sharded`` on (1, 1) and (2, 2) grids in float32.  Each
+    float32 fit lies within 3x as far from the float64 fit as the float32
+    fits lie from each other (a fault in the sharded fit would put it
+    alone far off); moving each entry of λ0 to a neighbouring float32
+    (one ulp) moves the unsharded fit as far as the grid does (within 3x:
+    the iteration amplifies rounding that much); every fit stays within
+    ``DRIFT_BOUND`` of the float64 fit."""
+    x = _x()
+    lam0 = np.random.default_rng(5).gamma(100.0, 0.01, (4, 64)).astype(
+        np.float32)
+    cfg = dataclasses.replace(CFG, max_iters=10)
+    gen = torch.Generator()
+    want = _vb_fit64(x, cfg, lam0)
+    fits = {"vb_fit": vb_fit(x, gen, cfg, lam0=lam0).numpy()}
+    for grid in ((1, 1), (2, 2)):
+        fits[grid] = vb_fit_sharded(x, gen, cfg, _grid(*grid),
+                                    lam0=lam0).numpy()
+    to64 = {name: float(np.abs(f - want).max()) for name, f in fits.items()}
+    spread = max(float(np.abs(a - b).max()) for a in fits.values()
+                 for b in fits.values())
+    for name, dist in to64.items():
+        assert spread / 3 <= dist <= 3 * spread, (name, dist, spread)
+    moved = []
+    for seed in range(3):
+        sign = np.random.default_rng(seed).choice([-1.0, 1.0], lam0.shape)
+        nudged = (lam0 * (1 + sign * 2.0 ** -24)).astype(np.float32)
+        assert (nudged != lam0).all()
+        moved.append(float(np.abs(vb_fit(x, gen, cfg, lam0=nudged).numpy()
+                                  - fits["vb_fit"]).max()))
+    grid_drift = float(np.abs(fits[(2, 2)] - fits["vb_fit"]).max())
+    assert max(moved) / 3 <= grid_drift <= 3 * max(moved), (grid_drift,
+                                                            moved)
+    assert max(to64.values()) <= DRIFT_BOUND, to64
