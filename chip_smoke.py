@@ -149,13 +149,34 @@ Phases, each of which fails the run if anything in it fails:
    kernel at llava's and whisper's decode shapes; each held in bf16
    against its plain version, five repeat calls giving the same bits,
    and timed beside its bound and SDPA (with the boolean causal or band
-   mask).
+   mask);
+11. moe — ``moe_phase``: the MoE serving path through ``generate``, one
+   model at a time, each cut only in depth to 8 layers (neither fits one
+   card whole), random weights from ``torch.Generator`` seed 0 cast as
+   they are drawn: qwen3-moe-235b-a22b (d_model 4,096, 64/4 heads of
+   128, qk-norm, 128 experts top-8 of d_ff 1,536, vocab 152,064 padded)
+   and llama4-scout-17b-a16e (d_model 5,120, 40/8 heads of 128, 16
+   experts top-1 of d_ff 8,192 plus a shared expert, vocab 202,240
+   padded), bf16, capacity factor 1.25; 2 prompts of 4,096 tokens, a
+   4,160-position cache, 64 greedy steps: 8 flash launches a prefill and
+   8 decode launches a step, finite logits, tokens in the padded
+   vocabulary, peak memory allocated at most 56 GB over the draw and
+   cast and over the whole path (each checked), and, in float32 over 2
+   layers at capacity factor n_experts / top-k (nothing drops), decode_step
+   after a 256-token prefill equal to a 257-token prefill at 2e-3.
+   Printed: the decode step's byte bound by the experts its routes
+   touched, one layer's prefill split into attention and the MoE FFN
+   (CUDA events), and the share of the first layer's (token, choice)
+   pairs past capacity.  The kernel checks after phase 10 also hold and
+   time the flash kernel at both models' prefill shapes and the decode
+   kernel at both decode shapes.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
 phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
 for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
-10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths),
+10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths, phase 11 for
+the ``"moe"`` path, both models' counts summed),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -211,6 +232,12 @@ FAMILIES = {
                   steps=64, cache=448, check=(384, None)),
 }
 HYBRID_PEAK_GB = 24.0      # peak memory the hybrid path may allocate
+# phase 11: the MoE serving path, each model at its published widths cut
+# to MOE_LAYERS layers (neither fits one card whole), one at a time
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_STEPS, MOE_CACHE = 8, 2, 4096, 64, 4160
+MOE_CHECK_PROMPT, MOE_CHECK_LAYERS = 256, 2   # the float32 handoff check
+MOE_PEAK_GB = 56.0         # peak memory the MoE path may allocate
 T_START = time.perf_counter()
 
 
@@ -1173,6 +1200,35 @@ def rec_split(model, params, tokens, device) -> dict:
         scan_ms=ms(lambda: rec.linear_scan(a, gated)))
 
 
+def handoff_diff(cfg32, prompt: int, cache_len: int, device):
+    """The JAX package's consistency check (``tests/test_arch_smoke.py``)
+    on the card: ``cfg32``'s model (float32) drawn from ``torch.Generator``
+    seed 0, ``decode_step`` after a ``prompt``-token prefill against a
+    one-longer prefill, 2 sequences of ``make_batch``.  Returns (max abs
+    difference, max abs logit, whether they agree at
+    ``CONSISTENCY_TOL`` with finite logits)."""
+    import torch
+
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import build_model
+
+    m32 = build_model(cfg32)
+    p32 = m32.init(torch.Generator(device=device).manual_seed(0))
+    full = make_batch(cfg32, 2, prompt + 1, 0, 1, device=device)
+    full.pop("labels")
+    head = {k: (v[:, :prompt] if k == "tokens" else v)
+            for k, v in full.items()}
+    with torch.inference_mode():
+        _, caches = m32.prefill(p32, head, cache_len=cache_len)
+        lg_dec, _ = m32.decode_step(p32, caches, full["tokens"][:, prompt:],
+                                    prompt)
+        lg_full, _ = m32.prefill(p32, full, cache_len=cache_len)
+    ok = bool(torch.isfinite(lg_full).all()) and torch.allclose(
+        lg_dec, lg_full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL)
+    return (float((lg_dec - lg_full).abs().max()),
+            float(lg_full.abs().max()), ok)
+
+
 def families_phase(device, card: str) -> dict:
     """Phase 10: the serving paths of the hybrid (recurrentgemma-9b), the
     VLM (llava-next-34b at 8 of its 60 layers) and the encoder–decoder
@@ -1320,29 +1376,301 @@ def families_phase(device, card: str) -> dict:
             cs, depth = sz["check"]
             c32 = dataclasses.replace(cfg, dtype="float32",
                                       n_layers=depth or cfg.n_layers)
-            m32 = build_model(c32)
-            p32 = m32.init(torch.Generator(device=device).manual_seed(0))
-            full = make_batch(c32, 2, cs + 1, 0, 1, device=device)
-            full.pop("labels")
-            head = {k: (v[:, :cs] if k == "tokens" else v)
-                    for k, v in full.items()}
-            with torch.inference_mode():
-                _, caches = m32.prefill(p32, head, cache_len=cache)
-                lg_dec, _ = m32.decode_step(p32, caches,
-                                            full["tokens"][:, cs:], cs)
-                lg_full, _ = m32.prefill(p32, full, cache_len=cache)
-            diff = float((lg_dec - lg_full).abs().max())
-            check(bool(torch.isfinite(lg_full).all()) and torch.allclose(
-                lg_dec, lg_full, rtol=CONSISTENCY_TOL, atol=CONSISTENCY_TOL),
-                path, f"float32 decode_step differs from prefill by {diff} "
-                f"(tol {CONSISTENCY_TOL})")
-            log(f"[{path}] float32, {c32.n_layers} layers {m32.kinds} at "
-                f"full width: decode_step(prefill({cs})) vs prefill({cs + 1})"
-                f" max abs diff {diff:.3g} over logits up to "
-                f"{float(lg_full.abs().max()):.3g} (tol {CONSISTENCY_TOL})")
-            del p32, caches, full, head
+            diff, scale, ok = handoff_diff(c32, cs, cache, device)
             torch.cuda.empty_cache()
+            check(ok, path, f"float32 decode_step differs from prefill by "
+                  f"{diff} (tol {CONSISTENCY_TOL})")
+            log(f"[{path}] float32, {c32.n_layers} layers "
+                f"{c32.layer_kinds()} at full width: decode_step(prefill("
+                f"{cs})) vs prefill({cs + 1}) max abs diff {diff:.3g} over "
+                f"logits up to {scale:.3g} (tol {CONSISTENCY_TOL})")
         log(f"[{path}] ran {time.perf_counter() - t_model:.1f} s")
+    return out
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` calls after one
+    warm-up, between two CUDA events."""
+    import torch
+
+    with torch.inference_mode():
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def moe_split(model, params, tokens, device) -> dict:
+    """Where an MoE layer's prefill time goes (CUDA events, mean of 3
+    calls after a warm-up) at the prompt's shape: the whole first layer
+    (a one-layer model's ``prefill``, with the embedding and the last
+    position's logits), its attention half (norm, q/k/v with qk-norm and
+    RoPE, the flash kernel, the output projection) and its FFN
+    (``Model._ffn``: route, dispatch, expert products, combine, and the
+    shared expert), of which the router alone and the three expert
+    products alone (on a capacity buffer of the layer's shape).  Also the
+    share of (token, choice) pairs past capacity in that layer, from the
+    port's ``_route`` and ``capacity_positions`` on the layer's own
+    input."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.model import _attn_qkv, build_model
+
+    cfg = model.cfg
+    one = build_model(dataclasses.replace(cfg, n_layers=1))
+    p = params["layers"][0]
+    p1 = {k: v for k, v in params.items() if k != "layers"}
+    p1["layers"] = [p]
+    tokens = tokens.to(device)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=device)
+
+    def attention(x):
+        q, k, v = _attn_qkv(cfg, p["attn"], norm_apply(cfg, x, p["norm1"]),
+                            positions)
+        o = attn.flash_attention_local(q, k, v, causal=True)
+        return x + o.reshape(b, s, cfg.q_dim) @ p["attn"]["wo"]
+
+    with torch.inference_mode():
+        x = model._embed(params, tokens)
+        h2 = norm_apply(cfg, attention(x), p["norm2"])
+        t, d = b * s, cfg.d_model
+        _, ids, _ = moe._route(h2.reshape(t, d).float(), p["moe"]["router"],
+                               cfg.moe_top_k)
+        cap = moe.capacity(cfg, t)
+        pos = moe.capacity_positions(ids.reshape(-1), cfg.n_experts)
+        dropped = float((pos >= cap).float().mean())
+        buf = torch.randn((cfg.n_experts, cap, d), device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(3)).to(model.dtype)
+    w = p["moe"]
+    out = dict(
+        moe_layer_ms=event_ms(lambda: one.prefill(p1, {"tokens": tokens})),
+        moe_attn_ms=event_ms(lambda: attention(x)),
+        moe_ffn_ms=event_ms(lambda: model._ffn(p, h2, False)),
+        moe_route_ms=event_ms(lambda: moe._route(
+            h2.reshape(t, d).float(), w["router"], cfg.moe_top_k)),
+        moe_experts_ms=event_ms(lambda: moe._expert_ffn(
+            cfg, buf, w["expert_w_gate"], w["expert_w_up"],
+            w["expert_w_down"])),
+        drop_share=dropped, capacity=cap, pairs=t * cfg.moe_top_k)
+    del x, h2, buf
+    return out
+
+
+def moe_phase(device, card: str) -> dict:
+    """Phase 11: the MoE serving path on the card ``device``: each of
+    ``MOE_ARCHS`` at its published widths, cut to ``MOE_LAYERS`` layers,
+    one model at a time (each freed before the next).
+
+    Each model's weights are drawn from ``torch.Generator`` seed 0 and
+    cast as drawn (``Model.init(cast=True)``: one expert tensor's float32
+    master at a time); one short ``generate`` warms up, then the flash and
+    decode counters are zeroed, ``MOE_B`` prompts of ``MOE_PROMPT`` tokens
+    from ``make_batch`` go through ``generate`` (``MOE_STEPS`` greedy
+    steps, a ``MOE_CACHE``-position cache) and the counters are read
+    (summed over both models under ``launches``).  While it runs, the
+    expert ids of every decode step's ``_route`` are recorded (a wrapper
+    that keeps a reference to them, nothing more) for the step's byte
+    bound by the routes taken.  Checks: a flash launch per layer per
+    prefill and a decode launch per layer per step, finite logits, tokens
+    in the padded vocabulary, peak memory allocated at most
+    ``MOE_PEAK_GB`` over the draw and cast and over the path (each
+    checked), and, in float32 at ``MOE_CHECK_LAYERS`` layers with
+    capacity_factor = n_experts / moe_top_k, ``decode_step`` after a
+    ``MOE_CHECK_PROMPT``-token prompt equal to a one-longer prefill at
+    ``CONSISTENCY_TOL``.  Printed: prefill seconds, decode ms per step,
+    tokens/s, the byte bound, ``moe_split`` and the drop share.
+    """
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    out = {"launches": {"flash_attention": 0, "decode_attention": 0},
+           "runs": {}}
+    t_phase = time.perf_counter()
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[moe] {msg}")
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    def n_bytes(tree):
+        if isinstance(tree, dict):
+            return sum(n_bytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(n_bytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    for arch in MOE_ARCHS:
+        t_model = time.perf_counter()
+        cfg = get_arch(arch)
+        log(f"[moe] {arch} reduced: n_layers {cfg.n_layers} → {MOE_LAYERS} "
+            f"(one card's memory: the whole model does not fit)")
+        cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+        model = build_model(cfg)
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            cast=True)
+        torch.cuda.synchronize()
+        init_peak = peak_gb()
+        log(f"[moe] {cfg.name}: {model.param_count(params) / 1e9:.3f} B "
+            f"parameters ({cfg.n_layers} layers; d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+            f"{', qk-norm' if cfg.qk_norm else ''}, {cfg.n_experts} experts "
+            f"top-{cfg.moe_top_k} of d_ff {cfg.d_ff_expert}"
+            + (f" + {cfg.n_shared_experts} shared" if cfg.n_shared_experts
+               else "")
+            + f", capacity factor {cfg.capacity_factor}, vocab "
+            f"{cfg.padded_vocab}), {cfg.dtype}; init + cast "
+            f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+            f"{init_peak:.2f} GB; {held:.2f} GB held by the earlier phases")
+        b, s, steps = MOE_B, MOE_PROMPT, MOE_STEPS
+        batch = make_batch(cfg, b, s, 0, 0)
+        batch.pop("labels")
+        # a short warm-up through the same entry point, not counted
+        generate(model, params, batch, steps=2, cache_len=MOE_CACHE)
+        torch.cuda.synchronize()
+        routes = []
+        real_route = moe._route
+
+        def recording_route(x, router_w, top_k):
+            got = real_route(x, router_w, top_k)
+            if x.shape[0] == b:                    # a decode step's
+                routes.append(got[1])
+            return got
+
+        flash_ops.flash_attention_launches = 0
+        decode_ops.decode_attention_launches = 0
+        stats = {}
+        moe._route = recording_route
+        try:
+            toks = generate(model, params, batch, steps=steps,
+                            cache_len=MOE_CACHE, stats=stats)
+        finally:
+            moe._route = real_route
+        got = {"flash_attention": flash_ops.flash_attention_launches,
+               "decode_attention": decode_ops.decode_attention_launches}
+        peak = peak_gb()
+        n_gen = b * steps
+        run = dict(prefill_s=stats["prefill_s"],
+                   decode_ms=stats["decode_s"] / steps * 1e3,
+                   decode_tok_s=n_gen / stats["decode_s"],
+                   e2e_tok_s=n_gen / (stats["prefill_s"] + stats["decode_s"]),
+                   init_peak_gb=init_peak, peak_gb=peak, held_gb=held)
+        # the decode step's byte bound by the routes taken: each layer's
+        # distinct experts (3·d·f weights each), every other weight of the
+        # layers and the unembedding once, B embedding rows, the live
+        # K/V cache (the mean position) and the new K/V
+        check(len(routes) == MOE_LAYERS * steps,
+              f"recorded {len(routes)} decode routes, expected "
+              f"{MOE_LAYERS * steps}")
+        ids = torch.stack(routes).reshape(len(routes), -1)
+        distinct = torch.zeros((len(routes), cfg.n_experts),
+                               device=ids.device).scatter_(1, ids, 1.0).sum(1)
+        elt = params["embed"].element_size()
+        expert_b = 3 * cfg.d_model * cfg.d_ff_expert * elt
+        other_b = n_bytes(params["layers"]) - \
+            cfg.n_experts * expert_b * MOE_LAYERS
+        mean_pos = s + (steps - 1) / 2
+        kv_b = MOE_LAYERS * 2 * b * (mean_pos + 1) * cfg.n_kv_heads * \
+            cfg.hd * elt
+        step_b = (float(distinct.sum()) / steps * expert_b + other_b
+                  + n_bytes(params.get("unembed", params["embed"])) + kv_b
+                  + b * cfg.d_model * elt)
+        run.update(distinct_experts=float(distinct.mean()),
+                   decode_bound_gb=step_b / 1e9,
+                   decode_bound_ms=step_b / PEAK_BYTES_S * 1e3,
+                   decode_gather_gb=b * cfg.moe_top_k * expert_b
+                   * MOE_LAYERS / 1e9)
+        del routes, ids, distinct
+        log(f"[moe] {arch} generate B={b} prompt={s} cache_len={MOE_CACHE} "
+            f"steps={steps}: prefill {run['prefill_s']:.4f} s, decode "
+            f"{stats['decode_s']:.4f} s = {run['decode_ms']:.3f} ms per "
+            f"step, {run['decode_tok_s']:.1f} generated tokens/s in decode, "
+            f"{run['e2e_tok_s']:.1f} end to end; peak memory allocated "
+            f"{peak:.2f} GB from the draw on ({held:.2f} GB of it held by "
+            f"the earlier phases); on {card}")
+        log(f"[moe] {arch} decode step: {run['distinct_experts']:.2f} "
+            f"distinct experts a layer (of {cfg.n_experts}; B·k = "
+            f"{b * cfg.moe_top_k} pairs), byte bound by the routes taken "
+            f"{run['decode_bound_gb']:.3f} GB = {run['decode_bound_ms']:.3f}"
+            f" ms at {PEAK_BYTES_S / 1e12} TB/s; the per-pair weight gather "
+            f"copies {run['decode_gather_gb']:.3f} GB a step on top")
+        log(f"[moe] kernel launches on the moe path ({arch}): {got}")
+        want = {"flash_attention": MOE_LAYERS,
+                "decode_attention": MOE_LAYERS * steps}
+        check(got == want, f"{arch}: launches {got}, expected {want}")
+        check(stats["logits_finite"], f"{arch}: logits are not finite")
+        check(toks.shape == (b, steps) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.padded_vocab,
+              f"{arch}: generated tokens {tuple(toks.shape)} outside "
+              f"[0, {cfg.padded_vocab})")
+        for what, gb in (("the draw and cast", init_peak),
+                         ("the whole path", peak)):
+            check(gb <= MOE_PEAK_GB, f"{arch}: {what} allocated {gb:.2f} GB "
+                  f"at its peak, more than {MOE_PEAK_GB} GB")
+        log(f"[moe] {arch} sample: {toks[0, :16].tolist()}")
+        for k, n in got.items():
+            out["launches"][k] += n
+        run.update(moe_split(model, params, batch["tokens"], device))
+        log(f"[moe] {arch} one layer's prefill (B={b}, S={s}): "
+            f"{run['moe_layer_ms']:.3f} ms; attention (norm, q/k/v, flash, "
+            f"out projection) {run['moe_attn_ms']:.3f} ms; MoE FFN (route, "
+            f"dispatch, expert products, combine"
+            f"{', shared expert' if cfg.n_shared_experts else ''}) "
+            f"{run['moe_ffn_ms']:.3f} ms, of it the router "
+            f"{run['moe_route_ms']:.3f} ms and the expert products "
+            f"{run['moe_experts_ms']:.3f} ms; {run['drop_share']:.2%} of "
+            f"the first layer's {run['pairs']} (token, choice) pairs past "
+            f"capacity {run['capacity']}; on {card}")
+        out["runs"][arch] = run
+        del params, batch, toks
+        torch.cuda.empty_cache()
+        # the same draw in float32 at a capacity where no pair can drop:
+        # decode_step after the prompt must give the logits of a one-longer
+        # prefill (the JAX package's check, tests/test_arch_smoke.py, at
+        # its 2e-3).  At the config's capacity factor the prefill drops
+        # pairs by how many tokens share its batch and decode drops none,
+        # so the two differ by design, in JAX as here
+        c32 = dataclasses.replace(
+            cfg, dtype="float32", n_layers=MOE_CHECK_LAYERS,
+            capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        cs = MOE_CHECK_PROMPT
+        diff, scale, ok = handoff_diff(c32, cs, MOE_CACHE, device)
+        torch.cuda.empty_cache()
+        check(ok, f"{arch}: float32 decode_step differs from prefill by "
+              f"{diff} (tol {CONSISTENCY_TOL})")
+        run["handoff_diff"] = diff
+        log(f"[moe] {arch} float32, {c32.n_layers} layers at full width, "
+            f"capacity factor {c32.capacity_factor} (no drops): "
+            f"decode_step(prefill({cs})) vs prefill({cs + 1}) max abs diff "
+            f"{diff:.3g} over logits up to {scale:.3g} (tol "
+            f"{CONSISTENCY_TOL})")
+        left = torch.cuda.memory_allocated() / 1e9
+        check(left <= held + 0.1, f"{arch}: {left:.2f} GB still allocated "
+              f"after the model was freed ({held:.2f} GB before it)")
+        log(f"[moe] {arch} ran {time.perf_counter() - t_model:.1f} s")
+    log(f"[moe] phase ran {time.perf_counter() - t_phase:.1f} s, the script "
+        f"{time.perf_counter() - T_START:.0f} s so far")
     return out
 
 
@@ -2688,18 +3016,32 @@ def main() -> int:
             by_path[path] = count
             report[kname]["launches"] = sum(by_path.values())
 
-    # the attention kernels at the shapes phase 10 gave them, held against
-    # their plain versions and timed (uncounted) in bf16, five repeat calls
-    # giving the same bits (the SASS check of phase 2 covers every bf16
-    # instance, hd 64 and 256 among them): the flash kernel at each of the
-    # four prefill shapes of phase 10 — recurrentgemma-9b's "local" layers
-    # (16 query heads on one KV head of 256, window 2,048: a CTA holds
-    # 64 / 16 = 4 query positions), llava-next-34b's layers (56 query
-    # heads on 8 KV heads of 128: G = 7 leaves 1 of a CTA's 64 rows idle),
-    # whisper-tiny's bidirectional encoder and its causal decoder; the
-    # decode kernel at
-    # llava-next-34b's and whisper-tiny's decoder steps.  The library
-    # figure is SDPA, with the boolean band mask for the window
+    # -- 11. the MoE serving path -------------------------------------------
+    # each model's counts are zeroed inside, just before its generate, and
+    # summed over the two models
+    moe_out = moe_phase(dev, card)
+    for kname, count in moe_out["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"moe path never launched {kname}")
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["moe"] = count
+        report[kname]["launches"] = sum(by_path.values())
+
+    # the attention kernels at the shapes phases 10 and 11 gave them, held
+    # against their plain versions and timed (uncounted) in bf16, five
+    # repeat calls giving the same bits (the SASS check of phase 2 covers
+    # every bf16 instance, hd 64 and 256 among them): the flash kernel at
+    # each of the four prefill shapes of phase 10 — recurrentgemma-9b's
+    # "local" layers (16 query heads on one KV head of 256, window 2,048:
+    # a CTA holds 64 / 16 = 4 query positions), llava-next-34b's layers
+    # (56 query heads on 8 KV heads of 128: G = 7 leaves 1 of a CTA's 64
+    # rows idle), whisper-tiny's bidirectional encoder and its causal
+    # decoder — and at phase 11's two (qwen3-moe-235b-a22b: 64 query heads
+    # on 4 KV heads of 128, G = 16, 4 query positions a CTA;
+    # llama4-scout-17b-a16e: 40 on 8, G = 5); the decode kernel at
+    # llava-next-34b's and whisper-tiny's decoder steps and at phase 11's
+    # (G·hd = 2,048, the most the decode kernel holds, and 640).  The
+    # library figure is SDPA, with the boolean band mask for the window
     # time_ms's L2 flush again (freed after phase 2)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     shapes = {"flash_attention": {}, "decode_attention": {}}
@@ -2707,7 +3049,9 @@ def main() -> int:
             ("hybrid local", 2, 4096, 16, 1, 256, True, 2048),
             ("vlm prefill", 2, 4096, 56, 8, 128, True, 0),
             ("audio encoder", 4, 1536, 6, 6, 64, False, 0),
-            ("audio decoder", 4, 384, 6, 6, 64, True, 0)]:
+            ("audio decoder", 4, 384, 6, 6, 64, True, 0),
+            ("moe qwen3-moe prefill", 2, 4096, 64, 4, 128, True, 0),
+            ("moe llama4-scout prefill", 2, 4096, 40, 8, 128, True, 0)]:
         q, k, v = (torch.tensor(rng.normal(size=(b, s, n, hd)),
                                 dtype=torch.float32, device=dev).to(
                                     torch.bfloat16)
@@ -2754,7 +3098,9 @@ def main() -> int:
         del q, k, v, qt, kt, vt, got, mask
     for label, b, s, h, kvh, hd, pos in [
             ("vlm decode", 2, 4160, 56, 8, 128, 4150),
-            ("audio decode", 4, 448, 6, 6, 64, 447)]:
+            ("audio decode", 4, 448, 6, 6, 64, 447),
+            ("moe qwen3-moe decode", 2, 4160, 64, 4, 128, 4150),
+            ("moe llama4-scout decode", 2, 4160, 40, 8, 128, 4150)]:
         q = torch.tensor(rng.normal(size=(b, 1, h, hd)), dtype=torch.float32,
                          device=dev).to(torch.bfloat16)
         kc, vc = (torch.tensor(rng.normal(size=(b, s, kvh, hd)),

@@ -4,11 +4,10 @@
         [--batch 4] [--prompt-len 32] [--gen-len 16] [--device cuda]
         [--seed 0]
 
-The port of ``src/repro/launch/serve.py``, for the architectures
-``build_model`` takes: every family but MoE (the recurrent caches ignore
-the cache length; the VLM's patch embeddings and the encoder–decoder's
-frames are the configs' stubs from ``make_batch``).  It runs on the CUDA card
-unless ``--device cpu`` is given, and raises ``DeviceUnavailableError``
+The port of ``src/repro/launch/serve.py``, for every architecture of
+``ARCHS``, MoE included (the recurrent caches ignore the cache length;
+the VLM's patch embeddings and the encoder–decoder's frames are the
+configs' stubs from ``make_batch``).  It runs on the CUDA card unless ``--device cpu`` is given, and raises ``DeviceUnavailableError``
 when a card is asked for and there is none.  Weights are random, drawn
 from ``torch.Generator(seed)`` on the device, and the prompts come from
 ``make_batch(cfg, batch, prompt_len, seed, 0)``.

@@ -1,8 +1,9 @@
 """Language models: prefill and greedy decode.
 
-The port of ``src/repro/models/model.py`` for every family but MoE:
-stacks of the block kinds ``"attn"`` (the dense transformers: qwen3,
-smollm, gemma, qwen2.5), ``"local"`` (sliding-window attention) and
+The port of ``src/repro/models/model.py`` for every family: stacks of
+the block kinds ``"attn"`` (the dense transformers: qwen3, smollm,
+gemma, qwen2.5; with a Mixture-of-Experts FFN, ``moe.py``, for
+qwen3-moe and llama4-scout), ``"local"`` (sliding-window attention) and
 ``"rec"`` (the Griffin recurrent block: conv4 + RG-LRU; recurrentgemma's
 (rec, rec, local) pattern), the xLSTM blocks ``"m"`` (mLSTM) and ``"s"``
 (sLSTM), in any pattern; the VLM's precomputed patch embeddings spliced
@@ -14,8 +15,10 @@ for ``"attn"``, the rolling window {"k", "v"} (B, W, KVH, hd) with the
 global position of each slot {"kpos"} (W,) (-1 = empty) for ``"local"``,
 {"h", "tail"} for ``"rec"``, {"c", "n"} for ``"m"``, {"c", "n", "h",
 "m"} for ``"s"``; an encoder–decoder layer adds its cross K/V
-{"cross_k", "cross_v"} (B, F, KVH, hd) to its {"k", "v"}.  MoE is not
-ported yet; :func:`build_model` refuses it and names the ROADMAP item.
+{"cross_k", "cross_v"} (B, F, KVH, hd) to its {"k", "v"}.  An MoE
+layer's FFN is ``moe_dispatch`` in prefill and ``moe_decode`` in a
+decode step, plus the shared experts' MLP where the config has them, as
+in JAX.
 
 Differences from the JAX model, all of form and none of result:
   * parameters are a dict with a Python list of per-layer dicts under
@@ -57,6 +60,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.lm import encoder_frames
 from repro_torch.kernels.slstm_scan.ref import M_INIT
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
     act_fn,
@@ -129,17 +133,25 @@ def _attn_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     return p
 
 
-def _layer_params(cfg: ArchConfig, kind: str, gen: torch.Generator
-                  ) -> Params:
+def _layer_params(cfg: ArchConfig, kind: str, gen: torch.Generator,
+                  moe_dtype: torch.dtype = torch.float32) -> Params:
     """One layer's float32 master weights, with the JAX initialisers
-    (``model.py:99``)."""
+    (``model.py:99``); an MoE layer's ``"moe"`` tensors are cast to
+    ``moe_dtype`` as each is drawn (all of them are matrices, which
+    ``cast_params`` casts)."""
     d = cfg.d_model
     dev = gen.device
     p: Params = {"norm1": norm_init(cfg, d, dev)}
     if kind in ("attn", "local"):
         p["attn"] = _attn_params(cfg, gen)
         p["norm2"] = norm_init(cfg, d, dev)
-        p["mlp"] = mlp_init(cfg, gen, d, cfg.d_ff)
+        if cfg.is_moe:
+            p["moe"] = moe.moe_init(cfg, gen, moe_dtype)
+            if cfg.n_shared_experts:
+                p["shared_mlp"] = mlp_init(
+                    cfg, gen, d, cfg.d_ff_expert * cfg.n_shared_experts)
+        else:
+            p["mlp"] = mlp_init(cfg, gen, d, cfg.d_ff)
     elif kind == "rec":
         # Griffin recurrent block: gate and recurrent input projections,
         # conv4, RG-LRU gates, output projection, then its own MLP
@@ -284,9 +296,11 @@ class Model:
         [0…, 3…], the sLSTM ``r_mat`` N(0, 1/hd) and ``b_zifo`` 0, the
         conv4 weights N(0, 0.01), the RG-LRU ``lam`` 0.7.
 
-        With ``cast=True`` each tensor is cast as its layer is drawn: the
-        result is ``cast_params(init(gen))`` exactly, the same draws,
-        while only one layer's float32 masters exist at a time."""
+        With ``cast=True`` each tensor is cast as its layer is drawn (an
+        MoE layer's expert tensors as each is drawn): the result is
+        ``cast_params(init(gen))`` exactly, the same draws, while only one
+        layer's float32 masters exist at a time (one expert tensor's, for
+        MoE)."""
         cfg = self.cfg
         dt = self.dtype
 
@@ -303,8 +317,9 @@ class Model:
             params["unembed"] = done(torch.randn(
                 (v, d), generator=gen, device=gen.device).mul_(0.02), 2)
         params["layers"] = [
-            done(_layer_params(cfg, kind, gen), 1 if i < self.n_stacked
-                 else 2) for i, kind in enumerate(self.kinds)]
+            done(_layer_params(cfg, kind, gen, dt if cast else torch.float32),
+                 1 if i < self.n_stacked else 2)
+            for i, kind in enumerate(self.kinds)]
         if cfg.is_encoder_decoder:
             params["enc_layers"] = [
                 done(_layer_params(cfg, "attn", gen), 1)
@@ -347,11 +362,12 @@ class Model:
 
     # --- layers -------------------------------------------------------------
     def _attn_layer(self, p: Params, x: torch.Tensor,
-                    positions: Optional[torch.Tensor], attend, cross=None
+                    positions: Optional[torch.Tensor], attend, cross=None,
+                    decode: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Self-attention through ``attend(q, k, v)``, then ``cross(x)``
         when given (the decoder's cross-attention: whisper's order), then
-        the FFN.  Returns (x, k, v)."""
+        the FFN (``decode``: a decode step's).  Returns (x, k, v)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = norm_apply(cfg, x, p["norm1"])
@@ -361,7 +377,22 @@ class Model:
         if cross is not None:
             x = cross(x)
         h2 = norm_apply(cfg, x, p["norm2"])
-        return x + mlp_apply(cfg, p["mlp"], h2), k, v
+        return x + self._ffn(p, h2, decode), k, v
+
+    def _ffn(self, p: Params, h: torch.Tensor, decode: bool
+             ) -> torch.Tensor:
+        """An attention layer's FFN: the MLP, or for MoE ``moe_dispatch``
+        (prefill, JAX's ``_ffn``) or ``moe_decode`` (a decode step) plus
+        the shared experts' MLP (JAX drops the dispatch's aux loss in
+        both)."""
+        cfg = self.cfg
+        if not cfg.is_moe:
+            return mlp_apply(cfg, p["mlp"], h)
+        y = moe.moe_decode(cfg, p["moe"], h) if decode else \
+            moe.moe_dispatch(cfg, p["moe"], h)[0]
+        if cfg.n_shared_experts:
+            y = y + mlp_apply(cfg, p["shared_mlp"], h)
+        return y
 
     def _rec_inputs(self, p: Params, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -573,13 +604,14 @@ class Model:
                 x, _, _ = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v, c=c: attn.decode_attention(
-                        q, c["k"], c["v"], k, v, pos)[0], cross)
+                        q, c["k"], c["v"], k, v, pos)[0], cross,
+                    decode=True)
             elif kind == "local":
                 x, _, _ = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v, c=c: attn.window_decode_attention(
                         q, c["k"], c["v"], c["kpos"], k, v, pos,
-                        window=cfg.window)[0])
+                        window=cfg.window)[0], decode=True)
             elif kind == "rec":
                 gate, xin = self._rec_inputs(p, x[:, 0])
                 (c["h"], c["tail"]), hr = rec.rglru_decode_step(
@@ -606,15 +638,11 @@ PORTED_KINDS = ("attn", "local", "rec", "m", "s")
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """A :class:`Model` for any family but MoE, which raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    """A :class:`Model` for any config whose block kinds are ported (every
+    arch of ``ARCHS``)."""
     kinds = set(cfg.layer_kinds())
     if kinds - set(PORTED_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds - set(PORTED_KINDS))} "
             f"are not ported (ported: {list(PORTED_KINDS)})")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported yet (ROADMAP.md Queue 1, MoE "
-            "(models/moe.py))")
     return Model(cfg)

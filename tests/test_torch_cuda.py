@@ -531,6 +531,8 @@ def _n(shape, dev, dtype):
     (1, 130, 40, 8, 128, True, 0),    # qwen2.5-14b's heads: G = 5
     (2, 4096, 16, 1, 256, True, 2048),  # recurrentgemma-9b's "local"
     (4, 1536, 6, 6, 64, False, 0),    # whisper-tiny's encoder
+    (1, 200, 64, 4, 128, True, 0),    # qwen3-moe's heads: G = 16, hd 128
+    (2, 150, 40, 8, 128, True, 0),    # llama4-scout's heads: G = 5
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, hd,
                                               causal, window):
@@ -613,6 +615,9 @@ def test_bf16_attention_wrappers_refuse_misaligned_views(cuda):
     (1, 2112, 16, 8, 128, 2100, 0),   # one sequence: 33 chunks of 1 tile
     (1, 2112, 8, 1, 256, 2100, 0),    # gemma-2b's MQA, one sequence
     (4, 448, 6, 6, 64, 447, 0),       # whisper-tiny's decoder: G = 1
+    (2, 300, 64, 4, 128, 299, 0),     # qwen3-moe: G * hd = 16 * 128 = 2,048
+    (2, 4160, 64, 4, 128, 4150, 0),   # the same at the served cache
+    (2, 300, 40, 8, 128, 250, 0),     # llama4-scout: G = 5
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh,
                                                hd, pos, window):
@@ -699,14 +704,16 @@ def test_serve_path_launches_the_kernels_and_matches_the_cpu(cuda):
     ("recurrentgemma-9b", 1, 0),     # (rec, rec, local, rec): plain decode
     ("llava-next-34b", 2, 2),
     ("whisper-tiny", 4, 2),          # 2 encoder + 2 decoder layers
+    ("qwen3-moe-235b-a22b", 2, 2),   # MoE: 4 experts, top-2
+    ("llama4-scout-17b-a16e", 2, 2),  # MoE: top-1 and a shared expert
 ])
 def test_family_serve_path_launches_the_kernels_and_matches_the_cpu(
         cuda, arch, flash, decode):
-    """A reduced float32 hybrid, VLM and encoder–decoder on the card: the
-    flash launches of a prefill and the decode launches of a step, and
-    the logits and every cache of the CPU path (plain attention, the
-    plain RG-LRU on CPU tensors) at 1e-4; ``generate`` gives the CPU's
-    tokens."""
+    """A reduced float32 hybrid, VLM, encoder–decoder and MoE on the
+    card: the flash launches of a prefill and the decode launches of a
+    step, and the logits and every cache of the CPU path (plain
+    attention, the plain RG-LRU on CPU tensors) at 1e-4; ``generate``
+    gives the CPU's tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.data.lm import make_batch
     from repro_torch.launch.serve import generate
@@ -739,6 +746,43 @@ def test_family_serve_path_launches_the_kernels_and_matches_the_cpu(
     out = generate(model, params, prompt, steps=4, cache_len=24)
     out_c = generate(model, to_cpu, prompt, steps=4, cache_len=24)
     assert torch.equal(out.cpu(), out_c)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch):
+    """``moe_dispatch`` (with pairs past capacity) and ``moe_decode`` on
+    the card in float32, TF32 off, against the same calls on the CPU:
+    the same expert ids and capacity positions, y at 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch(arch).reduced(), d_model=256,
+                              n_experts=16, d_ff_expert=128,
+                              capacity_factor=1.25)
+    p = moe.moe_init(cfg, torch.Generator().manual_seed(0))
+    p_dev = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.tensor(RNG.normal(size=(2, 96, cfg.d_model)),
+                     dtype=torch.float32)
+    x[0, 5] = 0.0                                   # a tie among all experts
+    _, ids, _ = moe._route(x.reshape(-1, cfg.d_model), p["router"],
+                           cfg.moe_top_k)
+    _, ids_dev, _ = moe._route(x.reshape(-1, cfg.d_model).to(cuda),
+                               p_dev["router"], cfg.moe_top_k)
+    assert torch.equal(ids_dev.cpu(), ids)
+    pos = moe.capacity_positions(ids.reshape(-1), cfg.n_experts)
+    assert torch.equal(moe.capacity_positions(ids_dev.reshape(-1),
+                                              cfg.n_experts).cpu(), pos)
+    assert int((pos >= moe.capacity(cfg, 2 * 96)).sum()) > 0
+    y, aux = moe.moe_dispatch(cfg, p, x)
+    y_dev, aux_dev = moe.moe_dispatch(cfg, p_dev, x.to(cuda))
+    torch.testing.assert_close(y_dev.cpu(), y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux_dev.cpu(), aux, rtol=1e-6, atol=1e-6)
+    xd = x[:, :1]
+    torch.testing.assert_close(moe.moe_decode(cfg, p_dev, xd.to(cuda)).cpu(),
+                               moe.moe_decode(cfg, p, xd), rtol=1e-4,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

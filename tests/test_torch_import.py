@@ -26,6 +26,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.slstm_scan.ops\n"
         "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.models.recurrent\n"
         "import repro_torch.launch.serve, repro_torch.data.lm\n"
         "import repro_torch.serve, repro_torch.ingest, "
