@@ -171,12 +171,34 @@ Phases, each of which fails the run if anything in it fails:
    time the flash kernel at both models' prefill shapes and the decode
    kernel at both decode shapes.
 
+12. train — ``train_phase``: LM training, which launches no kernel of the
+   port (the JAX package's training runs its jnp flash math and the
+   sLSTM's ``lax.scan``, and has no backward kernel): (a) qwen3-1.7b at
+   its published widths (28 layers, d_model 2,048, 16/8 heads of 128,
+   vocab 151,936, tied), random weights from seed 0, float32 masters and
+   bf16 compute, AdamW (lr 1e-3, warmup 2), remat per layer, through
+   ``Trainer.fit`` for 6 steps on one fixed batch of 2 × 4,096 tokens;
+   every loss finite, the last below the first, the parameters moved,
+   the peak memory allocated at most 70 GB; printed: seconds a step
+   (median of steps 2–6), tokens/s, the operations a step and their
+   bound at 989 TFLOP/s, the peak, and one layer's forward and backward
+   split into attention and the rest (CUDA events); (b) the reduced
+   config in bf16, 6 steps against 4, a checkpoint, a new ``Trainer``'s
+   restore and 2 more: every parameter and optimizer leaf the same bits;
+   (c) the reduced float32 configs of six families, ``Model.loss`` and
+   every gradient on the card (TF32 off) against the CPU at 1e-5 (loss)
+   and 1e-4 of each leaf's largest magnitude; (d) the flash, decode,
+   sLSTM and merge wrappers raise on CUDA inputs that require grad and
+   run under ``torch.no_grad()``.  Every kernel's counter reads 0 after
+   (a) (``launches_by_path["train"]``).
+
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
 phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
 for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
 10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths, phase 11 for
-the ``"moe"`` path, both models' counts summed),
+the ``"moe"`` path, both models' counts summed, phase 12 for the
+``"train"`` path, 0 for every kernel),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -238,6 +260,14 @@ MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_STEPS, MOE_CACHE = 8, 2, 4096, 64, 4160
 MOE_CHECK_PROMPT, MOE_CHECK_LAYERS = 256, 2   # the float32 handoff check
 MOE_PEAK_GB = 56.0         # peak memory the MoE path may allocate
+# phase 12: LM training, qwen3-1.7b at its published widths, nothing cut
+# but the batch (train_4k's sequence length, its global batch of 256 cut
+# to TRAIN_B for one card)
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-1.7b", 2, 4096, 6
+TRAIN_PEAK_GB = 70.0       # peak memory training may allocate
+TRAIN_FAMILIES = ("qwen3-1.7b", "xlstm-1.3b", "recurrentgemma-9b",
+                  "llava-next-34b", "whisper-tiny", "qwen3-moe-235b-a22b")
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4   # float32 card against CPU
 T_START = time.perf_counter()
 
 
@@ -1674,6 +1704,310 @@ def moe_phase(device, card: str) -> dict:
     return out
 
 
+def kernel_counters() -> list:
+    """(module, name) of every kernel launch counter of the port."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
+    from repro_torch.kernels.merge_topics import ops as merge_ops
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.vb_estep import ops as estep_ops
+    return [(mod, n) for mod in (merge_ops, estep_ops, gibbs_ops, flash_ops,
+                                 decode_ops, slstm_ops)
+            for n in sorted(vars(mod)) if n.endswith("launches")
+            and isinstance(getattr(mod, n), int)]
+
+
+def train_split(model, params, x, positions) -> dict:
+    """One layer's forward and backward in training form at x's shape,
+    split by CUDA events (mean of 3 after a warm-up): the attention half
+    (norm, q/k/v, ``ring_attention``, out projection) and the rest (norm,
+    MLP)."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import mlp_apply, norm_apply
+    from repro_torch.models.model import _attn_qkv
+    cfg = model.cfg
+    p = params
+    b, s, _ = x.shape
+
+    def attn_half(x):
+        h = norm_apply(cfg, x, p["norm1"])
+        q, k, v = _attn_qkv(cfg, p["attn"], h, positions)
+        o = attn.ring_attention(q, k, v, causal=True)
+        return x + o.reshape(b, s, cfg.q_dim) @ p["attn"]["wo"]
+
+    def mlp_half(x):
+        return x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, x, p["norm2"]))
+
+    def fwd_bwd(fn):
+        def run():
+            xi = x.detach().requires_grad_()
+            out = fn(xi)
+            out.backward(torch.ones_like(out))
+        return run
+
+    def ev(fn, reps=3):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for leaf in (v for d in (p["attn"], p["mlp"]) for v in d.values()):
+        leaf.requires_grad_()
+    out = dict(train_attn_ms=ev(fwd_bwd(attn_half)),
+               train_mlp_ms=ev(fwd_bwd(mlp_half)))
+    with torch.no_grad():
+        out["train_attn_fwd_ms"] = ev(lambda: attn_half(x))
+    for leaf in (v for d in (p["attn"], p["mlp"]) for v in d.values()):
+        leaf.requires_grad_(False)
+        leaf.grad = None
+    return out
+
+
+def train_phase(device, card: str) -> dict:
+    """Phase 12: LM training on the card ``device`` (see the module
+    docstring, phase 12 (a)–(d)).  Returns the numbers it printed and the
+    kernel counters read after (a), every one of them zeroed just
+    before."""
+    import itertools
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import batch_stream, make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptimizerConfig, Trainer
+    from repro_torch.train.optim import leaves, unflatten
+
+    t_phase = time.perf_counter()
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[train] {msg}")
+
+    # -- (a) full width ---------------------------------------------------------
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    opt = OptimizerConfig(name="adamw", lr=1e-3, warmup_steps=2)
+    trainer = Trainer(model, opt, remat=True, seed=0, device=device)
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    probes = []
+
+    def start():
+        # no reference to the first state outlives this call: fit's loop
+        # then holds two states at a time (the step's input and output)
+        st = trainer.init_state()
+        probes.extend([st.params["embed"][:8].clone(),
+                       st.params["layers"][0]["attn"]["wq"][:8].clone(),
+                       st.params["layers"][-1]["norm2"]["scale"].clone(),
+                       model.param_count(st.params)])
+        return st
+
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, device)
+    log(f"[train] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}, tied {cfg.tie_embeddings}), {cfg.dtype} "
+        f"compute, float32 masters, AdamW; batch {TRAIN_B} x {TRAIN_S} "
+        f"(train_4k's global batch of 256 cut to {TRAIN_B} for one card)")
+    real_step = trainer._step_fn
+    stamps, metrics = [], []
+
+    def timed_step(*args):
+        out = real_step(*args)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append(out[3])
+        return out
+
+    trainer._step_fn = timed_step
+    counters = kernel_counters()
+    for mod, n in counters:
+        setattr(mod, n, 0)
+    stamps.append(time.perf_counter())
+    state = trainer.fit(start(), itertools.repeat(batch), TRAIN_STEPS,
+                        log_every=0)
+    n_params = probes.pop()
+    launches = {f"{mod.__name__.split('.')[-2]}.{n}": getattr(mod, n)
+                for mod, n in counters}
+    trainer._step_fn = real_step
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    med = statistics.median(step_s[1:])
+    tokens = TRAIN_B * TRAIN_S
+    # operations a step: 6·N·T for the forward and backward products
+    # (the tied embedding counted once, as the head), 2·N·T for the
+    # second forward of every layer (remat) and of the head (its chunks
+    # are recomputed), and JAX's attention math: 4·B·H·S²·hd a forward
+    # over every chunk, masked or not, run five times (forward, remat,
+    # each chunk's recompute, two for the backward's four products)
+    attn_ops = 5 * 4 * TRAIN_B * cfg.n_heads * TRAIN_S ** 2 * cfg.hd \
+        * cfg.n_layers
+    ops = 8 * n_params * tokens + attn_ops
+    bound_s = ops / PEAK_BF16_TC_FLOPS
+    moved = [not torch.equal(a, b) for a, b in zip(probes, [
+        state.params["embed"][:8], state.params["layers"][0]["attn"]["wq"][:8],
+        state.params["layers"][-1]["norm2"]["scale"]])]
+    log(f"[train] losses {[round(x, 6) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in gnorms]}; step seconds "
+        f"{[round(x, 4) for x in step_s]}")
+    log(f"[train] {cfg.name} step (median of steps 2-{TRAIN_STEPS}): "
+        f"{med:.4f} s, {tokens / med:.1f} tokens/s; {ops:.4g} operations a "
+        f"step ({attn_ops:.4g} of them attention), bound "
+        f"{bound_s:.4f} s at {PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s "
+        f"({bound_s / med:.1%} of it); peak memory allocated {peak:.2f} GB "
+        f"({held:.2f} GB held by the earlier phases); on {card}")
+    log(f"[train] kernel launches on the train path: {launches}")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(moved), f"parameters did not move: {moved}")
+    check(peak <= TRAIN_PEAK_GB, f"training allocated {peak:.2f} GB at its "
+          f"peak, more than {TRAIN_PEAK_GB} GB")
+    check(int(state.step) == TRAIN_STEPS, f"step {int(state.step)}")
+    check(not any(launches.values()), f"training launched {launches}")
+    out = dict(train_step_s=med, train_tok_s=tokens / med, train_ops=ops,
+               train_bound_s=bound_s, train_peak_gb=peak, losses=losses,
+               step_s=step_s, launches=launches)
+    positions = torch.arange(TRAIN_S, device=device)
+    with torch.no_grad():
+        layer0 = model.cast_params(state.params)["layers"][0]
+        x = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), device=device,
+                        generator=torch.Generator(device=device).manual_seed(1)
+                        ).to(model.dtype)
+    del state, batch, probes, metrics
+    torch.cuda.empty_cache()
+    out.update(train_split(model, layer0, x, positions))
+    share = out["train_attn_ms"] / (out["train_attn_ms"] + out["train_mlp_ms"])
+    log(f"[train] one layer's forward + backward (B={TRAIN_B}, S={TRAIN_S}): "
+        f"attention (norm, q/k/v, ring_attention, out projection) "
+        f"{out['train_attn_ms']:.3f} ms (its forward alone "
+        f"{out['train_attn_fwd_ms']:.3f} ms), the rest (norm, MLP) "
+        f"{out['train_mlp_ms']:.3f} ms: attention {share:.1%}; x "
+        f"{cfg.n_layers} layers = {(out['train_attn_ms'] + out['train_mlp_ms']) * cfg.n_layers / 1e3:.3f} s "
+        f"(remat adds a forward); on {card}")
+    out["train_attn_share"] = share
+    del layer0, x, trainer, model
+    torch.cuda.empty_cache()
+
+    # -- (b) restart, bit for bit ----------------------------------------------
+    rcfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(),
+                               dtype="bfloat16")
+    rmodel = build_model(rcfg)
+
+    def stream(start=0):
+        return batch_stream(rcfg, 2, 64, seed=0, start_cursor=start,
+                            device=device)
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = Trainer(rmodel, opt, device=device)
+        ref = t0.fit(t0.init_state(), stream(), 6, log_every=0)
+        t1 = Trainer(rmodel, opt, ckpt_dir=tmp, save_every=4, device=device)
+        t1.fit(t1.init_state(), stream(), 4, log_every=0)
+        t2 = Trainer(rmodel, opt, ckpt_dir=tmp, save_every=100,
+                     device=device)
+        got = t2.restore_or_init()
+        check(int(got.step) == 4, f"restored step {int(got.step)}")
+        got = t2.fit(got, stream(got.data_cursor), 2, log_every=0)
+    pairs = list(zip(leaves(ref.params) + leaves(ref.opt_state),
+                     leaves(got.params) + leaves(got.opt_state)))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    log(f"[train] {rcfg.name} in bf16: 6 steps against 4 + checkpoint + "
+        f"restore + 2: {same} of {len(pairs)} parameter and optimizer "
+        f"leaves the same bits")
+    check(same == len(pairs), f"restart differs in {len(pairs) - same} "
+          f"leaves")
+
+    # -- (c) float32: the card against the CPU --------------------------------
+    diffs = {}
+    for arch in TRAIN_FAMILIES:
+        fcfg = get_arch(arch).reduced()
+        fmodel = build_model(fcfg)
+        params = fmodel.init(torch.Generator().manual_seed(0))
+        fbatch = make_batch(fcfg, 2, 64, 0, 0)
+        res = {}
+        for dev in ("cpu", device):
+            flat = [x.to(dev).requires_grad_() for x in leaves(params)]
+            loss, _ = fmodel.loss(unflatten(params, flat),
+                                  {k: v.to(dev) for k, v in fbatch.items()})
+            res[str(dev)] = (float(loss.detach()), [g.cpu() for g in
+                                           torch.autograd.grad(loss, flat)])
+        (l_c, g_c), (l_d, g_d) = res["cpu"], res[str(device)]
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(g_d, g_c))
+        diffs[arch] = (abs(l_d - l_c), rel)
+        log(f"[train] {fcfg.name} float32: loss card {l_d:.7f} CPU "
+            f"{l_c:.7f} (|diff| {abs(l_d - l_c):.3g}, tol {TRAIN_LOSS_TOL}); "
+            f"gradients: max |diff| / leaf max {rel:.3g} over "
+            f"{len(g_c)} leaves (tol {TRAIN_GRAD_TOL})")
+        check(abs(l_d - l_c) <= TRAIN_LOSS_TOL * max(1.0, abs(l_c)),
+              f"{arch}: loss on the card {l_d} against {l_c}")
+        check(rel <= TRAIN_GRAD_TOL, f"{arch}: gradients differ by {rel} "
+              f"of a leaf's largest magnitude")
+    out["handoff"] = diffs
+
+    # -- (d) the kernel wrappers refuse tensors that require grad --------------
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.merge_topics import ops as merge_ops
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.slstm_scan.ref import zero_state
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, device=device, generator=gen).to(dt)
+
+    bf = torch.bfloat16
+    calls = {
+        "flash_attention": lambda rg: flash_ops.flash_attention(
+            rnd((1, 64, 4, 64), bf).requires_grad_(rg), rnd((1, 64, 2, 64), bf),
+            rnd((1, 64, 2, 64), bf)),
+        "decode_attention": lambda rg: decode_ops.decode_attention(
+            rnd((1, 1, 4, 64), bf).requires_grad_(rg),
+            rnd((1, 64, 2, 64), bf), rnd((1, 64, 2, 64), bf), 10),
+        "slstm_scan": lambda rg: slstm_ops.slstm_scan(
+            rnd((1, 8, 4, 2, 16)).requires_grad_(rg), rnd((2, 16, 64)) * 0.25,
+            *zero_state(1, 2, 16, device))[0],
+        "merge_topics_parts": lambda rg: merge_ops.merge_topics_parts(
+            [rnd((8, 64)).abs().requires_grad_(rg), rnd((8, 64)).abs()],
+            [1.0, 2.0], bias=0.1, base=0.1),
+    }
+    for kname, call in calls.items():
+        try:
+            call(True)
+        except ValueError as e:
+            check("ring_attention" in str(e), f"{kname}: {e}")
+        else:
+            raise AssertionError(f"[train] {kname} took an input that "
+                                 f"requires grad")
+        with torch.no_grad():
+            y = call(True)
+        check(not y.requires_grad and bool(torch.isfinite(y.float()).all()),
+              f"{kname} under no_grad")
+        check(bool(torch.isfinite(call(False).float()).all()),
+              f"{kname} on inputs that need no grad")
+    torch.cuda.synchronize()
+    log(f"[train] {sorted(calls)} raise ValueError on CUDA inputs that "
+        f"require grad, and run under torch.no_grad() and on inputs that "
+        f"need none")
+    log(f"[train] phase ran {time.perf_counter() - t_phase:.1f} s, the script "
+        f"{time.perf_counter() - T_START:.0f} s so far")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -3026,6 +3360,12 @@ def main() -> int:
         by_path = report[kname].setdefault("launches_by_path", {})
         by_path["moe"] = count
         report[kname]["launches"] = sum(by_path.values())
+
+    # -- 12. LM training: no kernel on its path ------------------------------
+    # every counter zeroed inside, just before Trainer.fit
+    train_phase(dev, card)
+    for kname in report:
+        report[kname].setdefault("launches_by_path", {})["train"] = 0
 
     # the attention kernels at the shapes phases 10 and 11 gave them, held
     # against their plain versions and timed (uncounted) in bf16, five

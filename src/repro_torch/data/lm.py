@@ -1,6 +1,7 @@
 """LM data pipeline: deterministic, cursor-addressable synthetic batches.
 
-The port of ``src/repro/data/lm.py``'s ``make_batch``.  A batch is a
+The port of ``src/repro/data/lm.py``: ``make_batch`` and
+``batch_stream``, the cursor-ordered batches the trainer reads.  A batch is a
 pure function of (seed, cursor), drawn from a CPU ``torch.Generator``
 seeded from both, so the same call gives the same tokens on any device
 (the numbers differ from the JAX package's, whose stream is
@@ -10,7 +11,7 @@ frame embeddings, both drawn from the same generator.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Iterator, Union
 
 import numpy as np
 import torch
@@ -62,3 +63,15 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int,
         out = {k: v.to(device) for k, v in out.items()}
     return out
 
+
+
+def batch_stream(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0,
+                 start_cursor: int = 0,
+                 device: Union[str, torch.device, None] = None
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
+    """``make_batch`` at cursors ``start_cursor``, ``start_cursor + 1``,
+    ..., each batch moved to ``device``."""
+    cursor = start_cursor
+    while True:
+        yield make_batch(cfg, batch, seq, seed, cursor, device)
+        cursor += 1

@@ -18,7 +18,9 @@ stands in for the eight host devices the JAX tests force.
 The LM sharding rules of the JAX module (``constrain``,
 ``gather_for_compute``, ``infer_param_specs``, ``param_shardings``,
 ``batch_specs``, ``cache_specs``, ``shardings_of``) belong to LM training
-and multi-device LM serving, which the port does not have yet.
+and serving on several devices.  The port trains and serves on one
+device (``train/*``, ``launch/{train,serve}.py``); those rules wait for
+ROADMAP.md Queue 1 item 6.
 """
 from __future__ import annotations
 

@@ -269,7 +269,17 @@ def require_cuda(name: str, t: torch.Tensor, device: torch.device,
     """Checks the kernels rely on: CUDA, one of the dtypes the kernel
     takes, one device, and either a contiguous tensor or (for kernels
     that read through strides, ``contiguous=False``) a contiguous last
-    dimension."""
+    dimension; and no gradient asked of it.  A kernel writes its output
+    through a raw pointer, so the output has no ``grad_fn``: an input
+    that requires grad while grad mode is on raises ``ValueError`` rather
+    than give a silently zero gradient."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise ValueError(
+            f"{name} requires grad, and the CUDA kernels have no backward: "
+            f"train through Model.loss, whose attention is "
+            f"models.attention.ring_attention and whose sLSTM is "
+            f"models.recurrent.slstm_train, or call the kernel under "
+            f"torch.no_grad()")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)

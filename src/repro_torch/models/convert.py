@@ -13,11 +13,14 @@ layers are 12 groups of ``("0_rec", "1_rec", "2_local")`` and a tail of
 keeps one dict per layer, in layer order (``"layers"``, ``"enc_layers"``,
 ``"cross_layers"``), and every weight its ``(d_in, d_out)``
 orientation.  The same weights give the same logits; the tests use it to
-hold the port to the JAX model.
+hold the port to the JAX model.  Any parameter-shaped tree maps the same
+way (JAX's gradients, AdamW's ``m`` and ``v``); ``opt_state_from_jax``
+maps a whole optimizer state, Adafactor's per-leaf (vr, vc) or (v,)
+tuples included (a checkpoint restores them as lists).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -29,6 +32,8 @@ from repro_torch.models.model import Params, build_model
 def _to_torch(tree: Any, index=None) -> Any:
     if isinstance(tree, Mapping):
         return {k: _to_torch(v, index) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_to_torch(v, index) for v in tree)
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
@@ -37,8 +42,9 @@ def _to_torch(tree: Any, index=None) -> Any:
 
 def _depth(tree: Any) -> int:
     """The leading (stacked) size of a JAX pytree's leaves."""
-    while isinstance(tree, Mapping):
-        tree = next(iter(tree.values()))
+    while isinstance(tree, (Mapping, tuple, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, Mapping) \
+            else tree[0]
     return np.asarray(tree).shape[0]
 
 
@@ -82,3 +88,17 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any]) -> Params:
             params[name] = [_to_torch(tree[key], i) for i in range(n)]
         params["enc_norm"] = _to_torch(tree["enc_norm"])
     return params
+
+
+def opt_state_from_jax(cfg: ArchConfig, name: str, tree: Mapping[str, Any]
+                       ) -> Dict[str, Any]:
+    """The port's optimizer state from JAX's (numpy leaves): for
+    ``"adamw"`` {"m", "v"}, each a parameter-shaped tree; for
+    ``"adafactor"`` {"s"}, a parameter-shaped tree of (vr, vc) or (v,)
+    tuples, each entry split along the stacked axis as its parameter
+    is."""
+    if name == "adamw":
+        return {k: params_from_jax(cfg, tree[k]) for k in ("m", "v")}
+    if name == "adafactor":
+        return {"s": params_from_jax(cfg, tree["s"])}
+    raise ValueError(f"unknown optimizer {name!r}")

@@ -1,4 +1,4 @@
-"""Language models: prefill and greedy decode.
+"""Language models: the training loss, prefill and greedy decode.
 
 The port of ``src/repro/models/model.py`` for every family: stacks of
 the block kinds ``"attn"`` (the dense transformers: qwen3, smollm,
@@ -19,6 +19,15 @@ global position of each slot {"kpos"} (W,) (-1 = empty) for ``"local"``,
 layer's FFN is ``moe_dispatch`` in prefill and ``moe_decode`` in a
 decode step, plus the shared experts' MLP where the config has them, as
 in JAX.
+
+``loss`` is the training path (JAX's ``Model.loss``, ``model.py:555``):
+teacher-forced next-token NLL, differentiable.  Its layers follow JAX's
+``_layer_seq``: attention through ``attention.ring_attention`` (JAX's
+jnp flash math, each KV chunk recomputed in the backward), the sLSTM
+through ``recurrent.slstm_train`` (the float32 step loop), the MoE FFN's
+aux loss added in.  No kernel of the port runs in ``loss``: the JAX
+package has no backward kernel to port, and the kernels' outputs carry
+no gradient (their wrappers refuse inputs that require grad).
 
 Differences from the JAX model, all of form and none of result:
   * parameters are a dict with a Python list of per-layer dicts under
@@ -55,6 +64,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.lm import encoder_frames
@@ -78,6 +88,8 @@ Cache = List[Dict[str, torch.Tensor]]
 
 # per-layer lists that JAX stacks on a leading axis whatever their kind
 STACKED_LISTS = ("enc_layers", "cross_layers")
+# tokens whose float32 logits ``loss`` holds at a time
+HEAD_CHUNK = 2048
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -336,6 +348,40 @@ class Model:
         JAX casts in the config's compute dtype (identity for float32)."""
         return cast_params(params, self.dtype, self.n_stacked)
 
+    def jax_stacks(self, params: Params) -> List[Tuple[List[int], bool]]:
+        """The leaves JAX holds as one stacked leaf, for the optimizer's
+        rules that read JAX's layout (``train/optim.py``): groups of leaf
+        indices, in the order of ``train.optim.leaves`` (dict keys sorted,
+        lists in order), each with its stacked flag.  A pattern group's
+        layers at one pattern position and one path form a stack, as do
+        the encoder's and the cross layers' at one path; the tail's
+        leaves and the top level's stand alone, unstacked."""
+        period = len(self.cfg.block_pattern)
+
+        def keyed(tree, key):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree)
+                        for x in keyed(tree[k], f"{key}/{k}")]
+            return [key]
+
+        keys = []
+        for name in sorted(params):
+            sub = params[name]
+            if name == "layers":
+                for i, p in enumerate(sub):
+                    keys += keyed(p, f"stack:{i % period}" if
+                                  i < self.n_stacked else f"tail:{i}")
+            elif name in STACKED_LISTS:
+                for p in sub:
+                    keys += keyed(p, f"stack:{name}")
+            else:
+                keys += keyed(sub, name)
+        groups: Dict[str, List[int]] = {}
+        for i, key in enumerate(keys):
+            groups.setdefault(key, []).append(i)
+        return [(idx, key.startswith("stack:"))
+                for key, idx in groups.items()]
+
     @staticmethod
     def param_count(params: Params) -> int:
         def count(x):
@@ -364,10 +410,12 @@ class Model:
     def _attn_layer(self, p: Params, x: torch.Tensor,
                     positions: Optional[torch.Tensor], attend, cross=None,
                     decode: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
         """Self-attention through ``attend(q, k, v)``, then ``cross(x)``
         when given (the decoder's cross-attention: whisper's order), then
-        the FFN (``decode``: a decode step's).  Returns (x, k, v)."""
+        the FFN (``decode``: a decode step's).  Returns (x, k, v, the
+        FFN's aux loss or None)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = norm_apply(cfg, x, p["norm1"])
@@ -377,22 +425,26 @@ class Model:
         if cross is not None:
             x = cross(x)
         h2 = norm_apply(cfg, x, p["norm2"])
-        return x + self._ffn(p, h2, decode), k, v
+        y, aux = self._ffn(p, h2, decode)
+        return x + y, k, v, aux
 
     def _ffn(self, p: Params, h: torch.Tensor, decode: bool
-             ) -> torch.Tensor:
-        """An attention layer's FFN: the MLP, or for MoE ``moe_dispatch``
-        (prefill, JAX's ``_ffn``) or ``moe_decode`` (a decode step) plus
-        the shared experts' MLP (JAX drops the dispatch's aux loss in
-        both)."""
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An attention layer's FFN and its aux loss (JAX's ``_ffn``): the
+        MLP (no aux loss: None), or for MoE ``moe_dispatch`` (prefill and
+        training) or ``moe_decode`` (a decode step, None) plus the shared
+        experts' MLP.  Only ``loss`` adds the aux loss in, as in JAX."""
         cfg = self.cfg
+        aux = None
         if not cfg.is_moe:
-            return mlp_apply(cfg, p["mlp"], h)
-        y = moe.moe_decode(cfg, p["moe"], h) if decode else \
-            moe.moe_dispatch(cfg, p["moe"], h)[0]
+            return mlp_apply(cfg, p["mlp"], h), aux
+        if decode:
+            y = moe.moe_decode(cfg, p["moe"], h)
+        else:
+            y, aux = moe.moe_dispatch(cfg, p["moe"], h)
         if cfg.n_shared_experts:
             y = y + mlp_apply(cfg, p["shared_mlp"], h)
-        return y
+        return y, aux
 
     def _rec_inputs(self, p: Params, x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -439,9 +491,9 @@ class Model:
         x = frames + sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
         for p in params["enc_layers"]:
-            x, _, _ = self._attn_layer(
+            x = self._attn_layer(
                 p, x, None, lambda q, k, v: attn.flash_attention_local(
-                    q, k, v, causal=False))
+                    q, k, v, causal=False))[0]
         return norm_apply(cfg, x, params["enc_norm"])
 
     def _enc_kv(self, pc: Params, enc: torch.Tensor
@@ -455,18 +507,176 @@ class Model:
                      for w in ("wk", "wv"))
 
     def _cross_layer(self, pc: Params, x: torch.Tensor, ck: torch.Tensor,
-                     cv: torch.Tensor) -> torch.Tensor:
+                     cv: torch.Tensor, attend=attn.cross_attention
+                     ) -> torch.Tensor:
         """Decoder cross-attention over the encoder's K/V (``model.py:495``),
-        in prefill and for the one token of a decode step.  JAX's decode
-        step (``model.py:751``) normalises the probabilities before it
-        casts them to the model dtype, ``cross_attention`` after P·V:
+        in prefill and for the one token of a decode step
+        (``attention.cross_attention``), and in training
+        (``ring_attention(causal=False)``, as ``loss`` passes it).  JAX's
+        decode step (``model.py:751``) normalises the probabilities before
+        it casts them to the model dtype, ``cross_attention`` after P·V:
         equal to rounding, and the same in float32."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = norm_apply(cfg, x, pc["norm"])
         q = (h @ pc["attn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-        o = attn.cross_attention(q, ck, cv)
+        o = attend(q, ck, cv)
         return x + o.reshape(b, s, cfg.q_dim) @ pc["attn"]["wo"]
+
+    # --- training ------------------------------------------------------------
+    def _layer_train(self, kind: str, p: Params, x: torch.Tensor,
+                     positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer in training form (JAX's ``_layer_seq``,
+        ``model.py:194-256``): (x, its aux loss or None)."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        if kind in ("attn", "local"):
+            window = cfg.window if kind == "local" else 0
+            x, _, _, aux = self._attn_layer(
+                p, x, positions, lambda q, k, v: attn.ring_attention(
+                    q, k, v, causal=True, window=window))
+            return x, aux
+        if kind == "rec":
+            gate, xin = self._rec_inputs(p, x)
+            hr = rec.rglru_seq(xin, p["w_rg"], p["b_rg"], p["w_ig"],
+                               p["b_ig"], p["conv_w"], p["conv_b"],
+                               p["lam"])
+            x = self._rec_out(p, x, gate, hr)
+        elif kind == "m":
+            o = rec.mlstm_seq(*self._mlstm_inputs(p, x))
+            x = x + o.reshape(b, s, d) @ p["wo"]
+        else:
+            o = rec.slstm_train(self._slstm_inputs(p, x), p["r_mat"])
+            x = x + o.reshape(b, s, d) @ p["wo"]
+        return x, None
+
+    def _run_stack(self, params: Params, x: torch.Tensor,
+                   positions: torch.Tensor, *, remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layers in training form (JAX's ``_run_stack``,
+        ``model.py:450``): each pattern group of ``len(block_pattern)``
+        layers under ``torch.utils.checkpoint`` when ``remat`` (JAX's
+        ``jax.checkpoint(group)``: only the group's input is kept, its
+        activations are recomputed in the backward), the unrolled tail
+        never.  Returns (x, the summed aux loss)."""
+        period = len(self.cfg.block_pattern)
+        layers = list(zip(self.kinds, params["layers"]))
+
+        def group(x, chunk):
+            auxs = []
+            for kind, p in chunk:
+                x, a = self._layer_train(kind, p, x, positions)
+                auxs.append(a)
+            return x, auxs
+
+        aux_total = x.new_zeros((), dtype=torch.float32)
+        for g0 in range(0, self.n_stacked, period):
+            chunk = layers[g0:g0 + period]
+            x, auxs = (checkpoint(group, x, chunk, use_reentrant=False)
+                       if remat else group(x, chunk))
+            for a in auxs:
+                if a is not None:
+                    aux_total = aux_total + a
+        for kind, p in layers[self.n_stacked:]:
+            x, a = self._layer_train(kind, p, x, positions)
+            if a is not None:
+                aux_total = aux_total + a
+        return x, aux_total
+
+    def _train_encoder(self, params: Params, frames: torch.Tensor
+                       ) -> torch.Tensor:
+        """The encoder in training form (JAX's ``_run_encoder``,
+        ``model.py:480``): bidirectional ``ring_attention``, each layer
+        under ``torch.utils.checkpoint`` whatever ``remat`` says."""
+        cfg = self.cfg
+        x = frames + sinusoidal_positions(
+            frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+
+        def layer(x, p):
+            return self._attn_layer(
+                p, x, None, lambda q, k, v: attn.ring_attention(
+                    q, k, v, causal=False))[0]
+
+        for p in params["enc_layers"]:
+            x = checkpoint(layer, x, p, use_reentrant=False)
+        return norm_apply(cfg, x, params["enc_norm"])
+
+    def _train_decoder(self, params: Params, x: torch.Tensor,
+                       enc: torch.Tensor, positions: torch.Tensor
+                       ) -> torch.Tensor:
+        """The decoder in training form (JAX's ``_run_decoder_with_cross``
+        without caches, ``model.py:520``): causal self-attention, cross
+        attention over the encoder's K/V (bidirectional
+        ``ring_attention``, as JAX's ``cross_attention``), the FFN; each
+        layer under ``torch.utils.checkpoint``."""
+        def cross_attend(q, k, v):
+            return attn.ring_attention(q, k, v, causal=False)
+
+        def layer(x, p, pc, enc):
+            ck, cv = self._enc_kv(pc, enc)
+            return self._attn_layer(
+                p, x, positions,
+                lambda q, k, v: attn.ring_attention(q, k, v, causal=True),
+                lambda x: self._cross_layer(pc, x, ck, cv, cross_attend))[0]
+
+        for p, pc in zip(params["layers"], params["cross_layers"]):
+            x = checkpoint(layer, x, p, pc, enc, use_reentrant=False)
+        return x
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
+             remat: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Teacher-forced LM loss (JAX's ``Model.loss``, ``model.py:555``):
+        the parameters cast as ``cast_params`` casts them (float32 masters
+        or copies already cast: the cast is idempotent, and its gradient
+        reaches float32 masters in float32); ``batch["tokens"]`` embedded,
+        the VLM's ``patch_embeds`` spliced over the first positions, the
+        encoder–decoder's ``frames`` through the encoder; the layers in
+        training form (``_run_stack``, remat per pattern group when
+        ``remat``); the logits in float32; the NLL of ``labels`` at the
+        positions where ``labels >= 0``, through a float32 logsumexp,
+        averaged.  Returns (nll + 0.01 · aux, {"nll", "aux"}), 0-d
+        float32 tensors; differentiable, and no kernel of the port
+        runs.  The head runs over ``HEAD_CHUNK`` tokens at a time, each
+        chunk recomputed in the backward: JAX holds every float32 logit
+        at once (1.25e9 of them, 5 GB, at qwen3-1.7b's vocabulary and
+        2 × 4,096 tokens, and its softmax and gradient beside them); the
+        per-token math is the same, and the chunks' sums are added in
+        chunk order."""
+        cfg = self.cfg
+        params = self.cast_params(params)
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self._embed(params, tokens)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        if cfg.is_encoder_decoder:
+            enc = self._train_encoder(params, batch["frames"].to(x.dtype))
+            x = self._train_decoder(params, x, enc, positions)
+            aux = x.new_zeros((), dtype=torch.float32)
+        else:
+            x, aux = self._run_stack(params, x, positions, remat=remat)
+        x = norm_apply(cfg, x, params["final_norm"])
+        xs = x.reshape(-1, x.shape[-1])
+        ls = labels.reshape(-1)
+        nll = sum(checkpoint(self._nll_sum, params, xs[i:i + HEAD_CHUNK],
+                             ls[i:i + HEAD_CHUNK], use_reentrant=False)
+                  for i in range(0, xs.shape[0], HEAD_CHUNK))
+        loss = nll / torch.clamp((labels >= 0).sum().float(), min=1.0)
+        return loss + 0.01 * aux, {"nll": loss, "aux": aux}
+
+    def _nll_sum(self, params: Params, x: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+        """Σ of the NLL of ``labels`` (T,) over the rows of x (T, d) where
+        ``labels >= 0``: float32 logits, a float32 logsumexp minus the
+        label's logit (JAX's ``loss``, ``model.py:575-583``)."""
+        logits = self._logits(params, x).float()
+        mask = (labels >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp(min=0).long()[:, None])[:, 0]
+        return ((lse - gold) * mask).sum()
 
     # --- prefill -------------------------------------------------------------
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -505,7 +715,7 @@ class Model:
                     cache = {"cross_k": ck, "cross_v": cv}
                     cross = (lambda x, pc=pc, ck=ck, cv=cv:
                              self._cross_layer(pc, x, ck, cv))
-                x, k, v = self._attn_layer(
+                x, k, v, _ = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v: attn.flash_attention_local(
                         q, k, v, causal=True, window=window), cross)
@@ -601,17 +811,17 @@ class Model:
                     pc = params["cross_layers"][i]
                     cross = (lambda x, pc=pc, c=c: self._cross_layer(
                         pc, x, c["cross_k"], c["cross_v"]))
-                x, _, _ = self._attn_layer(
+                x = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v, c=c: attn.decode_attention(
                         q, c["k"], c["v"], k, v, pos)[0], cross,
-                    decode=True)
+                    decode=True)[0]
             elif kind == "local":
-                x, _, _ = self._attn_layer(
+                x = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v, c=c: attn.window_decode_attention(
                         q, c["k"], c["v"], c["kpos"], k, v, pos,
-                        window=cfg.window)[0], decode=True)
+                        window=cfg.window)[0], decode=True)[0]
             elif kind == "rec":
                 gate, xin = self._rec_inputs(p, x[:, 0])
                 (c["h"], c["tail"]), hr = rec.rglru_decode_step(

@@ -3,7 +3,7 @@
 The port of ``src/repro/models/moe.py``'s one-device paths, plain
 functions on tensors:
 
-  * ``moe_dispatch`` (prefill) — top-k routing, then every (token,
+  * ``moe_dispatch`` (prefill and training) — top-k routing, then every (token,
     choice) pair scattered into its expert's capacity buffer (E, cap, d)
     at its position among that expert's pairs in token order; pairs past
     ``cap`` are dropped, as JAX's ``mode="drop"`` scatter drops them; the
@@ -17,7 +17,10 @@ functions on tensors:
     pair is dropped and the port keeps no capacity here.
 
 The products are library ones (``torch.bmm``), as JAX computes them in
-jnp outside any Pallas kernel.  The expert-parallel ``shard_map``
+jnp outside any Pallas kernel.  ``moe_dispatch`` differentiates as it
+stands (autograd takes its in-place copy, fill and gate product): the
+gradients reach the router through the gates and the aux loss, and the
+experts, as ``jax.grad`` gives them.  The expert-parallel ``shard_map``
 branches and their ``all_to_all`` wait for ROADMAP.md Queue 1 item 6.
 
 Numerics, as JAX: the router runs in float32 from the (bf16-cast)

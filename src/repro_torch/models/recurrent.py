@@ -2,10 +2,12 @@
 
 The port of ``src/repro/models/recurrent.py``'s single-device paths, and
 of the two final-state helpers of ``src/repro/models/model.py:832,848``.
-The mLSTM and the RG-LRU are plain torch, as they are plain jnp in JAX.
-The sLSTM recurrence runs the scan kernel (``kernels/slstm_scan``) in
-prefill and decode alike; on a CPU tensor the kernel's wrapper takes its
-plain version.
+The mLSTM and the RG-LRU are plain torch, as they are plain jnp in JAX,
+and differentiate as they stand.  The sLSTM recurrence runs the scan
+kernel (``kernels/slstm_scan``) in prefill and decode alike; on a CPU
+tensor the kernel's wrapper takes its plain version.  The training path
+(``Model.loss``) runs ``slstm_train``, JAX's float32 step loop under
+autograd: the kernel's output carries no gradient.
 
 Same numerical conventions as the JAX module (documented simplifications
 of arXiv:2405.04517): the mLSTM input gate is log-sigmoid (bounded), the
@@ -168,6 +170,46 @@ def slstm_seq(xpre: torch.Tensor, r_mat: torch.Tensor) -> torch.Tensor:
     """sLSTM over a sequence from the zero state: h (B, S, H, hd) in
     xpre's dtype."""
     return slstm_with_state(xpre, r_mat)[0]
+
+
+def _slstm_local_scan(xpre: torch.Tensor, r_mat: torch.Tensor,
+                      state: State) -> Tuple[torch.Tensor, State]:
+    """JAX's ``_slstm_local_scan`` (``recurrent.py:177``): the float32
+    step loop, differentiable.  xpre: (B, S, 4, H, hd) float32; r_mat
+    (H, hd, 4 hd), used in float32; state (c, n, h, m) (B, H, hd).
+    Returns h (B, S, H, hd) float32 and the final state."""
+    b, s, _, h, hd = xpre.shape
+    r = r_mat.float()
+    c, nrm, hprev, m = state
+    out = []
+    for t in range(s):
+        rec = torch.einsum("bhd,hde->bhe", hprev, r).reshape(b, h, 4, hd)
+        tot = xpre[:, t] + rec.transpose(1, 2)              # (B, 4, H, hd)
+        z = torch.tanh(tot[:, 0])
+        logi = tot[:, 1]
+        logf = logsig(tot[:, 2])
+        o = torch.sigmoid(tot[:, 3])
+        m_new = torch.maximum(logf + m, logi)
+        i_s = torch.exp(logi - m_new)
+        f_s = torch.exp(logf + m - m_new)
+        c = f_s * c + i_s * z
+        nrm = f_s * nrm + i_s
+        hprev = o * c / torch.clamp(nrm, min=1e-6)
+        m = m_new
+        out.append(hprev)
+    return torch.stack(out, dim=1), (c, nrm, hprev, m)
+
+
+def slstm_train(xpre: torch.Tensor, r_mat: torch.Tensor) -> torch.Tensor:
+    """sLSTM over a sequence from the zero state on the training path
+    (``slstm_seq``'s one-device branch, ``recurrent.py:208-230``): h
+    (B, S, H, hd) in xpre's dtype, from the float32 step loop of
+    ``_slstm_local_scan`` under autograd.  S steps of small ops: the
+    serve path's scan kernel keeps R on chip, but has no backward."""
+    b, _, _, h, hd = xpre.shape
+    hs, _ = _slstm_local_scan(xpre.float(), r_mat,
+                              zero_state(b, h, hd, xpre.device))
+    return hs.to(xpre.dtype)
 
 
 def slstm_decode_step(state: State, xpre_t: torch.Tensor,

@@ -1,0 +1,280 @@
+"""Optimizers: AdamW and Adafactor on trees of tensors.
+
+The port of ``src/repro/train/optim.py``, JAX's formulas on torch
+tensors (not ``torch.optim``, whose ``AdamW`` decays every leaf and
+orders its arithmetic otherwise).  A tree is nested dicts and lists of
+tensors, as the model's parameters are.  AdamW keeps float32 (m, v) per
+parameter; Adafactor factors the second moment of a matrix into row and
+column statistics where ``_is_factored``.  Both expose the same
+(init, update) pair:
+
+    state = init(params)
+    new_params, new_state, gnorm = update(grads, state, params, step)
+
+JAX stacks the layers of its pattern groups (and the encoder and cross
+layers) on a leading axis, and two of its rules read that layout: a
+leaf decays when it is ≥2-D, so a stacked norm scale decays where the
+tail's does not, and Adafactor clips each leaf's update to RMS ≤ 1 over
+the whole stack.  The port keeps one tensor per layer, so
+``build_optimizer`` takes ``stacks``: the groups of leaves (indices in
+``leaves`` order) that JAX holds as one stacked leaf, each with its
+stacked flag (``Model.jax_stacks`` gives them for a model's parameters);
+without it every leaf stands alone, unstacked.
+
+``step`` is a 0-d int32 tensor on the parameters' device; the learning
+rate and the bias corrections are computed from it there, so an update
+reads nothing back to the host.  ``update`` is functional: it returns
+new tensors and leaves its arguments as they were.  The global-norm clip
+scales each gradient leaf inside its own update (JAX scales the whole
+tree first: the same products), so no scaled copy of the gradients is
+held beside them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+Tree = Any
+Stacks = Sequence[Tuple[Sequence[int], bool]]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"          # adamw | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # adafactor
+    decay_offset: float = 0.8    # beta2_t = 1 - step^-decay_offset
+    factored_min_dim: int = 128
+
+
+def leaves(tree: Tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in JAX's leaf order
+    (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def _flatten_up_to(structure: Tree, tree: Tree) -> List[Any]:
+    """``tree``'s subtrees at the leaves of ``structure`` (an Adafactor
+    state's (vr, vc) tuples at the parameters' leaves)."""
+    if isinstance(structure, dict):
+        return [x for k in sorted(structure)
+                for x in _flatten_up_to(structure[k], tree[k])]
+    if isinstance(structure, list):
+        return [x for s, t in zip(structure, tree)
+                for x in _flatten_up_to(s, t)]
+    return [tree]
+
+
+def unflatten(structure: Tree, values: List[Any]) -> Tree:
+    """A tree shaped like ``structure`` (dicts, lists, tuples) holding
+    ``values`` in ``leaves`` order."""
+    it = iter(values)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(structure)
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup, then constant: a 0-d float32 tensor."""
+    warm = torch.clamp((step.float() + 1.0) / max(cfg.warmup_steps, 1),
+                       max=1.0)
+    return cfg.lr * warm
+
+
+def global_norm(grads: Tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in
+    float32, summed in leaf order (JAX's Python ``sum``)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in leaves(grads)))
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """(grads scaled to a global norm of at most ``max_norm``, the global
+    norm before scaling)."""
+    gn = global_norm(grads)
+    scale = _clip_scale(gn, max_norm)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
+
+
+def _groups(stacks: Optional[Stacks], n: int) -> Stacks:
+    groups = stacks if stacks is not None else [([i], False)
+                                                 for i in range(n)]
+    if sorted(i for idx, _ in groups for i in idx) != list(range(n)):
+        raise ValueError(f"stacks must cover the {n} leaves once each")
+    return groups
+
+
+def _apply(upd: Callable, stacks: Optional[Stacks], grads: Tree,
+           params: Tree, *states: Tree) -> Tuple[List[Any], ...]:
+    """``upd(ps, gs, ss, stacked)`` over each group of ``stacks`` (lists of
+    the group's parameter and gradient leaves and the states' subtrees at
+    them), returning per member a tuple of outputs; returns one list per
+    output, in leaf order."""
+    p_flat = leaves(params)
+    g_flat = leaves(grads)
+    s_flats = [_flatten_up_to(params, s) for s in states]
+    outs: List[Any] = [None] * len(p_flat)
+    for idx, stacked in _groups(stacks, len(p_flat)):
+        got = upd([p_flat[i] for i in idx], [g_flat[i] for i in idx],
+                  [[sf[i] for sf in s_flats] for i in idx], stacked)
+        for i, o in zip(idx, got):
+            outs[i] = o
+    return tuple(list(o) for o in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw(cfg: OptimizerConfig, stacks: Optional[Stacks] = None):
+    def init(params: Tree) -> dict:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+    def update(grads: Tree, state: dict, params: Tree, step: torch.Tensor):
+        with torch.no_grad():
+            gn = global_norm(grads)
+            scale = _clip_scale(gn, cfg.grad_clip)
+            lr = schedule(cfg, step)
+            t = step.float() + 1.0
+            bc1 = 1.0 - torch.pow(cfg.b1, t)
+            bc2 = 1.0 - torch.pow(cfg.b2, t)
+
+            def upd1(p, g, m, v, stacked):
+                # JAX's expressions, each product and sum rounded as
+                # there; the in-place ops act on temporaries only
+                g = (g * scale.to(g.dtype)).float()
+                m = cfg.b1 * m
+                m += (1 - cfg.b1) * g
+                g.square_()
+                g *= 1 - cfg.b2
+                v = cfg.b2 * v
+                v += g
+                del g
+                step_ = m / bc1
+                step_ /= torch.sqrt(v / bc2).add_(cfg.eps)
+                if p.dim() + stacked >= 2:   # no decay on 1-D leaves
+                    step_ += cfg.weight_decay * p.float()
+                step_ *= lr
+                return (p.float() - step_).to(p.dtype), m, v
+
+            def upd(ps, gs, ss, stacked):
+                return [upd1(p, g, m, v, stacked)
+                        for p, g, (m, v) in zip(ps, gs, ss)]
+
+            new_p, new_m, new_v = _apply(upd, stacks, grads, params,
+                                         state["m"], state["v"])
+        return (unflatten(params, new_p),
+                {"m": unflatten(params, new_m),
+                 "v": unflatten(params, new_v)}, gn)
+
+    return init, update
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment)
+# ---------------------------------------------------------------------------
+
+def _is_factored(p: torch.Tensor, min_dim: int) -> bool:
+    return p.dim() >= 2 and p.shape[-1] >= min_dim and \
+        p.shape[-2] >= min_dim
+
+
+def adafactor(cfg: OptimizerConfig, stacks: Optional[Stacks] = None):
+    def init(params: Tree) -> dict:
+        def st(p):
+            def zeros(shape):
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=p.device)
+            if _is_factored(p, cfg.factored_min_dim):
+                return (zeros(p.shape[:-1]),                       # vr
+                        zeros(p.shape[:-2] + p.shape[-1:]))        # vc
+            return (zeros(p.shape),)                               # v
+        return {"s": tree_map(st, params)}
+
+    def update(grads: Tree, state: dict, params: Tree, step: torch.Tensor):
+        with torch.no_grad():
+            gn = global_norm(grads)
+            scale = _clip_scale(gn, cfg.grad_clip)
+            lr = schedule(cfg, step)
+            t = step.float() + 1.0
+            beta2 = 1.0 - torch.pow(t, -cfg.decay_offset)
+
+            def direction(g, s):
+                g = (g * scale.to(g.dtype)).float()
+                g2 = torch.square(g) + 1e-30
+                if len(s) == 2:
+                    vr = beta2 * s[0] + (1 - beta2) * g2.mean(-1)
+                    vc = beta2 * s[1] + (1 - beta2) * g2.mean(-2)
+                    denom = torch.sqrt(
+                        vr[..., :, None] * vc[..., None, :]
+                        / torch.clamp(vr.mean(-1)[..., None, None],
+                                      min=1e-30))
+                    ns = (vr, vc)
+                else:
+                    v = beta2 * s[0] + (1 - beta2) * g2
+                    denom = torch.sqrt(v)
+                    ns = (v,)
+                return g / torch.clamp(denom, min=1e-30), ns
+
+            def upd(ps, gs, ss, stacked):
+                if stacked and ps[0].dim() == 1 and min(
+                        len(ps), ps[0].shape[0]) >= cfg.factored_min_dim:
+                    raise NotImplementedError(
+                        "JAX factors this stack across its layer axis; the "
+                        "port keeps one tensor per layer")
+                dirs = [direction(g, s) for g, (s,) in zip(gs, ss)]
+                # Adafactor's update clipping (RMS <= 1), over the stack
+                sq = sum(torch.sum(torch.square(d)) for d, _ in dirs)
+                count = sum(d.numel() for d, _ in dirs)
+                rms = torch.sqrt(sq / count + 1e-30)
+                out = []
+                for p, (step_, ns) in zip(ps, dirs):
+                    step_ = step_ / torch.clamp(rms, min=1.0)
+                    if p.dim() + stacked >= 2:
+                        step_ = step_ + cfg.weight_decay * p.float()
+                    out.append(((p.float() - lr * step_).to(p.dtype), ns))
+                return out
+
+            new_p, new_s = _apply(upd, stacks, grads, params, state["s"])
+        return unflatten(params, new_p), {"s": unflatten(params, new_s)}, gn
+
+    return init, update
+
+
+def build_optimizer(cfg: OptimizerConfig, stacks: Optional[Stacks] = None):
+    """The (init, update) pair of ``cfg.name``; ``stacks`` as the module
+    docstring says."""
+    if cfg.name == "adamw":
+        return adamw(cfg, stacks)
+    if cfg.name == "adafactor":
+        return adafactor(cfg, stacks)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

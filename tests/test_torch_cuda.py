@@ -1172,3 +1172,140 @@ def test_sharded_vb_fit_matches_the_estep_kernel_fit(cuda, grid):
     want = vb_fit(x, gen, cfg, use_kernel=True, lam0=lam0)
     assert got.device == want.device
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM training: no kernel on its path, the wrappers refuse grad
+# ---------------------------------------------------------------------------
+
+def _wrapper_calls(dev):
+    """(name, call(requires_grad)) for each CUDA wrapper at a small
+    shape; each call builds its inputs, the first requiring grad when
+    asked."""
+    def flash(rg):
+        q, k, v = (torch.randn((1, 64, h, 64), device=dev,
+                               dtype=torch.bfloat16) for h in (4, 2, 2))
+        return flash_ops.flash_attention(q.requires_grad_(rg), k, v)
+
+    def decode(rg):
+        q = torch.randn((1, 1, 4, 64), device=dev, dtype=torch.bfloat16)
+        kc, vc = (torch.randn((1, 64, 2, 64), device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        return decode_ops.decode_attention(q.requires_grad_(rg), kc, vc, 10)
+
+    def slstm(rg):
+        xpre = torch.randn((1, 8, 4, 2, 16), device=dev)
+        r = torch.randn((2, 16, 64), device=dev) * 0.25
+        return slstm_ops.slstm_scan(xpre.requires_grad_(rg), r,
+                                    *zero_state(1, 2, 16, dev))[0]
+
+    def merge(rg):
+        parts = [torch.rand((8, 64), device=dev) for _ in range(3)]
+        parts[0].requires_grad_(rg)
+        return merge_ops.merge_topics_parts(
+            parts, torch.ones(3, device=dev), bias=0.1, base=0.1)
+
+    return [("flash_attention", flash), ("decode_attention", decode),
+            ("slstm_scan", slstm), ("merge_topics_parts", merge)]
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """A kernel's output has no grad_fn, so a CUDA input that requires
+    grad raises while grad mode is on; under ``torch.no_grad()``, and for
+    inputs that need no grad, the wrappers run as before."""
+    for name, call in _wrapper_calls(cuda):
+        with pytest.raises(ValueError, match="ring_attention"):
+            call(True)
+        with torch.no_grad():
+            out = call(True)
+        assert not out.requires_grad
+        assert torch.isfinite(call(False)).all(), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-1.3b",
+                                  "recurrentgemma-9b", "llava-next-34b",
+                                  "whisper-tiny", "qwen3-moe-235b-a22b"])
+def test_train_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
+    """``Model.loss`` and every gradient of a reduced float32 model on the
+    card (TF32 off) against the same weights and batch on the CPU, loss
+    at 1e-5, each gradient leaf at 1e-4 of its largest magnitude; no
+    kernel launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optim import leaves, unflatten
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, 2, 64, 0, 0)
+    counts = (flash_ops.flash_attention_launches,
+              decode_ops.decode_attention_launches,
+              slstm_ops.slstm_scan_launches)
+    out = {}
+    for dev in ("cpu", cuda):
+        flat = [x.to(dev).requires_grad_() for x in leaves(params)]
+        loss, _ = model.loss(unflatten(params, flat), _tree_to(batch, dev))
+        out[str(dev)] = (loss.detach().cpu(),
+                         [g.cpu() for g in torch.autograd.grad(loss, flat)])
+    torch.cuda.synchronize()
+    assert counts == (flash_ops.flash_attention_launches,
+                      decode_ops.decode_attention_launches,
+                      slstm_ops.slstm_scan_launches)
+    (l_c, g_c), (l_d, g_d) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(l_d, l_c, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g_d, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_ring_attention_bf16_on_the_card_holds_float32(cuda):
+    """The training attention in bf16 (tensor-core products with float32
+    sums and results) against the same inputs in float32 at the JAX
+    tests' bf16 tolerance, values and gradients."""
+    from repro_torch.models.attention import ring_attention
+    q, k, v = (torch.randn((2, 1536, h, 128), device=cuda)
+               .to(torch.bfloat16).float() for h in (16, 8, 8))
+    ct = torch.randn((2, 1536, 16, 128), device=cuda)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xs = [x.to(dt).requires_grad_() for x in (q, k, v)]
+        o = ring_attention(*xs, causal=True, window=700)
+        res[dt] = [o.float()] + [g.float() for g in torch.autograd.grad(
+            o.float(), xs, ct)]
+    for a, b in zip(res[torch.bfloat16], res[torch.float32]):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=2e-2,
+                                   atol=2e-2 * float(b.detach().abs().max()))
+
+
+def test_bf16_trainer_restarts_bit_for_bit_on_the_card(cuda, tmp_path):
+    """Reduced qwen3-1.7b in bf16 on the card: 6 steps against 4, a
+    checkpoint, a new Trainer's restore and 2 more: the same bits."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import batch_stream
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptimizerConfig, Trainer
+    from repro_torch.train.optim import leaves
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(),
+                              dtype="bfloat16")
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2)
+
+    def stream(start=0):
+        return batch_stream(cfg, 2, 64, seed=0, start_cursor=start,
+                            device=cuda)
+
+    t0 = Trainer(model, opt, device=cuda)
+    s = t0.fit(t0.init_state(), stream(), 6, log_every=0)
+    t1 = Trainer(model, opt, ckpt_dir=str(tmp_path), save_every=4,
+                 device=cuda)
+    t1.fit(t1.init_state(), stream(), 4, log_every=0)
+    t2 = Trainer(model, opt, ckpt_dir=str(tmp_path), save_every=100,
+                 device=cuda)
+    s2 = t2.restore_or_init()
+    assert int(s2.step) == 4 and s2.step.device.type == "cuda"
+    s2 = t2.fit(s2, stream(s2.data_cursor), 2, log_every=0)
+    for a, b in zip(leaves(s.params) + leaves(s.opt_state),
+                    leaves(s2.params) + leaves(s2.opt_state)):
+        assert torch.equal(a, b)

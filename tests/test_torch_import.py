@@ -36,6 +36,9 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.distributed.elastic\n"
         "import repro_torch.core.query, repro_torch.core.delta_merge\n"
         "from repro_torch.api import ShardedDeviceBackend\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.distributed.checkpoint\n"
+        "import repro_torch.distributed.compression\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'triton')\n"
@@ -69,7 +72,7 @@ def test_no_module_imports_jax_or_repro(path):
 def test_port_mirrors_the_jax_package_layout():
     for sub in ("configs", "core", "data", "obs", "testing", "kernels",
                 "api", "models", "launch", "serve", "ingest",
-                "distributed"):
+                "distributed", "train"):
         assert (PORT / sub / "__init__.py").is_file()
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
         == ["decode_attention.cu", "flash_attention.cu", "gibbs_sweep.cu",
