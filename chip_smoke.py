@@ -192,13 +192,49 @@ Phases, each of which fails the run if anything in it fails:
    run under ``torch.no_grad()``.  Every kernel's counter reads 0 after
    (a) (``launches_by_path["train"]``).
 
+13. grid — the several-device paths on grids that name the card several
+   times (costs, not a speed-up), each run inside the phase that holds
+   its model's weights, so nothing is drawn twice: (a) in phase 6,
+   qwen3-1.7b at full width on a (1, 4) grid, 2 × 4,096 tokens (S_loc =
+   1,024): the prefill through the ring on the flash kernel (cell r runs
+   r + 1 steps with q_offset = (r − blk)·S_loc and the lse), 64 greedy
+   steps through the split-K decode over the cache shards (4 decode
+   launches a layer a step), against one device at the same batch
+   (``grid_serve``); (e) there too, its 28 layers as 4 stages of 7 on a
+   ("stage",) × 4 grid, 4 microbatches, against the layers in order
+   (``grid_pipeline``); (b) in phase 7, xlstm-1.3b: the mLSTM prefix and
+   the sLSTM carry chain (4 scan launches a prefill, one a decode step);
+   (c) in phase 10, recurrentgemma-9b: the ``"local"`` window ring (3 of 4
+   steps, flash at G = 16, hd = 256) and the RG-LRU prefix; (d) in phase
+   11, qwen3-moe-235b-a22b at 8 layers: 32 experts a cell and the
+   all_to_all of capacity blocks; (f) after phase 12 frees its state,
+   training at qwen3-1.7b's widths and 8 of its layers on a (2, 2) grid
+   (data 2 × sequence 2), 3 steps, against the one-device ``Trainer`` on
+   the same weights and batch (``grid_train``).  In bf16 each prints the
+   prefill logits' largest difference and the share of greedy tokens that
+   agree (random weights leave near-ties); the hard checks are float32 at
+   the same widths and 2 layers (xlstm one "m" and one "s", recurrentgemma
+   one "rec" and one "local"): the grid's logits (prefill and 4 decode
+   steps), the loss and every gradient within ``GRID_TOL`` of one
+   device's, relative to the largest magnitude.  Every grid run's peak
+   memory allocated is at most ``GRID_PEAK_RATIO`` × one device's (and
+   within the phase's own limit).  The grid path's launches are summed
+   over (a)–(f), each run's counters zeroed just before it and read just
+   after (``launches_by_path["grid"]``).  The kernels section holds and
+   times the flash kernel at the ring-step shapes (q_offset 0 to
+   3·S_loc; the window's 0 to 2·S_loc), the decode kernel on the shard
+   that holds pos and on an empty one, and the sLSTM scan at a chain
+   cell's shape, each against its plain version, five calls giving the
+   same bits.
+
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
 phase 6 for the serve path, phase 7 for the ``"xlstm"`` path, phase 8
 for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
 10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths, phase 11 for
 the ``"moe"`` path, both models' counts summed, phase 12 for the
-``"train"`` path, 0 for every kernel),
+``"train"`` path, 0 for every kernel, phase 13 for the ``"grid"`` path,
+its runs' counts summed),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -268,6 +304,12 @@ TRAIN_PEAK_GB = 70.0       # peak memory training may allocate
 TRAIN_FAMILIES = ("qwen3-1.7b", "xlstm-1.3b", "recurrentgemma-9b",
                   "llava-next-34b", "whisper-tiny", "qwen3-moe-235b-a22b")
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4   # float32 card against CPU
+# phase 13: the grid paths on grids that name the card several times
+GRID_B, GRID_PROMPT, GRID_STEPS, GRID_CACHE = 2, 4096, 64, 4160
+GRID_CHECK_S, GRID_CHECK_LAYERS = 1024, 2   # the float32 checks' widths
+GRID_TOL = 1e-4            # float32 grid against one device, of the max
+GRID_PEAK_RATIO = 1.25     # a grid run's peak against one device's
+GRID_TRAIN_LAYERS, GRID_TRAIN_STEPS = 8, 3
 T_START = time.perf_counter()
 
 
@@ -1259,7 +1301,8 @@ def handoff_diff(cfg32, prompt: int, cache_len: int, device):
             float(lg_full.abs().max()), ok)
 
 
-def families_phase(device, card: str) -> dict:
+def families_phase(device, card: str, grid_acc: dict, grid_out: dict
+                   ) -> dict:
     """Phase 10: the serving paths of the hybrid (recurrentgemma-9b), the
     VLM (llava-next-34b at 8 of its 60 layers) and the encoder–decoder
     (whisper-tiny) on the card ``device``, one model at a time, at the
@@ -1280,7 +1323,10 @@ def families_phase(device, card: str) -> dict:
     ``generate``), the VLM's logits moved by its patch embeddings, and, in
     float32 for the hybrid (its first 3 layers: rec, rec, local) and the
     encoder–decoder, ``decode_step`` after a prompt equal to a one-longer
-    prefill at ``CONSISTENCY_TOL``.
+    prefill at ``CONSISTENCY_TOL``.  For the hybrid also phase 13 (c):
+    ``grid_serve`` on a (1, 4) grid (the ``"local"`` ring: 3 of 4 steps at
+    window 2,048; the RG-LRU prefix) into ``grid_acc`` / ``grid_out``,
+    and ``grid_f32`` at 2 layers (rec, local) and a 4,096-token prompt.
     """
     import torch
 
@@ -1289,6 +1335,7 @@ def families_phase(device, card: str) -> dict:
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.serve import generate
+    from repro_torch.models import attention as attn
     from repro_torch.models.model import build_model
 
     out = {"launches": {}, "runs": {}}
@@ -1397,7 +1444,23 @@ def families_phase(device, card: str) -> dict:
                 f"({run['scan_ms'] / run['rec_layer_ms']:.1%}); on {card}")
         out["launches"][path] = {k: n for k, n in got.items() if want[k]}
         out["runs"][path] = run
-        del params, batch, toks
+        del batch, toks
+        torch.cuda.empty_cache()
+        if path == "hybrid":
+            # the "local" ring: cell r runs min(r + 1, ring_steps) steps
+            n_ring = sum(min(r + 1, attn.ring_steps(4, s // 4, cfg.window))
+                         for r in range(4))
+            gbatch = make_batch(cfg, GRID_B, GRID_PROMPT, 0, 0)
+            gbatch.pop("labels")
+            grid_out[cfg.name] = grid_serve(
+                cfg.name, model, params, gbatch, device, card, grid_acc,
+                {"flash_attention": kinds.count("local") * n_ring,
+                 "decode_attention": 0, "slstm_scan": 0})
+            check(grid_out[cfg.name]["grid_peak"] <= HYBRID_PEAK_GB, path,
+                  f"the grid allocated {grid_out[cfg.name]['grid_peak']:.2f}"
+                  f" GB at its peak, more than {HYBRID_PEAK_GB} GB")
+            del gbatch
+        del params
         torch.cuda.empty_cache()
         if sz["check"]:
             # the same draw in float32: decode_step after the prompt must
@@ -1414,6 +1477,10 @@ def families_phase(device, card: str) -> dict:
                 f"{c32.layer_kinds()} at full width: decode_step(prefill("
                 f"{cs})) vs prefill({cs + 1}) max abs diff {diff:.3g} over "
                 f"logits up to {scale:.3g} (tol {CONSISTENCY_TOL})")
+        if path == "hybrid":
+            grid_f32(cfg.name, dataclasses.replace(
+                cfg, dtype="float32", n_layers=2,
+                block_pattern=("rec", "local")), device, s=GRID_PROMPT)
         log(f"[{path}] ran {time.perf_counter() - t_model:.1f} s")
     return out
 
@@ -1496,7 +1563,7 @@ def moe_split(model, params, tokens, device) -> dict:
     return out
 
 
-def moe_phase(device, card: str) -> dict:
+def moe_phase(device, card: str, grid_acc: dict, grid_out: dict) -> dict:
     """Phase 11: the MoE serving path on the card ``device``: each of
     ``MOE_ARCHS`` at its published widths, cut to ``MOE_LAYERS`` layers,
     one model at a time (each freed before the next).
@@ -1518,7 +1585,11 @@ def moe_phase(device, card: str) -> dict:
     capacity_factor = n_experts / moe_top_k, ``decode_step`` after a
     ``MOE_CHECK_PROMPT``-token prompt equal to a one-longer prefill at
     ``CONSISTENCY_TOL``.  Printed: prefill seconds, decode ms per step,
-    tokens/s, the byte bound, ``moe_split`` and the drop share.
+    tokens/s, the byte bound, ``moe_split`` and the drop share.  For
+    qwen3-moe-235b-a22b also phase 13 (d): ``grid_serve`` on a (1, 4)
+    grid (32 experts a cell, the ``all_to_all`` of capacity blocks; its
+    peak also at most ``MOE_PEAK_GB``) into ``grid_acc`` / ``grid_out``,
+    and ``grid_f32`` at 2 layers with no drops.
     """
     import torch
 
@@ -1673,7 +1744,22 @@ def moe_phase(device, card: str) -> dict:
             f"the first layer's {run['pairs']} (token, choice) pairs past "
             f"capacity {run['capacity']}; on {card}")
         out["runs"][arch] = run
-        del params, batch, toks
+        del batch, toks
+        torch.cuda.empty_cache()
+        if arch == "qwen3-moe-235b-a22b":
+            gbatch = make_batch(cfg, GRID_B, GRID_PROMPT, 0, 0)
+            gbatch.pop("labels")
+            grid_out[arch] = grid_serve(
+                arch, model, params, gbatch, device, card, grid_acc,
+                {"flash_attention": MOE_LAYERS * sum(range(1, 5)),
+                 "decode_attention": MOE_LAYERS * 4 * GRID_STEPS,
+                 "slstm_scan": 0})
+            check(grid_out[arch]["grid_peak"] <= MOE_PEAK_GB,
+                  f"{arch}: the grid allocated "
+                  f"{grid_out[arch]['grid_peak']:.2f} GB at its peak, more "
+                  f"than {MOE_PEAK_GB} GB")
+            del gbatch
+        del params
         torch.cuda.empty_cache()
         # the same draw in float32 at a capacity where no pair can drop:
         # decode_step after the prompt must give the logits of a one-longer
@@ -1695,6 +1781,8 @@ def moe_phase(device, card: str) -> dict:
             f"decode_step(prefill({cs})) vs prefill({cs + 1}) max abs diff "
             f"{diff:.3g} over logits up to {scale:.3g} (tol "
             f"{CONSISTENCY_TOL})")
+        if arch == "qwen3-moe-235b-a22b":
+            grid_f32(arch, c32, device, s=MOE_CHECK_PROMPT)
         left = torch.cuda.memory_allocated() / 1e9
         check(left <= held + 0.1, f"{arch}: {left:.2f} GB still allocated "
               f"after the model was freed ({held:.2f} GB before it)")
@@ -2006,6 +2094,335 @@ def train_phase(device, card: str) -> dict:
     log(f"[train] phase ran {time.perf_counter() - t_phase:.1f} s, the script "
         f"{time.perf_counter() - T_START:.0f} s so far")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the grid
+# ---------------------------------------------------------------------------
+
+def grid_env(device, shape, axis_names=("data", "model")):
+    """A grid that names ``device`` at every cell: (1, 4), (2, 2), or
+    ("stage",) x n."""
+    from repro_torch.distributed.sharding import MeshEnv
+    if len(shape) == 1:
+        return MeshEnv((device,) * shape[0], axis_names=axis_names)
+    return MeshEnv([[device] * shape[1]] * shape[0])
+
+
+GRID_KERNELS = ("flash_attention", "decode_attention", "slstm_scan")
+
+
+def grid_zero() -> None:
+    """Every counter of the kernels the grid paths launch set to 0."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    flash_ops.flash_attention_launches = 0
+    decode_ops.decode_attention_launches = 0
+    slstm_ops.slstm_scan_launches = 0
+    for route in slstm_ops.ROUTES:
+        setattr(slstm_ops, f"slstm_{route}_launches", 0)
+
+
+def grid_read(acc: dict) -> dict:
+    """The counters now, added into ``acc`` (the grid path's sums)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    got = {"flash_attention": flash_ops.flash_attention_launches,
+           "decode_attention": decode_ops.decode_attention_launches,
+           "slstm_scan": slstm_ops.slstm_scan_launches}
+    for k, n in got.items():
+        acc[k] = acc.get(k, 0) + n
+    return got
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+def grid_serve(tag: str, model, params, batch, device, card: str,
+               acc: dict, want: dict) -> dict:
+    """Phase 13 (a)–(d): one model's serving path through ``generate`` on
+    one device, then on a (1, 4) grid of the same card (the sequence over
+    four cells: S_loc = prompt / 4), ``GRID_STEPS`` greedy steps in a
+    ``GRID_CACHE``-position cache, each from a reset peak.  The grid's
+    launches (counters zeroed just before its ``generate``, read just
+    after) are added to ``acc`` and must equal ``want``.  In bf16 only
+    printed: the largest difference of the prefill's last logits and
+    the share of greedy tokens that agree (random weights leave near-ties).
+    Checked: finite logits, tokens in the vocabulary, the grid's peak at
+    most ``GRID_PEAK_RATIO`` times one device's."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    env = grid_env(device, (1, 4))
+    cfg = model.cfg
+    dev_batch = {k: v.to(device) for k, v in batch.items()}
+    with torch.inference_mode():
+        lg1, c = model.prefill(params, dev_batch, cache_len=GRID_CACHE)
+        del c
+        lg2, c = model.prefill(params, dev_batch, cache_len=GRID_CACHE,
+                               env=env)
+        del c
+    diff, scale = float((lg1 - lg2).abs().max()), float(lg1.abs().max())
+    del lg1, lg2
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, e in (("one device", None), ("grid (1, 4)", env)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if e is not None:
+            grid_zero()
+        stats = {}
+        toks = generate(model, params, batch, steps=GRID_STEPS,
+                        cache_len=GRID_CACHE, stats=stats, env=e)
+        got = grid_read(acc) if e is not None else None
+        runs[name] = dict(toks=toks, stats=stats, got=got,
+                          peak=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    one, grid = runs["one device"], runs["grid (1, 4)"]
+    agree = float((one["toks"] == grid["toks"]).float().mean())
+    b = batch["tokens"].shape[0]
+    for name, r in runs.items():
+        st = r["stats"]
+        log(f"[grid] {tag} {name}: B={b} prompt={batch['tokens'].shape[1]} "
+            f"cache_len={GRID_CACHE} steps={GRID_STEPS}: prefill "
+            f"{st['prefill_s']:.4f} s, decode {st['decode_s']:.4f} s = "
+            f"{st['decode_s'] / GRID_STEPS * 1e3:.3f} ms per step; peak "
+            f"memory allocated {r['peak']:.2f} GB; on {card}")
+    log(f"[grid] {tag} bf16: prefill logits max abs diff {diff:.4g} over "
+        f"logits up to {scale:.4g}; greedy tokens agree {agree:.1%}; grid "
+        f"launches {grid['got']}")
+    if grid["got"] != want:
+        raise AssertionError(f"[grid] {tag}: launches {grid['got']}, "
+                             f"expected {want}")
+    for name, r in runs.items():
+        if not r["stats"]["logits_finite"]:
+            raise AssertionError(f"[grid] {tag} {name}: logits not finite")
+        t = r["toks"]
+        if t.shape != (b, GRID_STEPS) or int(t.min()) < 0 or \
+                int(t.max()) >= cfg.padded_vocab:
+            raise AssertionError(f"[grid] {tag} {name}: tokens outside "
+                                 f"[0, {cfg.padded_vocab})")
+    if grid["peak"] > GRID_PEAK_RATIO * one["peak"]:
+        raise AssertionError(f"[grid] {tag}: the grid's peak "
+                             f"{grid['peak']:.2f} GB is over "
+                             f"{GRID_PEAK_RATIO} x one device's "
+                             f"{one['peak']:.2f} GB")
+    return dict(diff=diff, scale=scale, agree=agree, one_peak=one["peak"],
+                grid_peak=grid["peak"],
+                one_prefill_s=one["stats"]["prefill_s"],
+                grid_prefill_s=grid["stats"]["prefill_s"],
+                one_decode_ms=one["stats"]["decode_s"] / GRID_STEPS * 1e3,
+                grid_decode_ms=grid["stats"]["decode_s"] / GRID_STEPS * 1e3)
+
+
+def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S) -> float:
+    """Phase 13's hard check of a serving path: ``cfg32`` (float32, the
+    same widths at 2 layers) drawn from seed 0, 2 prompts of ``s`` tokens
+    prefilled and 4 greedy steps decoded on one device and on a (1, 4)
+    grid of the card; every logit within ``GRID_TOL`` of one device's,
+    relative to the largest magnitude.  Returns the largest."""
+    import torch
+
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    env = grid_env(device, (1, 4))
+    batch = make_batch(cfg32, 2, s, 0, 0, device=device)
+    batch.pop("labels")
+    errs = []
+    with torch.inference_mode():
+        l1, c1 = model.prefill(params, batch, cache_len=s + 8)
+        l2, c2 = model.prefill(params, batch, cache_len=s + 8, env=env)
+        errs.append(rel_diff(l2, l1))
+        for step in range(4):
+            tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
+            l1, c1 = model.decode_step(params, c1, tok, s + step)
+            l2, c2 = model.decode_step(params, c2, tok, s + step, env=env)
+            errs.append(rel_diff(l2, l1))
+    worst = max(errs)
+    log(f"[grid] {tag} float32, {cfg32.n_layers} layers "
+        f"{list(cfg32.layer_kinds())} at full width, B=2 prompt={s}: the "
+        f"(1, 4) grid's prefill and 4 decode steps' logits within "
+        f"{worst:.3g} of one device's, of the largest (tol {GRID_TOL})")
+    if not worst <= GRID_TOL:
+        raise AssertionError(f"[grid] {tag}: float32 grid logits differ by "
+                             f"{worst:.3g} of the largest (tol {GRID_TOL})")
+    del model, params, c1, c2, l1, l2, batch
+    torch.cuda.empty_cache()
+    return worst
+
+
+def grid_pipeline(model, params, device, card: str, acc: dict) -> dict:
+    """Phase 13 (e): qwen3-1.7b's layers as 4 stages of n / 4 on a
+    ("stage",) x 4 grid of the card, ``n_micro`` = 4, through
+    ``pipeline_apply`` against the layers applied in order (prefill-form
+    layers: the flash kernel, RoPE at positions 0..S-1), on the embedded
+    tokens of 4 prompts of 1,024; bf16 printed.  Then the hard check:
+    float32, 2 layers as 2 stages of 1 on ("stage",) x 2, within
+    ``GRID_TOL``."""
+    import torch
+
+    from repro_torch.data.lm import make_batch
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  pipeline_bubble)
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+
+    def run(model, params, env, n_stages, s, acc):
+        layers = params["layers"]
+        per = len(layers) // n_stages
+        stages = [layers[i * per:(i + 1) * per] for i in range(n_stages)]
+        tokens = make_batch(model.cfg, 4, s, 0, 2, device=device)["tokens"]
+        positions = torch.arange(s, device=device)
+
+        def layer_fn(ps, h):
+            for p in ps:
+                h = model._attn_layer(
+                    p, h, positions, lambda q, k, v: attn.flash_attention_local(
+                        q, k, v, causal=True))[0]
+            return h
+
+        with torch.inference_mode():
+            x = model._embed(params, tokens)
+            want = layer_fn(layers, x)
+            grid_zero()
+            t0 = time.perf_counter()
+            got = pipeline_apply(layer_fn, stages, x, env=env, axis="stage",
+                                 n_micro=4)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = grid_read(acc)
+        return rel_diff(got, want), counts, secs
+
+    cfg = model.cfg
+    env = grid_env(device, (4,), ("stage",))
+    diff, counts, secs = run(model, params, env, 4, 1024, acc)
+    log(f"[grid] pipeline {cfg.name}: {cfg.n_layers} layers as 4 stages of "
+        f"{cfg.n_layers // 4}, n_micro 4 (bubble {pipeline_bubble(4, 4):.3f})"
+        f", B=4 S=1024 bf16: {secs:.3f} s; against the layers in order max "
+        f"diff {diff:.3g} of the largest; launches {counts}; on {card}")
+    if counts["flash_attention"] != cfg.n_layers * 4:
+        raise AssertionError(f"[grid] the pipeline launched the flash kernel "
+                             f"{counts['flash_attention']} times, expected "
+                             f"{cfg.n_layers * 4}")
+    c32 = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=GRID_CHECK_LAYERS)
+    m32 = build_model(c32)
+    p32 = m32.init(torch.Generator(device=device).manual_seed(0))
+    env2 = grid_env(device, (2,), ("stage",))
+    diff32, _, _ = run(m32, p32, env2, 2, 512, {})   # a check, uncounted
+    log(f"[grid] pipeline float32, {c32.n_layers} layers as 2 stages of 1: "
+        f"within {diff32:.3g} of the layers in order (tol {GRID_TOL})")
+    if not diff32 <= GRID_TOL:
+        raise AssertionError(f"[grid] float32 pipeline differs by {diff32:.3g}"
+                             f" of the largest (tol {GRID_TOL})")
+    del m32, p32
+    torch.cuda.empty_cache()
+    return dict(diff=diff, diff32=diff32, secs=secs)
+
+
+def grid_train(device, card: str) -> dict:
+    """Phase 13 (f): training on a (2, 2) grid of the card (data 2 x
+    sequence 2) after phase 12 has freed its state: qwen3-1.7b's widths at
+    ``GRID_TRAIN_LAYERS`` of its 28 layers, AdamW (lr 1e-3, warmup 2),
+    ``GRID_TRAIN_STEPS`` steps on one batch of 2 x 4,096 tokens, against
+    the one-device ``Trainer`` on the same weights (seed 0) and batch: the
+    masters and the optimizer state rest as pieces by
+    ``infer_param_specs``.  bf16: the losses and the largest parameter
+    difference printed; the grid's peak at most ``GRID_PEAK_RATIO`` x one
+    device's and at most ``TRAIN_PEAK_GB``.  Hard check: float32 at 2
+    layers, ``Model.loss`` and every gradient on the grid within
+    ``GRID_TOL`` of one device's (each leaf against its largest)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptimizerConfig, Trainer
+    from repro_torch.train.optim import leaves, unflatten
+    from repro_torch.train.trainer import join_tree
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=GRID_TRAIN_LAYERS)
+    model = build_model(cfg)
+    opt = OptimizerConfig(name="adamw", lr=1e-3, warmup_steps=2)
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, device=device)
+    env = grid_env(device, (2, 2))
+    runs = {}
+    for name, e in (("one device", None), ("grid (2, 2)", env)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(model, opt, seed=0, device=device, env=e)
+        state = tr.init_state()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(GRID_TRAIN_STEPS):
+            params, opt_state, step, m = tr._step_fn(
+                state.params, state.opt_state, state.step, batch)
+            state = dataclasses.replace(state, params=params,
+                                        opt_state=opt_state, step=step)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / GRID_TRAIN_STEPS
+        whole = state.params if e is None else join_tree(state.params, e)
+        runs[name] = dict(losses=losses, s_step=secs,
+                          peak=torch.cuda.max_memory_allocated() / 1e9,
+                          params=[t.detach().clone() for t in leaves(whole)])
+        del tr, state, params, opt_state, whole
+        torch.cuda.empty_cache()
+    one, grid = runs["one device"], runs["grid (2, 2)"]
+    pdiff = max(float((a - b).abs().max())
+                for a, b in zip(one["params"], grid["params"]))
+    for name, r in runs.items():
+        log(f"[grid] train {cfg.name} at {cfg.n_layers} layers, {name}: "
+            f"B={TRAIN_B} S={TRAIN_S}, {GRID_TRAIN_STEPS} steps, "
+            f"{r['s_step']:.3f} s a step, losses "
+            f"{[round(x, 4) for x in r['losses']]}, peak memory allocated "
+            f"{r['peak']:.2f} GB; on {card}")
+    log(f"[grid] train bf16: after {GRID_TRAIN_STEPS} steps the grid's "
+        f"masters lie within {pdiff:.3g} of one device's")
+    for name, r in runs.items():
+        if not all(abs(x) < float("inf") for x in r["losses"]):
+            raise AssertionError(f"[grid] train {name}: a loss is not finite")
+    if grid["peak"] > min(GRID_PEAK_RATIO * one["peak"], TRAIN_PEAK_GB):
+        raise AssertionError(f"[grid] train: the grid's peak "
+                             f"{grid['peak']:.2f} GB is over "
+                             f"{GRID_PEAK_RATIO} x one device's "
+                             f"{one['peak']:.2f} GB or {TRAIN_PEAK_GB} GB")
+    del runs, one, grid
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=GRID_CHECK_LAYERS)
+    m32 = build_model(c32)
+    p32 = m32.init(torch.Generator(device=device).manual_seed(0))
+    full = make_batch(c32, 2, GRID_CHECK_S, 0, 0, device=device)
+    got = []
+    for e in (None, env):
+        ps = [t.clone().requires_grad_() for t in leaves(p32)]
+        loss, _ = m32.loss(unflatten(p32, ps), full, env=e)
+        got.append((float(loss.detach()), torch.autograd.grad(loss, ps)))
+    (l1, g1), (l2, g2) = got
+    gerr = max(rel_diff(b, a) for a, b in zip(g1, g2))
+    lerr = abs(l2 - l1) / abs(l1)
+    log(f"[grid] train float32, {c32.n_layers} layers, B=2 S={GRID_CHECK_S}"
+        f" on the (2, 2) grid: loss {l2:.6f} against {l1:.6f} (rel "
+        f"{lerr:.3g}), every gradient within {gerr:.3g} of its largest "
+        f"(tol {GRID_TOL})")
+    if not (lerr <= GRID_TOL and gerr <= GRID_TOL):
+        raise AssertionError(f"[grid] float32 training on the grid differs: "
+                             f"loss {lerr:.3g}, gradients {gerr:.3g}")
+    del m32, p32, got, g1, g2
+    torch.cuda.empty_cache()
+    return dict(pdiff=pdiff, gerr=gerr, lerr=lerr)
 
 
 def main() -> int:
@@ -3193,8 +3610,27 @@ def main() -> int:
     for kname, count in s_launches.items():
         report[kname]["launches_by_path"] = {"serve": count}
         report[kname]["launches"] = count
-    del params, batch, toks
+    del batch, toks
     torch.cuda.empty_cache()
+
+    # -- 13 (a), (e): the same weights on a (1, 4) grid and as a pipeline ----
+    # the grid path's counts: each grid run's counters zeroed just before
+    # it and read just after, summed over (a)-(f)
+    grid_acc = {k: 0 for k in GRID_KERNELS}
+    grid_out = {}
+    t_grid = time.perf_counter()
+    gbatch = make_batch(lcfg, GRID_B, GRID_PROMPT, 0, 0)
+    gbatch.pop("labels")
+    ring = sum(range(1, 5))           # cell r runs r + 1 causal ring steps
+    grid_out["qwen3-1.7b"] = grid_serve(
+        "qwen3-1.7b", model, params, gbatch, dev, card, grid_acc,
+        {"flash_attention": lcfg.n_layers * ring,
+         "decode_attention": lcfg.n_layers * 4 * GRID_STEPS,
+         "slstm_scan": 0})
+    grid_out["pipeline"] = grid_pipeline(model, params, dev, card, grid_acc)
+    del params, gbatch
+    torch.cuda.empty_cache()
+    grid_s = time.perf_counter() - t_grid
 
     # the same weights in float32: decode_step after the served 2,048-token
     # prefill must give the logits of a 2,049-token prefill (the JAX
@@ -3219,6 +3655,10 @@ def main() -> int:
         f"{scale:.3g} (tol {CONSISTENCY_TOL})")
     del masters, p32, caches
     torch.cuda.empty_cache()
+    t_grid = time.perf_counter()
+    grid_f32("qwen3-1.7b", dataclasses.replace(
+        lcfg, dtype="float32", n_layers=GRID_CHECK_LAYERS), dev)
+    grid_s += time.perf_counter() - t_grid
 
     # -- 7. the xLSTM serving path at xlstm-1.3b full width -------------------
     xcfg = get_arch("xlstm-1.3b")
@@ -3281,8 +3721,21 @@ def main() -> int:
     report["slstm_scan"]["launches"] = x_launches
     for route, n in x_routes.items():
         report["slstm_scan"]["instances"][route]["launches"] = n
-    del params, batch, toks
+    del batch, toks
     torch.cuda.empty_cache()
+    # -- 13 (b): the mLSTM prefix and the sLSTM carry chain on a (1, 4) grid
+    t_grid = time.perf_counter()
+    gbatch = make_batch(xcfg, GRID_B, GRID_PROMPT, 0, 0)
+    gbatch.pop("labels")
+    # the chain: 4 scan launches a prefill (one a cell, in order); a decode
+    # step's state is the same on every cell: one launch
+    grid_out["xlstm-1.3b"] = grid_serve(
+        "xlstm-1.3b", xmodel, params, gbatch, dev, card, grid_acc,
+        {"flash_attention": 0, "decode_attention": 0,
+         "slstm_scan": n_s * (4 + GRID_STEPS)})
+    del params, gbatch
+    torch.cuda.empty_cache()
+    grid_s += time.perf_counter() - t_grid
 
     # the same weights in float32: decode_step after a 256-token prefill
     # must give the logits of a 257-token prefill (2e-3, as above)
@@ -3305,6 +3758,10 @@ def main() -> int:
         f"{diff:.3g} over logits up to {scale:.3g} (tol {CONSISTENCY_TOL})")
     del masters, p32, caches
     torch.cuda.empty_cache()
+    t_grid = time.perf_counter()
+    grid_f32("xlstm-1.3b", dataclasses.replace(
+        xcfg, dtype="float32", n_layers=2, block_pattern=("m", "s")), dev)
+    grid_s += time.perf_counter() - t_grid
 
     # -- 8. the multi-tenant query service ----------------------------------
     # phase 3's corpus and config; the service's counts are zeroed inside
@@ -3341,7 +3798,7 @@ def main() -> int:
 
     # -- 10. the other families' serving paths ------------------------------
     # each path's counts are zeroed inside, just before its generate
-    fam_out = families_phase(dev, card)
+    fam_out = families_phase(dev, card, grid_acc, grid_out)
     for path, counts in fam_out["launches"].items():
         for kname, count in counts.items():
             if count <= 0:
@@ -3353,7 +3810,7 @@ def main() -> int:
     # -- 11. the MoE serving path -------------------------------------------
     # each model's counts are zeroed inside, just before its generate, and
     # summed over the two models
-    moe_out = moe_phase(dev, card)
+    moe_out = moe_phase(dev, card, grid_acc, grid_out)
     for kname, count in moe_out["launches"].items():
         if count <= 0:
             raise AssertionError(f"moe path never launched {kname}")
@@ -3366,6 +3823,21 @@ def main() -> int:
     train_phase(dev, card)
     for kname in report:
         report[kname].setdefault("launches_by_path", {})["train"] = 0
+
+    # -- 13 (f): training on a (2, 2) grid, then the grid path's counts ------
+    t_grid = time.perf_counter()
+    grid_out["train"] = grid_train(dev, card)
+    grid_s += time.perf_counter() - t_grid
+    for kname in GRID_KERNELS:
+        if grid_acc[kname] <= 0:
+            raise AssertionError(f"the grid path never launched {kname}")
+    for kname in report:
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["grid"] = grid_acc.get(kname, 0)
+        report[kname]["launches"] = sum(by_path.values())
+    log(f"[grid] phase 13: launches on the grid path {grid_acc}; its runs "
+        f"took {grid_s:.1f} s in all (the families' and the MoE grid runs "
+        f"are timed within their phases)")
 
     # the attention kernels at the shapes phases 10 and 11 gave them, held
     # against their plain versions and timed (uncounted) in bf16, five
@@ -3476,6 +3948,166 @@ def main() -> int:
             f"bound {b_ms:.4f} ms ({b_by}); plain {plain:.4f} ms; SDPA "
             f"{lib:.4f} ms; same bits over 5 calls; on {card}")
         del q, kc, vc, qt, kt, vt, got, want
+    # phase 13's extensions at the shapes the grid paths gave them, held
+    # against their plain versions (the output and the lse), five repeat
+    # calls giving the same bits, timed (uncounted) beside their bound and
+    # SDPA with the step's mask: the flash kernel at qwen3-1.7b's ring step
+    # (S_loc = 1,024 of 4,096: q_offset 0, S_loc, 2 S_loc, 3 S_loc) and
+    # recurrentgemma-9b's "local" steps (window 2,048: 0, S_loc, 2 S_loc);
+    # the decode kernel on qwen3-1.7b's cache shard (1,040 of the 4,160
+    # positions) that holds pos, on one past pos (empty: pos - start < 0)
+    # and on qwen3-moe-235b-a22b's shard that holds pos
+    for label, b, s, h, kvh, hd, window, off in [
+            ("ring step q_offset=0", 2, 1024, 16, 8, 128, 0, 0),
+            ("ring step q_offset=1024", 2, 1024, 16, 8, 128, 0, 1024),
+            ("ring step q_offset=2048", 2, 1024, 16, 8, 128, 0, 2048),
+            ("ring step q_offset=3072", 2, 1024, 16, 8, 128, 0, 3072),
+            ("local ring step q_offset=0", 2, 1024, 16, 1, 256, 2048, 0),
+            ("local ring step q_offset=1024", 2, 1024, 16, 1, 256, 2048,
+             1024),
+            ("local ring step q_offset=2048", 2, 1024, 16, 1, 256, 2048,
+             2048)]:
+        q, k, v = (torch.tensor(rng.normal(size=(b, s, n, hd)),
+                                dtype=torch.float32, device=dev).to(
+                                    torch.bfloat16)
+                   for n in (h, kvh, kvh))
+
+        def step():
+            return flash_ops.flash_attention(q, k, v, causal=True,
+                                             window=window, q_offset=off,
+                                             return_lse=True)
+
+        got, lse = step()
+        want, wlse = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=True, window=window,
+                                         q_offset=off, return_lse=True)
+        err, msg = attn_close(got, want, torch.bfloat16)
+        seen = torch.isfinite(wlse)
+        if not torch.equal(torch.isfinite(lse), seen):
+            raise AssertionError(f"flash_attention ({label}): rows that see "
+                                 "no key differ from the plain version's")
+        lse_err = close(lse[seen], wlse[seen], 1e-3, 1e-4)
+        del want, wlse
+        for _ in range(5):
+            again = step()
+            if not (torch.equal(again[0], got) and torch.equal(again[1],
+                                                               lse)):
+                raise AssertionError(f"flash_attention ({label}) gives "
+                                     "other bits on a repeat call")
+        del again
+        pos = torch.arange(s, device=dev)
+        dd = (pos + off)[:, None] - pos[None, :]
+        mask = (dd >= 0) & ((dd < window) if window else True)
+        pairs = int(mask.sum())
+        del pos, dd
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(step, 10)
+        plain = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, window=window, q_offset=off,
+            return_lse=True), 3)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
+        n_bytes = 2 * (b * s * h * hd + 2 * b * s * kvh * hd) \
+            + 4 * (b * s * h * hd + b * s * h)
+        n_ops = 4 * hd * b * h * pairs
+        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        shapes["flash_attention"][label] = dict(
+            shape=f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal=True "
+                  f"window={window} q_offset={off} lse, bf16 in, f32 out",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib)
+        log(f"[kernels] flash_attention ({label}) B={b} S={s} H={h} "
+            f"KVH={kvh} hd={hd} window={window}: {msg}, lse max abs err "
+            f"{lse_err:.3g}; {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+            f"plain {plain:.3f} ms; SDPA {lib:.4f} ms; same bits over 5 "
+            f"calls; on {card}")
+        del q, k, v, qt, kt, vt, got, lse, mask
+    for label, b, s, h, kvh, hd, pos in [
+            ("shard holding pos", 2, 1040, 16, 8, 128, 1030),
+            ("empty shard", 2, 1040, 16, 8, 128, -1050),
+            ("moe shard holding pos", 2, 1040, 64, 4, 128, 1030)]:
+        q = torch.tensor(rng.normal(size=(b, 1, h, hd)), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16)
+        kc, vc = (torch.tensor(rng.normal(size=(b, s, kvh, hd)),
+                               dtype=torch.float32, device=dev).to(
+                                   torch.bfloat16) for _ in range(2))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+
+        def shard():
+            return decode_ops.decode_attention(q, kc, vc, p, return_lse=True)
+
+        got, lse = shard()
+        want, wlse = decode_attention_ref(q.float(), kc.float(), vc.float(),
+                                          pos, return_lse=True)
+        if bool(torch.isnan(got).any()) or bool(torch.isnan(lse).any()):
+            raise AssertionError(f"decode_attention ({label}) gives NaN")
+        err, msg = attn_close(got, want, torch.bfloat16)
+        seen = torch.isfinite(wlse)
+        if not torch.equal(torch.isfinite(lse), seen):
+            raise AssertionError(f"decode_attention ({label}): its lse is "
+                                 "-inf where the plain version's is not")
+        lse_err = close(lse[seen], wlse[seen], 1e-3, 1e-4) \
+            if bool(seen.any()) else 0.0
+        for _ in range(5):
+            again = shard()
+            if not (torch.equal(again[0], got) and torch.equal(again[1],
+                                                               lse)):
+                raise AssertionError(f"decode_attention ({label}) gives "
+                                     "other bits on a repeat call")
+        live = max(0, min(pos, s - 1) + 1)
+        ms = time_ms(shard, 20)
+        plain = time_ms(lambda: decode_attention_ref(
+            q, kc, vc, pos, return_lse=True), 20)
+        lib = None
+        if live:
+            qt = q.transpose(1, 2)
+            kt, vt = (x[:, :live].transpose(1, 2) for x in (kc, vc))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True), 20)
+            del qt, kt, vt
+        n_bytes = 2 * (2 * b * live * kvh * hd + (b * h * hd if live else 0)) \
+            + 4 * (b * h * hd + b * h)
+        n_ops = 4 * hd * b * h * live
+        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        shapes["decode_attention"][label] = dict(
+            shape=f"B={b} S={s} pos={pos} H={h} KVH={kvh} hd={hd} lse, bf16 "
+                  f"in, f32 out", max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"[kernels] decode_attention ({label}) B={b} S={s} pos={pos} "
+            f"H={h} KVH={kvh} hd={hd}: {msg}, lse max abs err {lse_err:.3g}; "
+            f"{ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); plain {plain:.4f} "
+            f"ms; SDPA {'-' if lib is None else f'{lib:.4f}'} ms; same bits "
+            f"over 5 calls; on {card}")
+        del q, kc, vc, got, lse, want, wlse
+    # the sLSTM scan at one cell of phase 13 (b)'s carry chain (B = 2,
+    # S_loc = 1,024 of 4,096, the model's bf16 xpre and R: the cluster
+    # route) from a carried (nonzero) state, as cells 1-3 run it
+    xpre, r, st = slstm_inputs(GRID_B, GRID_PROMPT // 4, XL_H, XL_HD, bf16,
+                               bf16, True)
+    got, got_st = slstm_ops.slstm_scan(xpre, r, *st)
+    want, want_st = slstm_scan_ref(xpre, r, *st)
+    err = max([close(got.float(), want.float(), 2.0 ** -7)]
+              + [close(g, w, 1e-4) for g, w in zip(got_st, want_st)])
+    for _ in range(5):
+        again = slstm_ops.slstm_scan(xpre, r, *st)
+        if not (torch.equal(again[0], got) and all(
+                torch.equal(x, y) for x, y in zip(again[1], got_st))):
+            raise AssertionError("slstm_scan (grid chain cell) gives other "
+                                 "bits on a repeat call")
+    ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), 10)
+    plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), 1)
+    b_ms, b_by = slstm_bound(GRID_B, GRID_PROMPT // 4, XL_H, XL_HD, 2, 2)
+    shapes["slstm_scan"] = {"grid chain cell": dict(
+        shape=f"B={GRID_B} S={GRID_PROMPT // 4} H={XL_H} hd={XL_HD} bf16 "
+              f"xpre and R, from a carried state ("
+              f"{slstm_plan(GRID_B, GRID_PROMPT // 4, XL_H, XL_HD, bf16)})",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)}
+    log(f"[kernels] slstm_scan (grid chain cell) B={GRID_B} "
+        f"S={GRID_PROMPT // 4} H={XL_H} hd={XL_HD} bf16 from a carried "
+        f"state: max abs err {err:.3g}; {ms:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); plain {plain:.3f} ms; same bits over 5 calls; on {card}")
+    del xpre, r, st, got, got_st, want, want_st, again
     for kname, rows in shapes.items():
         report[kname]["shapes"] = rows
         report[kname]["max_abs_err"] = max(

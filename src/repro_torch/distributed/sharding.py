@@ -1,66 +1,153 @@
-"""Mesh environment of the port: a 2-D grid of devices, axes ("data", "model").
+"""Mesh environment of the port: a grid of devices, its sharding rules and
+the collectives over its cells.
 
-The part of ``repro.distributed.sharding`` that MLego uses.  JAX's
-``MeshEnv`` wraps a ``jax.sharding.Mesh`` and its collectives run inside
-``shard_map``; the vocab-sharded merge there is *single-controller*: one
-process drives every local device.  The port keeps that shape.  A
-``MeshEnv`` is a grid of ``torch.device``s; a sharded function holds one
-tensor per grid cell, runs each cell's work on that cell's device, and
-reduces across cells with :func:`all_reduce`, which adds the cells'
-tensors in grid order on the first cell's device and sends the sum back.
-So the port needs no ``torch.distributed`` and no process group, and a
-reduction gives the same bits on every run.
+The port of ``src/repro/distributed/sharding.py``.  JAX's ``MeshEnv`` wraps
+a ``jax.sharding.Mesh``: a value carries a ``NamedSharding`` and its
+collectives run inside ``shard_map``.  The port is *single-controller*:
+one process drives every cell.  A ``MeshEnv`` is a grid of
+``torch.device``s with named axes, ("data", "model") by default and
+("stage",) for the pipeline; a sharded value is a Python list of one
+tensor per grid cell, in rank order (row-major over the axes), each on
+its cell's device.  A collective is a plain function over those lists:
 
-A grid may name one device several times: a (1, 4) grid of ``cuda:0``
-holds four vocabulary slices on one card, and a (1, 8) grid of ``"cpu"``
-stands in for the eight host devices the JAX tests force.
+  * :func:`all_reduce` / :func:`psum` add the cells' tensors in rank order
+    on the first cell's device and send the sum back;
+  * :func:`ppermute` moves each cell's tensor to its neighbour along an
+    axis; :func:`all_gather` concatenates an axis's tensors on every cell;
+    :func:`all_to_all` exchanges the blocks of an axis's tensors.
 
-The LM sharding rules of the JAX module (``constrain``,
-``gather_for_compute``, ``infer_param_specs``, ``param_shardings``,
-``batch_specs``, ``cache_specs``, ``shardings_of``) belong to LM training
-and serving on several devices.  The port trains and serves on one
-device (``train/*``, ``launch/{train,serve}.py``); those rules wait for
-ROADMAP.md Queue 1 item 6.
+So the port needs no ``torch.distributed`` and no process group, and every
+reduction gives the same bits on every run.  A grid may name one device
+several times: a (1, 4) grid of ``cuda:0`` holds four sequence shards on
+one card, and a (2, 4) grid of ``"cpu"`` stands in for the eight host
+devices the JAX tests force.  A copy onto the same device is no copy
+(``Tensor.to`` returns the tensor itself), and work that JAX replicates
+runs once per *distinct* device: cells whose inputs are the same tensors
+share one result (:func:`cellwise`), and a gather onto a device that
+already holds the whole tensor returns it (:func:`unshard`).
+
+The LM rules are JAX's, rule for rule: :func:`infer_param_specs`
+(``_spec_for``), :func:`batch_specs`, :func:`cache_specs`, read only a
+leaf's path and shape.  The port keeps per-layer lists where JAX stacks
+layers on a leading axis (``"layers/3/attn/wq"`` has no ``"stack"``), so
+a port leaf's spec is JAX's for the same leaf with the stacked lead entry
+dropped.  :func:`shard` and :func:`unshard` split a tensor into its cells'
+pieces and join them back (the port's ``param_shardings`` and
+``shardings_of`` give :class:`NamedSharding`s that do both);
+:func:`gather_for_compute` all-gathers one layer's weights once per
+distinct device; :func:`constrain` lays an activation out by JAX's
+logical names.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from repro_torch.kernels.common import resolve_device
 
 DeviceLike = Union[str, torch.device]
+Cells = List[Any]          # one value per grid cell, in rank order
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: one entry per dimension, ``None``
+    (replicated), an axis name, or a tuple of axis names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class Sharded(list):
+    """A tensor's pieces, one per grid cell in rank order, with the
+    ``spec`` that cut them (what :func:`shard` returns)."""
+
+    def __init__(self, pieces, spec=None):
+        super().__init__(pieces)
+        self.spec = spec
+
+
+def _flatten(grid, depth: int) -> List[Any]:
+    if depth == 0:
+        return [grid]
+    return [x for row in grid for x in _flatten(row, depth - 1)]
+
+
+def _grid_shape(grid, depth: int) -> Tuple[int, ...]:
+    if depth == 0:
+        return ()
+    if not isinstance(grid, (tuple, list)) or not grid:
+        raise ValueError("a mesh is a non-empty rectangular grid of devices")
+    inner = {_grid_shape(row, depth - 1) for row in grid}
+    if len(inner) != 1:
+        raise ValueError("a mesh is a non-empty rectangular grid of devices")
+    return (len(grid),) + inner.pop()
+
+
+def _resolve(grid, depth: int):
+    if depth == 0:
+        return resolve_device(grid)
+    return tuple(_resolve(row, depth - 1) for row in grid)
 
 
 @dataclass(frozen=True)
 class MeshEnv:
-    """``devices[d][m]`` is the device of data rank d, model shard m."""
+    """``devices`` nests one level per axis of ``axis_names``: for the
+    default ("data", "model") ``devices[d][m]`` is the device of data rank
+    d, model shard m; for ("stage",) ``devices[s]`` is stage s's.
+    ``profile`` ("train" | "serve") selects the weight rules of
+    :func:`infer_param_specs`, as in JAX."""
 
-    devices: Tuple[Tuple[torch.device, ...], ...]
+    devices: Tuple
+    axis_names: Tuple[str, ...] = ("data", "model")
+    profile: str = "train"
 
     def __post_init__(self):
-        grid = tuple(tuple(resolve_device(d) for d in row)
-                     for row in self.devices)
-        if not grid or not grid[0] or len({len(r) for r in grid}) != 1:
+        names = tuple(self.axis_names)
+        try:
+            shape = _grid_shape(self.devices, len(names))
+        except (ValueError, TypeError):
             raise ValueError(f"a mesh is a non-empty rectangular grid of "
-                             f"devices, got {self.devices!r}")
-        object.__setattr__(self, "devices", grid)
+                             f"devices, got {self.devices!r}") from None
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "devices", _resolve(self.devices,
+                                                     len(names)))
+        object.__setattr__(self, "_shape", shape)
+        object.__setattr__(self, "_cells",
+                           tuple(_flatten(self.devices, len(names))))
 
     @property
-    def axis_names(self) -> Tuple[str, ...]:
-        return ("data", "model")
+    def shape(self) -> Tuple[int, ...]:
+        """The axes' sizes, in ``axis_names`` order."""
+        return self._shape
+
+    @property
+    def cells(self) -> Tuple[torch.device, ...]:
+        """Every cell's device, in rank order (row-major)."""
+        return self._cells
+
+    @property
+    def n_cells(self) -> int:
+        return len(self._cells)
 
     @property
     def dp_axes(self) -> Tuple[str, ...]:
-        return ("data",)
+        return tuple(a for a in ("pod", "data") if a in self.axis_names)
 
     @property
     def tp_axis(self) -> Optional[str]:
-        return "model"
+        return "model" if "model" in self.axis_names else None
 
     def size(self, axis) -> int:
         if axis is None:
@@ -70,11 +157,9 @@ class MeshEnv:
             for a in axis:
                 out *= self.size(a)
             return out
-        if axis == "data":
-            return len(self.devices)
-        if axis == "model":
-            return len(self.devices[0])
-        raise ValueError(f"unknown mesh axis {axis!r}")
+        if axis not in self.axis_names:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        return self._shape[self.axis_names.index(axis)]
 
     @property
     def dp_size(self) -> int:
@@ -86,8 +171,49 @@ class MeshEnv:
 
     @property
     def first(self) -> torch.device:
-        """The device of cell (0, 0): reductions land here."""
-        return self.devices[0][0]
+        """The device of cell 0: reductions land here."""
+        return self._cells[0]
+
+    @property
+    def distinct_devices(self) -> Tuple[torch.device, ...]:
+        """The grid's devices without repeats, in cell order."""
+        return tuple(dict.fromkeys(self._cells))
+
+    def coords(self, c: int) -> Tuple[int, ...]:
+        """Cell c's coordinate along each axis."""
+        out = []
+        for n in reversed(self._shape):
+            out.append(c % n)
+            c //= n
+        return tuple(reversed(out))
+
+    def index(self, coords: Sequence[int]) -> int:
+        c = 0
+        for x, n in zip(coords, self._shape):
+            c = c * n + x
+        return c
+
+    def axis_index(self, c: int, axis) -> int:
+        """Cell c's rank along ``axis`` (a tuple of axes: row-major)."""
+        if axis is None:
+            return 0
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        co = self.coords(c)
+        idx = 0
+        for a in axes:
+            idx = idx * self.size(a) + co[self.axis_names.index(a)]
+        return idx
+
+    def group(self, c: int, axis: str) -> List[int]:
+        """The cells along ``axis`` that share cell c's other coordinates,
+        in rank order."""
+        i = self.axis_names.index(axis)
+        co = list(self.coords(c))
+        out = []
+        for x in range(self._shape[i]):
+            co[i] = x
+            out.append(self.index(co))
+        return out
 
 
 _LOCAL = threading.local()
@@ -107,9 +233,10 @@ def set_env(env: MeshEnv):
         _LOCAL.env = prev
 
 
-def single_device_env(device: Optional[DeviceLike] = None) -> MeshEnv:
+def single_device_env(device: Optional[DeviceLike] = None,
+                      profile: str = "train") -> MeshEnv:
     """A (1, 1) grid over ``device`` (the current card by default)."""
-    return MeshEnv(((resolve_device(device),),))
+    return MeshEnv(((resolve_device(device),),), profile=profile)
 
 
 def local_mesh_env(device: Optional[DeviceLike] = None,
@@ -133,6 +260,201 @@ def local_mesh_env(device: Optional[DeviceLike] = None,
                           for i in range(n)),))
 
 
+# ---------------------------------------------------------------------------
+# pieces of a tensor: shard / unshard
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _full_spec(spec, ndim: int) -> Tuple:
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _piece_index(env: MeshEnv, c: int, spec) -> Tuple[int, ...]:
+    return tuple(env.axis_index(c, _axes(e) or None) for e in spec)
+
+
+def shard(t: torch.Tensor, spec, env: MeshEnv) -> Cells:
+    """``t`` split by ``spec`` into one piece per cell, each on its cell's
+    device: a dimension named by an axis (or axes) is cut into that many
+    equal parts, a ``None`` dimension is whole.  Cells that hold the same
+    part on the same device share one tensor, and a part on ``t``'s own
+    device is a view of ``t`` (no copy)."""
+    spec = _full_spec(spec, t.dim())
+    for dim, e in enumerate(spec):
+        if t.shape[dim] % env.size(_axes(e)) != 0:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} is not "
+                             f"divisible by {_axes(e)} of the mesh")
+    made: Dict[Tuple, torch.Tensor] = {}
+    out = []
+    for c, dev in enumerate(env.cells):
+        key = (_piece_index(env, c, spec), dev)
+        if key not in made:
+            piece = t
+            for dim, (e, i) in enumerate(zip(spec, key[0])):
+                n = env.size(_axes(e))
+                if n > 1:
+                    step = t.shape[dim] // n
+                    piece = piece.narrow(dim, i * step, step)
+            made[key] = piece.to(dev)
+        out.append(made[key])
+    return Sharded(out, P(*spec))
+
+
+def _whole_base(parts: Dict[Tuple, torch.Tensor], spec, sizes, shape,
+                device) -> Optional[torch.Tensor]:
+    """The tensor the parts are views of, when they tile it exactly as
+    :func:`shard` cut it and it lies on ``device``: joining them again is
+    then no copy."""
+    root = next(iter(parts.values()))._base
+    if root is None or root.device != device:
+        return None
+    # pieces that are autograd leaves of their own are not views to join
+    # through: their gradients must reach them, not the tensor below
+    if any(p.requires_grad and (p.grad_fn is None or not root.requires_grad)
+           for p in parts.values()):
+        return None
+    base = root
+    if tuple(root.shape) != shape:
+        n = 1
+        for x in shape:
+            n *= x
+        if not root.is_contiguous() or root.numel() != n:
+            return None
+        base = root.view(shape)
+    for idx, p in parts.items():
+        want = base
+        for dim, (n, i) in enumerate(zip(sizes, idx)):
+            if n > 1:
+                step = shape[dim] // n
+                want = want.narrow(dim, i * step, step)
+        if (p._base is not root or p.storage_offset() != want.storage_offset()
+                or p.shape != want.shape or p.stride() != want.stride()):
+            return None
+    return base
+
+
+class _Fanout(torch.autograd.Function):
+    """x -> one tensor per device of ``devices`` (x itself on its own
+    device).  The backward adds the copies' gradients in device order on
+    x's device, so a gradient summed across devices has a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.src = x.device
+        return tuple(x.view_as(x) if d == x.device else x.to(d)
+                     for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                g = g.to(ctx.src)
+                total = g if total is None else total + g
+        return total, None
+
+
+def _needs_fanout(tensors, devices) -> bool:
+    return (torch.is_grad_enabled() and len(devices) > 1
+            and any(t.requires_grad for t in tensors))
+
+
+def unshard(cells: Cells, spec=None, env: MeshEnv = None,
+            device: Optional[DeviceLike] = None) -> torch.Tensor:
+    """The whole tensor on ``device`` (the first cell's by default) from
+    the cells' pieces laid out by ``spec``: for each part the first cell
+    that holds it, joined along the sharded dimensions.  When the parts
+    are views that tile one tensor on ``device`` (what :func:`shard` gives
+    on a grid that repeats that device), that tensor itself.  ``spec``
+    defaults to a :class:`Sharded`'s own."""
+    if spec is None:
+        spec = cells.spec
+    dev = env.first if device is None else resolve_device(device)
+    spec = _full_spec(spec, cells[0].dim())
+    sizes = [env.size(_axes(e)) for e in spec]
+    parts: Dict[Tuple, torch.Tensor] = {}
+    for c in range(env.n_cells):
+        parts.setdefault(_piece_index(env, c, spec), cells[c])
+    if len(parts) == 1:
+        return next(iter(parts.values())).to(dev)
+    shape = tuple(p * n for p, n in zip(next(iter(parts.values())).shape,
+                                        sizes))
+    base = _whole_base(parts, spec, sizes, shape, dev)
+    if base is not None:
+        return base
+
+    def build(dim: int, prefix: Tuple[int, ...]) -> torch.Tensor:
+        if dim == len(spec):
+            return parts[prefix].to(dev)
+        if sizes[dim] == 1:
+            return build(dim + 1, prefix + (0,))
+        return torch.cat([build(dim + 1, prefix + (i,))
+                          for i in range(sizes[dim])], dim)
+
+    return build(0, ())
+
+
+def replicate(t: torch.Tensor, env: MeshEnv) -> Cells:
+    """``t`` whole on every cell (one tensor per distinct device)."""
+    return shard(t, (), env)
+
+
+def cellwise(fn: Callable, *cell_lists: Cells) -> Cells:
+    """``fn`` applied to each cell's arguments, once per distinct
+    argument tuple: cells whose arguments are the same objects (work that
+    JAX replicates, on one device) share one result."""
+    n = len(cell_lists[0])
+    done: Dict[Tuple[int, ...], Any] = {}
+    out = []
+    for c in range(n):
+        args = tuple(cl[c] for cl in cell_lists)
+        key = tuple(id(a) for a in args)
+        if key not in done:
+            done[key] = fn(*args)
+        out.append(done[key])
+    return out
+
+
+def unzip(cells: Cells) -> Tuple[Cells, ...]:
+    """A list of per-cell tuples as a tuple of cell lists."""
+    return tuple(list(x) for x in zip(*cells))
+
+
+def cell_trees(tree: Any, n: int) -> List[Any]:
+    """A tree whose leaves are cell lists as one tree per cell; cells
+    whose leaves are all the same objects share one tree."""
+    def pick(node, c):
+        if isinstance(node, dict):
+            return {k: pick(v, c) for k, v in node.items()}
+        return node[c]
+
+    def leaf_ids(node, c):
+        if isinstance(node, dict):
+            return tuple(x for k in node for x in leaf_ids(node[k], c))
+        return (id(node[c]),)
+
+    made: Dict[Tuple[int, ...], Any] = {}
+    out = []
+    for c in range(n):
+        key = leaf_ids(tree, c)
+        if key not in made:
+            made[key] = pick(tree, c)
+        out.append(made[key])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives over the cells
+# ---------------------------------------------------------------------------
+
 def all_reduce(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Sum one tensor per cell; every cell gets the sum on its device.
 
@@ -145,3 +467,377 @@ def all_reduce(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         total = total + t.to(total.device)
     return [total if t.device == total.device else total.to(t.device)
             for t in tensors]
+
+
+def _groups(env: MeshEnv, axes: Tuple[str, ...]) -> List[List[int]]:
+    """The cells partitioned into groups that differ only along ``axes``,
+    each group in rank order along them."""
+    others = [a for a in env.axis_names if a not in axes]
+    seen: Dict[Tuple[int, ...], List[int]] = {}
+    for c in range(env.n_cells):
+        key = tuple(env.axis_index(c, a) for a in others)
+        seen.setdefault(key, []).append(c)
+    return list(seen.values())
+
+
+def psum(cells: Cells, env: MeshEnv, axis) -> Cells:
+    """JAX's ``psum`` over ``axis`` (a name or a tuple of names): each
+    group's tensors added in rank order on its first cell's device, the
+    sum sent to every cell of the group (once per distinct device)."""
+    axes = _axes(axis)
+    out: List[Any] = [None] * len(cells)
+    for grp in _groups(env, axes):
+        total = cells[grp[0]]
+        for c in grp[1:]:
+            total = total + cells[c].to(total.device)
+        sent: Dict[torch.device, torch.Tensor] = {}
+        for c in grp:
+            dev = env.cells[c]
+            if dev not in sent:
+                sent[dev] = total.to(dev)
+            out[c] = sent[dev]
+    return out
+
+
+def ppermute(cells: Cells, env: MeshEnv, axis: str, shift: int = 1, *,
+             cyclic: bool = True, fill: Optional[Callable] = None) -> Cells:
+    """JAX's ``ppermute`` by ``shift`` along ``axis``: the cell at rank i
+    receives rank (i - shift)'s tensor on its own device.  Non-cyclic, the
+    first ``shift`` ranks receive ``fill(like)`` (zeros by default)."""
+    out = []
+    moved: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+    for c in range(len(cells)):
+        grp = env.group(c, axis)
+        i = grp.index(c)
+        dev = env.cells[c]
+        if not cyclic and i - shift < 0:
+            like = cells[c]
+            out.append(fill(like) if fill is not None
+                       else torch.zeros_like(like))
+            continue
+        src = grp[(i - shift) % len(grp)]
+        key = (id(cells[src]), dev)
+        if key not in moved:
+            moved[key] = cells[src].to(dev)
+        out.append(moved[key])
+    return out
+
+
+def all_gather(cells: Cells, env: MeshEnv, axis, dim: int) -> Cells:
+    """JAX's ``all_gather(..., tiled=True)`` over ``axis`` along ``dim``:
+    every cell gets its group's tensors concatenated in rank order, once
+    per distinct device and group."""
+    axes = _axes(axis)
+    out: List[Any] = [None] * len(cells)
+    for grp in _groups(env, axes):
+        made: Dict[torch.device, torch.Tensor] = {}
+        for c in grp:
+            dev = env.cells[c]
+            if dev not in made:
+                made[dev] = torch.cat([cells[g].to(dev) for g in grp], dim)
+            out[c] = made[dev]
+    return out
+
+
+def all_to_all(cells: Cells, env: MeshEnv, axis: str, split_dim: int,
+               concat_dim: int) -> Cells:
+    """JAX's ``all_to_all(..., tiled=True)`` over ``axis``: each cell cuts
+    its tensor into n blocks along ``split_dim``; rank j receives block j
+    of every rank, concatenated in rank order along ``concat_dim``."""
+    out: List[Any] = [None] * len(cells)
+    for grp in _groups(env, (axis,)):
+        n = len(grp)
+        blocks = [cells[c].chunk(n, dim=split_dim) for c in grp]
+        for j, c in enumerate(grp):
+            dev = env.cells[c]
+            out[c] = torch.cat([blocks[i][j].to(dev) for i in range(n)],
+                               concat_dim)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# activation constraints
+# ---------------------------------------------------------------------------
+
+def _divisible(dim: int, env: MeshEnv, axis) -> bool:
+    return dim % env.size(axis) == 0
+
+
+def logical_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
+                 env: MeshEnv) -> PartitionSpec:
+    """JAX's ``constrain`` rule: 'dp' (batch over the DP axes), 'sp'
+    (sequence over model), 'tp' (feature over model), None (replicated);
+    a dimension that does not divide falls back to replication."""
+    if len(shape) != len(logical):
+        raise ValueError(f"{tuple(shape)} against {tuple(logical)}")
+    entries = []
+    for dim, name in zip(shape, logical):
+        if name == "dp" and env.dp_axes and _divisible(dim, env,
+                                                       env.dp_axes):
+            entries.append(env.dp_axes if len(env.dp_axes) > 1
+                           else env.dp_axes[0])
+        elif name in ("sp", "tp") and env.tp_axis and _divisible(
+                dim, env, env.tp_axis):
+            entries.append(env.tp_axis)
+        else:
+            entries.append(None)
+    return P(*entries)
+
+
+def seq_spec(env: MeshEnv, b: int, ndim: int, seq: bool = True
+             ) -> PartitionSpec:
+    """The layout of a ``shard_map`` operand: dim 0 (batch ``b``) over the
+    DP axes, or replicated where ``b`` does not divide (JAX's
+    ``_dp_spec``); dim 1 over ``model`` when ``seq``; the rest whole."""
+    dp = env.dp_axes if env.dp_axes and b % env.dp_size == 0 else None
+    return P(dp, env.tp_axis if seq else None, *([None] * (ndim - 2)))
+
+
+def constrain(x, *logical: Optional[str], env: Optional[MeshEnv] = None):
+    """JAX's ``constrain``: ``x`` (a whole tensor) laid out over the grid
+    by logical names (:func:`logical_spec`), as one piece per cell.  The
+    identity without an env (``env`` or the one :func:`set_env`
+    installed)."""
+    env = env if env is not None else get_env()
+    if env is None:
+        return x
+    return shard(x, logical_spec(x.shape, logical, env), env)
+
+
+def gather_for_compute(param_tree: Any, env: Optional[MeshEnv] = None,
+                       specs: Any = None) -> Any:
+    """ZeRO-3 compute-time unsharding of one layer's weights (JAX's
+    ``gather_for_compute``): each ≥2-D leaf whose path has no ``expert``
+    and no ``router`` is all-gathered whole onto each distinct device of
+    the grid, once per device; the other leaves keep their pieces.  The
+    leaves are whole tensors (sharded here by :func:`infer_param_specs`)
+    or cell lists laid out by ``specs``.  A device that holds the whole
+    leaf already gets it with no copy; in training, a leaf's gradient from
+    several devices is added in device order.  The identity without an
+    env."""
+    env = env if env is not None else get_env()
+    if env is None:
+        return param_tree
+    devices = env.distinct_devices
+
+    def go(node, spec, path):
+        if isinstance(node, dict):
+            return {k: go(v, None if spec is None else spec[k],
+                          f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            cells, spec = node, getattr(node, "spec", None) or spec
+        else:
+            if spec is None:
+                spec = _spec_for(path, tuple(node.shape), env)
+            cells = shard(node, spec, env)
+        low = path.lower()
+        if cells[0].dim() < 2 or "expert" in low or "router" in low:
+            return cells
+        return gather_whole(cells, spec, env, devices)
+
+    return go(param_tree, specs, "")
+
+
+def gather_whole(cells: Cells, spec, env: MeshEnv,
+                 devices: Optional[Sequence[torch.device]] = None) -> Cells:
+    """Every cell's value whole (:func:`unshard`), made once per distinct
+    device; in training the pieces reach the other devices through
+    :class:`_Fanout`, so each piece's gradient is added in device order."""
+    devices = tuple(devices or env.distinct_devices)
+    spec = _full_spec(cells.spec if spec is None else spec, cells[0].dim())
+    if _needs_fanout(cells, devices):
+        uniq = list({id(t): t for t in cells}.values())
+        copies = {id(t): dict(zip(devices, _Fanout.apply(t, devices)))
+                  for t in uniq}
+        whole = {d: unshard([copies[id(t)][d] for t in cells], spec, env, d)
+                 for d in devices}
+    else:
+        whole = {d: unshard(cells, spec, env, d) for d in devices}
+    return [whole[d] for d in env.cells]
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding rules
+# ---------------------------------------------------------------------------
+
+def _spec_for(path: str, shape: Tuple[int, ...], env: MeshEnv
+              ) -> PartitionSpec:
+    """Infer a PartitionSpec for one parameter from its path + shape
+    (``src/repro/distributed/sharding.py:177``, rule for rule)."""
+    names: List[Any] = [None] * len(shape)
+    dp, tp = env.dp_axes, env.tp_axis
+    serve = env.profile == "serve"
+
+    def try_assign(i: int, axis) -> bool:
+        if axis and names[i] is None and shape[i] % env.size(axis) == 0:
+            names[i] = axis
+            return True
+        return False
+
+    is_stacked = "stack" in path  # leading layer axis — never sharded
+    lead = 1 if is_stacked else 0
+    body = list(range(lead, len(shape)))
+
+    if "embed" in path or "unembed" in path:
+        # (V, D): vocab over model, feature over data (train) / model only
+        # (serve)
+        if len(body) == 2:
+            try_assign(body[0], tp)
+            if not serve:
+                try_assign(body[1], dp if len(dp) == 1 else dp[-1])
+            return P(*names)
+
+    if "expert" in path and len(body) >= 3:
+        # (E, d, f): experts over model (EP), d_ff over data (F-TP) —
+        # gate/up shard axis 2, down axis 1
+        has_data = "data" in env.axis_names
+        try_assign(body[0], tp)
+        if has_data:
+            if "down" in path:
+                try_assign(body[1], "data")
+            else:
+                try_assign(body[2], "data")
+        return P(*names)
+
+    if len(body) == 2:
+        a, b = body
+        if serve:
+            # Megatron TP: shard the non-d_model dim over model
+            if "w_down" in path or "proj_in" in path or "wo" in path:
+                try_assign(a, tp)  # row-parallel: contraction dim sharded
+            else:
+                try_assign(b, tp)
+        else:
+            # 2-D FSDP
+            try_assign(a, "data" if "data" in env.axis_names else None)
+            try_assign(b, tp)
+        return P(*names)
+
+    # 1-D (norm scales, biases) and anything else: replicated
+    return P(*names)
+
+
+def _map_with_path(fn: Callable, tree: Any, path: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list) and tree and not isinstance(
+            tree[0], torch.Tensor):
+        return [_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    if isinstance(tree, tuple):
+        return tuple(_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+                     for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def infer_param_specs(param_tree: Any, env: MeshEnv) -> Any:
+    """A PartitionSpec tree parallel to ``param_tree`` (whole tensors, or
+    anything with a ``shape``), by ``_spec_for`` on each leaf's path
+    ("layers/3/attn/wq") and shape."""
+    return _map_with_path(
+        lambda path, leaf: _spec_for(path, tuple(leaf.shape), env),
+        param_tree)
+
+
+def param_shardings(param_tree: Any, env: MeshEnv) -> Any:
+    """A :class:`NamedSharding` tree parallel to ``param_tree``."""
+    return shardings_of(infer_param_specs(param_tree, env), env)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """JAX's ``NamedSharding``: a spec on a grid, which cuts a tensor into
+    its cells' pieces (:meth:`shard`) and joins them back
+    (:meth:`unshard`)."""
+
+    env: MeshEnv
+    spec: PartitionSpec
+
+    def shard(self, t: torch.Tensor) -> Cells:
+        return shard(t, self.spec, self.env)
+
+    def unshard(self, cells: Cells,
+                device: Optional[DeviceLike] = None) -> torch.Tensor:
+        return unshard(cells, self.spec, self.env, device)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def shardings_of(spec_tree: Any, env: MeshEnv) -> Any:
+    def go(node):
+        if _is_spec(node):
+            return NamedSharding(env, node)
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            out = [go(v) for v in node]
+            return out if isinstance(node, list) else tuple(out)
+        return node
+
+    return go(spec_tree)
+
+
+def device_put(tree: Any, shardings: Any) -> Any:
+    """Every tensor of ``tree`` cut into cell pieces by the parallel
+    :class:`NamedSharding` tree (``param_shardings``, ``shardings_of``)."""
+    if isinstance(shardings, NamedSharding):
+        return shardings.shard(tree)
+    if isinstance(tree, dict):
+        return {k: device_put(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [device_put(v, s) for v, s in zip(tree, shardings)]
+        return out if isinstance(tree, list) else tuple(out)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# batch / cache sharding rules
+# ---------------------------------------------------------------------------
+
+def batch_specs(batch_tree: Any, env: MeshEnv, *, seq_sharded: bool = True
+                ) -> Any:
+    """Input batches: dim 0 = batch over DP, dim 1 = sequence over model
+    (when divisible).  Frame/patch embeds follow the same rule."""
+    def spec(path, leaf):
+        names: List[Any] = [None] * len(leaf.shape)
+        if leaf.shape and _divisible(leaf.shape[0], env, env.dp_axes):
+            names[0] = env.dp_axes
+        if (seq_sharded and len(leaf.shape) >= 2 and env.tp_axis
+                and _divisible(leaf.shape[1], env, env.tp_axis)):
+            names[1] = env.tp_axis
+        return P(*names)
+
+    return _map_with_path(spec, batch_tree)
+
+
+def cache_specs(cache_tree: Any, env: MeshEnv, batch: int) -> Any:
+    """Decode caches (``src/repro/distributed/sharding.py:269``):
+
+      * attention K/V (.../k, .../v, ndim>=4): sequence dim (-3) over
+        `model` (split-K flash decode), batch dim over DP;
+      * recurrent states (c/n/h/m/tail), ``kpos``, the cross K/V: batch
+        dim over DP, rest replicated.
+
+    Batch dims are found by size match against ``batch``."""
+    tp = env.tp_axis
+
+    def spec(path, leaf):
+        names: List[Any] = [None] * len(leaf.shape)
+        last = path.rsplit("/", 1)[-1] if path else ""
+        is_kv = last in ("k", "v") and len(leaf.shape) >= 4
+        for i, d in enumerate(leaf.shape):
+            if d == batch and _divisible(d, env, env.dp_axes):
+                names[i] = env.dp_axes
+                break
+        if is_kv and tp is not None:
+            sdim = len(leaf.shape) - 3
+            if (names[sdim] is None
+                    and _divisible(leaf.shape[sdim], env, tp)):
+                names[sdim] = tp
+        return P(*names)
+
+    return _map_with_path(spec, cache_tree)

@@ -62,14 +62,14 @@ _SIGNATURES = {
     # vbeta, stream
     "mlego_gibbs_sweep_exact": (_P,) * 9 + (_I, _I, _F, _F, _F, _P),
     # q, k, v, out, dtype, B, S, H, KVH, hd, 9 strides of q/k/v (b, s,
-    # head), causal, window, scale, stream
+    # head), causal, window, scale, q_off, lse (or null), stream
     "mlego_flash_attention": (_P,) * 4 + (_I,) * 6 + (_LL,) * 9
-    + (_I, _I, _F, _P),
+    + (_I, _I, _F, _I, _P, _P),
     # q, k_cache, v_cache, pos, out, part_acc, part_ml, dtype, B, S, H,
     # KVH, hd, 8 strides (q: b, head; k, v: b, s, head), window, scale,
-    # n_split, chunk, stream
+    # n_split, chunk, lse (or null), stream
     "mlego_decode_attention": (_P,) * 7 + (_I,) * 6 + (_LL,) * 8
-    + (_I, _F, _I, _I, _P),
+    + (_I, _F, _I, _I, _P, _P),
     # xpre, r_mat, c0, n0, h0, m0, out, c1, n1, h1, m1, x_dtype, r_dtype,
     # B, H, hd, 3 strides of xpre (b, gate, head), stream
     "mlego_slstm_step": (_P,) * 11 + (_I,) * 5 + (_LL,) * 3 + (_P,),

@@ -45,7 +45,15 @@
 //    wholly outside [lo, pos] returns at once, and the combine (a second
 //    launch) reads only the live splits, in split order, from pos.
 // No atomics, and every reduction has a fixed order, so the result is the
-// same bit for bit on every run.  bf16 is converted with the intrinsics
+// same bit for bit on every run.
+//
+// One shard of a split-K decode over a sequence-sharded cache
+// (models/attention.py): the shard is called with pos - start, so a shard
+// past pos sees pos < 0 and one wholly below the window sees lo > hi; such
+// a shard has no live split, and the combine writes 0 (and lse = -inf)
+// without reading a partial.  With lse given, the combine writes each
+// head's natural log-sum-exp of its scaled scores to lse (B, 1, H) f32 and
+// out in f32, so the shards are combined before one final cast.  bf16 is converted with the intrinsics
 // only.
 #include <cstdint>
 
@@ -464,7 +472,8 @@ __global__ void __launch_bounds__(kCombineThreads)
 decode_combine(const float* __restrict__ part_acc,
                const float* __restrict__ part_ml,
                const int* __restrict__ pos_ptr, T* __restrict__ out, int S,
-               int KVH, int G, int HD, int n_split, int chunk, int window) {
+               int KVH, int G, int HD, int n_split, int chunk, int window,
+               float* __restrict__ lse) {
   extern __shared__ float cs[];   // [n_live][2G] (m, l), [n_live][G] w, [G] L
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -472,7 +481,8 @@ decode_combine(const float* __restrict__ part_acc,
   int lo, hi;
   live_range(pos_ptr, S, window, &lo, &hi);
   const int s_lo = lo / chunk;
-  const int n_live = min(hi / chunk, n_split - 1) - s_lo + 1;
+  // no live key (a shard past pos, or below the window): no partial
+  const int n_live = hi < lo ? 0 : min(hi / chunk, n_split - 1) - s_lo + 1;
   const long long base = ((long long)b * KVH + kvh) * n_split + s_lo;
   float* ml = cs;
   float* w = ml + n_live * 2 * G;
@@ -490,6 +500,9 @@ decode_combine(const float* __restrict__ part_acc,
       L += ml[s * 2 * G + G + g] * c;
     }
     Ls[g] = L;
+    if (lse != nullptr && blockIdx.x == 0)
+      lse[((long long)b * KVH + kvh) * G + g] =
+          L > 0.f ? (M + logf(L)) : -INFINITY;
   }
   __syncthreads();
   const int e = blockIdx.x * kCombineThreads + threadIdx.x;
@@ -513,7 +526,7 @@ decode_combine(const float* __restrict__ part_acc,
 template <typename T>
 int launch_combine(const float* part_acc, const float* part_ml,
                    const int* pos, void* out, int B, int S, int KVH, int G,
-                   int HD, int n_split, int chunk, int window,
+                   int HD, int n_split, int chunk, int window, float* lse,
                    cudaStream_t stream) {
   const int E = G * HD;
   const int bytes = (n_split * 3 * G + G) * (int)sizeof(float);
@@ -524,7 +537,7 @@ int launch_combine(const float* part_acc, const float* part_ml,
             (unsigned)KVH, (unsigned)B);
   decode_combine<T><<<grid, kCombineThreads, bytes, stream>>>(
       part_acc, part_ml, pos, static_cast<T*>(out), S, KVH, G, HD, n_split,
-      chunk, window);
+      chunk, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -532,7 +545,7 @@ template <int HD>
 int launch_bf16(const void* q, const void* kc, const void* vc, const int* pos,
                 void* out, float* part_acc, float* part_ml, int B, int S,
                 int H, int KVH, const long long* st, int window, float scale,
-                int n_split, int chunk, cudaStream_t stream) {
+                int n_split, int chunk, float* lse, cudaStream_t stream) {
   const int G = H / KVH;
   if (G > 16 * head_tiles<HD>()) return (int)cudaErrorInvalidValue;
   const int n_stage = chunk > kTK ? 2 : 1;
@@ -550,16 +563,19 @@ int launch_bf16(const void* q, const void* kc, const void* vc, const int* pos,
       scale, chunk, n_stage);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (lse != nullptr)             // f32 out beside the lse
+    return launch_combine<float>(part_acc, part_ml, pos, out, B, S, KVH, G,
+                                 HD, n_split, chunk, window, lse, stream);
   return launch_combine<__nv_bfloat16>(part_acc, part_ml, pos, out, B, S,
                                        KVH, G, HD, n_split, chunk, window,
-                                       stream);
+                                       nullptr, stream);
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* kc, const void* vc, const int* pos,
                void* out, float* part_acc, float* part_ml, int B, int S,
                int H, int KVH, const long long* st, int window, float scale,
-               int n_split, int chunk, cudaStream_t stream) {
+               int n_split, int chunk, float* lse, cudaStream_t stream) {
   const int G = H / KVH;
   const int bytes =
       (G * HD + kTK * (HD + 1) + G * kTK + 3 * G) * (int)sizeof(float);
@@ -576,12 +592,13 @@ int launch_f32(const void* q, const void* kc, const void* vc, const int* pos,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_combine<float>(part_acc, part_ml, pos, out, B, S, KVH, G, HD,
-                               n_split, chunk, window, stream);
+                               n_split, chunk, window, lse, stream);
 }
 
 using Launch = int (*)(const void*, const void*, const void*, const int*,
                        void*, float*, float*, int, int, int, int,
-                       const long long*, int, float, int, int, cudaStream_t);
+                       const long long*, int, float, int, int, float*,
+                       cudaStream_t);
 
 Launch pick(int dtype, int hd) {
   switch (hd) {
@@ -604,7 +621,8 @@ extern "C" {
 // are f32 scratch; split s covers positions [s*chunk, (s+1)*chunk), and
 // chunk is a multiple of 64.  bf16 needs the caches 16-byte aligned and
 // their strides multiples of 8 elements (16-byte copies).  Two launches:
-// the partials, then their combine.
+// the partials, then their combine.  lse (B, 1, H) f32 or null; out is
+// f32 when lse is given (or dtype is 0), else bf16.
 int mlego_decode_attention(const void* q, const void* k_cache,
                            const void* v_cache, const int* pos, void* out,
                            float* part_acc, float* part_ml, int dtype, int B,
@@ -612,7 +630,7 @@ int mlego_decode_attention(const void* q, const void* k_cache,
                            long long q_sh, long long k_sb, long long k_ss,
                            long long k_sh, long long v_sb, long long v_ss,
                            long long v_sh, int window, float scale,
-                           int n_split, int chunk, void* stream) {
+                           int n_split, int chunk, float* lse, void* stream) {
   if (KVH < 1 || H % KVH != 0 || (H / KVH) * hd > kThreads * kMaxElems ||
       S < 1 || B < 1 || n_split < 1 || chunk < kTK || chunk % kTK != 0 ||
       (long long)n_split * chunk < S || (dtype != 0 && dtype != 1))
@@ -627,7 +645,7 @@ int mlego_decode_attention(const void* q, const void* k_cache,
   const Launch fn = pick(dtype, hd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, k_cache, v_cache, pos, out, part_acc, part_ml, B, S, H, KVH,
-            st, window, scale, n_split, chunk, (cudaStream_t)stream);
+            st, window, scale, n_split, chunk, lse, (cudaStream_t)stream);
 }
 
 }  // extern "C"

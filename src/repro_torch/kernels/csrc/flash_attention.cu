@@ -63,6 +63,16 @@
 // visited; the heaviest (last) q tiles are dispatched first; no atomics, so
 // every run gives the same bits; the inputs are read in their own
 // (B, S, heads, hd) layout (no transpose copy as in the Pallas wrapper).
+//
+// One step of a sequence-parallel ring (models/attention.py): q_off >= 0
+// puts query i at position q_off + i against key j at position j, so the
+// masks read q_off + i >= j (causal) and q_off + i - j < window, and the
+// visible KV tiles move with the offset; a q tile that sees no key leaves
+// its rows at 0.  With lse given, each row's natural log-sum-exp of its
+// scaled scores goes to lse (B, S, H) f32 (-inf for a row that saw no
+// key) and out is f32 (out_f32), so the ring combines its steps before one
+// final cast.  q_off = 0, no lse and a bf16 out give the same launch as
+// before.
 #include <cmath>
 #include <cstdint>
 
@@ -80,6 +90,7 @@ constexpr int kRows = 64;       // G * BQ query rows of an f32 CTA; the most
 constexpr int kBK = 64;         // keys per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kRescale = 8.f;  // log2 growth of a max that forces a rescale
 
 // ---------------------------------------------------------------------------
@@ -128,7 +139,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                int KVH, int G, int BQ, int n_qt,
                long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-               long long v_sh, int causal, int window, float scale) {
+               long long v_sh, int causal, int window, float scale,
+               int q_off, float* __restrict__ lse, int out_f32) {
   constexpr int LD = tc_stride<HD>();
   constexpr int C = HD / 8;           // 16-byte chunks per row
   constexpr int KC = HD / 16;         // k-steps of Q K^T
@@ -168,12 +180,14 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     cp_async16(Qs + r * LD + c * 8, src, ok);
   }
 
-  // the KV tiles this q tile can see
+  // the KV tiles this q tile can see (queries at q_off + q0 ...)
   const int q_last = min(q0 + BQ - 1, S - 1);
-  const int kt_hi = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
+  const int n_kt_all = (S + kBK - 1) / kBK;
+  const int kt_hi =
+      causal ? min((q_off + q_last) / kBK + 1, n_kt_all) : n_kt_all;
   int kt_lo = 0;
   if (window > 0) {
-    const int kmin = q0 - window + 1;
+    const int kmin = q_off + q0 - window + 1;
     kt_lo = kmin > 0 ? kmin / kBK : 0;
   }
   const bool idle_rows = used < ROWS || q0 + BQ - 1 > S - 1;
@@ -202,7 +216,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row_base + mt * 16 + h * 8;
-      qpos[mt][h] = (r < used && q0 + r / G < S) ? q0 + r / G : -1;
+      qpos[mt][h] = (r < used && q0 + r / G < S) ? q_off + q0 + r / G : -1;
     }
 
   float o[MT][NT][4];
@@ -229,7 +243,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int vb_row = (lane & 7) + ((lane >> 3) & 1) * 8; // V: keys
   const int vb_col = (lane >> 4) * 8;                    // V: dims
 
-  const int n_kt = kt_hi - kt_lo;
+  const int n_kt = kt_hi - kt_lo;       // <= 0: the tile sees no key
   load_kv(kt_lo, 0);
   cp_async_commit();                    // one group: Q and the first tile
   for (int it = 0; it < n_kt; ++it) {
@@ -293,8 +307,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     // m = -1e30 and gets p = 2^-inf = 0, coef = 1, with no test
     const int k0 = kt * kBK;
     const bool need_mask = idle_rows || k0 + kBK > S ||
-                           (causal && k0 + kBK - 1 > q0) ||
-                           (window > 0 && q_last - k0 >= window);
+                           (causal && k0 + kBK - 1 > q_off + q0) ||
+                           (window > 0 && q_off + q_last - k0 >= window);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float mx[2] = {-INFINITY, -INFINITY};
@@ -381,9 +395,11 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
+  cp_async_wait<0>();                   // a tile that saw no key: Q's copy
   __syncthreads();                      // stage 0 is free for the output
 
   // epilogue: 1/l, bf16 into the warp's rows of stage 0, 16-byte stores
+  // (f32 out and lse: straight from the registers)
   __nv_bfloat16* Os = KVs;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -394,6 +410,24 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       for (int off = 1; off <= 2; off <<= 1)
         lt += __shfl_xor_sync(0xffffffffu, lt, off);
       const float inv = 1.f / fmaxf(lt, 1e-30f);
+      if (out_f32) {
+        const int r = row_base + mt * 16 + h * 8;
+        const int qi = r / G;
+        if (r < used && q0 + qi < S) {
+          const long long row_off =
+              ((long long)b * S + q0 + qi) * H + kvh * G + (r - qi * G);
+          float* dst = reinterpret_cast<float*>(out) + row_off * HD;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            *reinterpret_cast<float2*>(dst + n * 8 + (lane & 3) * 2) =
+                make_float2(o[mt][n][2 * h] * inv,
+                            o[mt][n][2 * h + 1] * inv);
+          if (lse != nullptr && (lane & 3) == 0)
+            lse[row_off] = lt > 0.f ? (m[mt][h] + log2f(lt)) * kLn2
+                                    : -INFINITY;
+        }
+        continue;
+      }
       uint32_t* row = reinterpret_cast<uint32_t*>(
           Os + (row_base + mt * 16 + h * 8) * LD);
 #pragma unroll
@@ -402,6 +436,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
             pack_bf16(o[mt][n][2 * h] * inv, o[mt][n][2 * h + 1] * inv);
     }
   }
+  if (out_f32) return;
   __syncwarp();
   for (int idx = lane; idx < 16 * MT * C; idx += 32) {
     const int r = warp * 16 * MT + idx / C, c = idx - (idx / C) * C;
@@ -417,7 +452,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
                 int S, int H, int KVH, const long long* st, int causal,
-                int window, float scale, cudaStream_t stream) {
+                int window, float scale, int q_off, float* lse, int out_f32,
+                cudaStream_t stream) {
   const int G = H / KVH;
   const int BQ = tc_rows<HD>() / G;
   const int bytes = tc_smem_bytes<HD>();
@@ -431,7 +467,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       B, S, H, KVH, G, BQ, n_qt, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], causal, window, scale);
+      st[6], st[7], st[8], causal, window, scale, q_off, lse, out_f32);
   return (int)cudaGetLastError();
 }
 
@@ -453,7 +489,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               int H, int G, int BQ, long long q_sb, long long q_ss,
               long long q_sh, long long k_sb, long long k_ss, long long k_sh,
               long long v_sb, long long v_ss, long long v_sh, int causal,
-              int window, float scale) {
+              int window, float scale, int q_off, float* __restrict__ lse) {
   constexpr int DJ = HD / 16;      // output dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;                          // [kRows][HD + 1]
@@ -488,7 +524,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int p = q0 + r / G;
-    qpos[i] = (r < used && p < S) ? p : -1;   // -1: an idle row
+    qpos[i] = (r < used && p < S) ? q_off + p : -1;   // -1: an idle row
   }
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -499,12 +535,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  // the KV tiles this q tile can see
+  // the KV tiles this q tile can see (queries at q_off + q0 ...)
   const int q_last = min(q0 + BQ - 1, S - 1);
-  const int kt_hi = causal ? q_last / kBK + 1 : (S + kBK - 1) / kBK;
+  const int n_kt_all = (S + kBK - 1) / kBK;
+  const int kt_hi =
+      causal ? min((q_off + q_last) / kBK + 1, n_kt_all) : n_kt_all;
   int kt_lo = 0;
   if (window > 0) {
-    const int kmin = q0 - window + 1;
+    const int kmin = q_off + q0 - window + 1;
     kt_lo = kmin > 0 ? kmin / kBK : 0;
   }
 
@@ -603,16 +641,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = ty + 16 * i;
     const int h = kvh * G + (r - (r / G) * G);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* dst = out + (((long long)b * S + qpos[i]) * H + h) * HD;
+    const long long row_off = ((long long)b * S + qpos[i] - q_off) * H + h;
+    float* dst = out + row_off * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = acc[i][j] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[row_off] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int S, int H, int KVH, const long long* st, int causal,
-               int window, float scale, cudaStream_t stream) {
+               int window, float scale, int q_off, float* lse, int /*out_f32*/,
+               cudaStream_t stream) {
   const int G = H / KVH;
   const int BQ = kRows / G;
   const int bytes = smem_floats<HD>() * (int)sizeof(float);
@@ -624,13 +666,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, G, BQ,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, scale);
+      window, scale, q_off, lse);
   return (int)cudaGetLastError();
 }
 
 using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
-                       int, int, const long long*, int, int, float,
-                       cudaStream_t);
+                       int, int, const long long*, int, int, float, int,
+                       float*, int, cudaStream_t);
 
 Launch pick(int dtype, int hd) {
   switch (hd) {
@@ -651,16 +693,18 @@ extern "C" {
 // (in elements) of q, k, v: {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
 // v_ss, v_sh}; the head_dim stride is 1.  Needs H % KVH == 0 and
 // H / KVH <= 64; bf16 also needs q, k, v 16-byte aligned and every stride a
-// multiple of 8 elements (16-byte copies).
+// multiple of 8 elements (16-byte copies).  q_off >= 0 is the position of
+// query 0 against key 0 (a ring step); lse (B, S, H) f32 or null; out is
+// f32 when lse is given (or dtype is 0), else bf16.
 int mlego_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int dtype, int B, int S, int H, int KVH,
                           int hd, long long q_sb, long long q_ss,
                           long long q_sh, long long k_sb, long long k_ss,
                           long long k_sh, long long v_sb, long long v_ss,
                           long long v_sh, int causal, int window, float scale,
-                          void* stream) {
+                          int q_off, float* lse, void* stream) {
   if (KVH < 1 || H % KVH != 0 || H / KVH > kRows || S < 1 || B < 1 ||
-      (dtype != 0 && dtype != 1))
+      q_off < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                            k_sh, v_sb, v_ss, v_sh};
@@ -674,8 +718,8 @@ int mlego_flash_attention(const void* q, const void* k, const void* v,
   }
   const Launch fn = pick(dtype, hd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, out, B, S, H, KVH, st, causal, window, scale,
-            (cudaStream_t)stream);
+  return fn(q, k, v, out, B, S, H, KVH, st, causal, window, scale, q_off,
+            lse, lse != nullptr ? 1 : 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,13 @@ order, so every run gives the same bits.  ``pos`` is an int32 scalar on
 the device that the kernels read (the scalar prefetch's counterpart), so
 a decode step needs no host value.
 
+One shard of the split-K decode over a sequence-sharded cache
+(``models/attention.py``) is called with ``pos - start`` and
+``return_lse``: a shard past ``pos`` (pos < 0) or wholly below the window
+has no live key and gives 0 with lse = -inf, and the combine writes the
+output in float32 with each head's log-sum-exp (B, 1, H) float32, so the
+shards are combined before one final cast.
+
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to the kernel of its dtype or raises (bf16 caches must be
 16-byte aligned with strides that are multiples of 8 elements).
@@ -62,11 +69,12 @@ def split_plan(s: int, n_pairs: int) -> Tuple[int, int]:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: Union[int, torch.Tensor],
-                     *, window: int = 0) -> torch.Tensor:
+                     *, window: int = 0, return_lse: bool = False):
     """q: (B, 1, H, hd); caches: (B, S, KVH, hd); ``pos`` the new token's
     position (on the card an int32 0-d tensor on the caches' device, or an
     int) -> (B, 1, H, hd) in q's dtype, computed in float32.  Attends to
-    cache positions kpos <= pos (and kpos > pos - window)."""
+    cache positions kpos <= pos (and kpos > pos - window).  With
+    ``return_lse``: (out (B, 1, H, hd) float32, lse (B, 1, H) float32)."""
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape:
         raise ValueError(f"q must be (B, 1, H, hd) and the caches (B, S, "
@@ -79,7 +87,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)}")
     dev = common.same_device(q=q, k_cache=k_cache, v_cache=v_cache)
     if dev.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
+        return decode_attention_ref(q, k_cache, v_cache, pos, window=window,
+                                    return_lse=return_lse)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         common.require_cuda(name, t, dev, DTYPES, contiguous=False)
     if not q.dtype == k_cache.dtype == v_cache.dtype:
@@ -102,7 +111,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
     n_split, chunk = split_plan(s, b * kvh)
-    out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((b, 1, h, hd), dtype=torch.float32 if return_lse
+                      else q.dtype, device=dev)
+    lse = (torch.empty((b, 1, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     part_acc = torch.empty((b, kvh, n_split, g * hd), dtype=torch.float32,
                            device=dev)
     part_ml = torch.empty((b, kvh, n_split, 2 * g), dtype=torch.float32,
@@ -114,6 +126,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         part_ml.data_ptr(), 0 if q.dtype == torch.float32 else 1, b, s, h,
         kvh, hd, q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], int(window), float(hd ** -0.5), n_split,
-        chunk, common.stream_of(q))
+        chunk, None if lse is None else lse.data_ptr(), common.stream_of(q))
     common.count_launch(globals(), "decode_attention_launches")
-    return out
+    return (out, lse) if return_lse else out

@@ -12,12 +12,14 @@ NEG_INF = -1e30
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor,
-                         pos: Union[int, torch.Tensor], *, window: int = 0
-                         ) -> torch.Tensor:
+                         pos: Union[int, torch.Tensor], *, window: int = 0,
+                         return_lse: bool = False):
     """q: (B, 1, H, hd); caches: (B, S, KVH, hd); pos: the position of the
     new token (an int or a 0-d integer tensor).  Attends to the cache
     entries kpos <= pos (and kpos > pos - window) -> (B, 1, H, hd) in q's
-    dtype, computed in float32."""
+    dtype, computed in float32.  With ``return_lse``: the output in float32,
+    0 where no entry is live (pos < 0, or every entry below the window),
+    and each head's log-sum-exp (B, 1, H), -inf there."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     g = h // kvh
@@ -32,4 +34,11 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    if not return_lse:
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    if not bool(valid.any()):
+        return (torch.zeros((b, 1, h, hd), device=q.device),
+                torch.full((b, 1, h), -torch.inf, device=q.device))
+    lse = torch.logsumexp(torch.where(
+        valid[None, None, None, :], s, torch.full_like(s, -torch.inf)), -1)
+    return out.reshape(b, 1, h, hd), lse.reshape(b, 1, h)

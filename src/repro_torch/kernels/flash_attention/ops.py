@@ -25,6 +25,14 @@ gone.  One dispatch by ``q.dtype`` picks the instance:
   * float32 — CUDA-core FMAs in full fp32 (TF32 would break the 1e-5
     tolerance of the JAX kernel tests).
 
+One step of the sequence-parallel ring (``models/attention.py``) calls it
+with ``q_offset`` (the queries sit at positions q_offset + i against keys
+at j: the masks and the visible KV tiles move with it) and
+``return_lse``: the output then comes in float32 with each row's
+log-sum-exp (B, S, H) float32, -inf for a row that saw no key (whose
+output is 0), so the steps are combined before one final cast.  With
+q_offset = 0 and no lse the launch is the one it always was.
+
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to one of the two kernels or raises.
 ``flash_attention_launches`` counts kernel launches.
@@ -44,12 +52,15 @@ flash_attention_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    return_lse: bool = False):
     """q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> (B, S, H, hd) in q's
     dtype (float32 or bfloat16), accumulated in float32 (in bfloat16 the
-    probabilities are rounded to bfloat16 before P·V).  Query i attends
-    to key j when j <= i (``causal``) and i - j < ``window`` (``window``
-    > 0)."""
+    probabilities are rounded to bfloat16 before P·V).  Query i, at
+    position q_offset + i, attends to key j when j <= q_offset + i
+    (``causal``) and q_offset + i - j < ``window`` (``window`` > 0).
+    With ``return_lse``: (out (B, S, H, hd) float32, lse (B, S, H)
+    float32)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KVH, hd);"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -60,9 +71,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or h % kvh != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     dev = common.same_device(q=q, k=k, v=v)
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, return_lse=return_lse)
     for name, t in (("q", q), ("k", k), ("v", v)):
         common.require_cuda(name, t, dev, DTYPES, contiguous=False)
     if not q.dtype == k.dtype == v.dtype:
@@ -75,13 +90,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS} "
                          f"and at most {MAX_GROUP} query heads per KV head;"
                          f" got hd={hd}, H={h}, KVH={kvh}")
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, h, hd), dtype=torch.float32 if return_lse
+                      else q.dtype, device=dev)
+    lse = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     common.launch(
         "flash_attention", "mlego_flash_attention", dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if q.dtype == torch.float32 else 1, b, s, h, kvh, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), int(window), float(hd ** -0.5),
-        common.stream_of(q))
+        int(bool(causal)), int(window), float(hd ** -0.5), q_offset,
+        None if lse is None else lse.data_ptr(), common.stream_of(q))
     common.count_launch(globals(), "flash_attention_launches")
-    return out
+    return (out, lse) if return_lse else out

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.data.lm import make_batch
+from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import Model, Params, build_model
 
@@ -33,7 +34,8 @@ def _sync(dev: torch.device) -> None:
 
 def generate(model: Model, params: Params, batch: Dict[str, torch.Tensor],
              *, steps: int, cache_len: int,
-             stats: Optional[dict] = None) -> torch.Tensor:
+             stats: Optional[dict] = None,
+             env: Optional[MeshEnv] = None) -> torch.Tensor:
     """Prefill the prompt, then greedy-decode: returns ``steps`` tokens
     (B, steps) int32, the first from the prefill's logits, as the JAX
     ``generate`` does (it also runs ``steps`` decode steps, the last one's
@@ -46,14 +48,19 @@ def generate(model: Model, params: Params, batch: Dict[str, torch.Tensor],
     trip.  With ``stats`` (a dict) the call synchronises after the prefill
     and at the end and records ``prefill_s``, ``decode_s`` (host clock)
     and ``logits_finite`` (every logit of every step finite).
+
+    With ``env`` (JAX's ``generate(model, params, batch, env, ...)``): the
+    prefill and the steps run on the grid, the tokens chosen on its first
+    cell; the CLI stays on one device, as JAX's does.
     """
-    dev = params["embed"].device
+    dev = env.first if env is not None else params["embed"].device
     batch = {k: v.to(dev) for k, v in batch.items()}
     s = batch["tokens"].shape[1]
     finite = torch.ones((), dtype=torch.bool, device=dev)
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, batch, cache_len=cache_len)
+        logits, caches = model.prefill(params, batch, cache_len=cache_len,
+                                       env=env)
         tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         if stats is not None:
             finite &= torch.isfinite(logits).all()
@@ -64,7 +71,7 @@ def generate(model: Model, params: Params, batch: Dict[str, torch.Tensor],
         out = []
         for _ in range(steps):
             out.append(tok)
-            lg, caches = model.decode_step(params, caches, tok, pos)
+            lg, caches = model.decode_step(params, caches, tok, pos, env=env)
             tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
             pos += 1
             if stats is not None:

@@ -1,6 +1,7 @@
-"""Attention of the dense stack, single-device forms.
+"""Attention of the dense stack, on one device and on a grid.
 
-The port of ``src/repro/models/attention.py``'s one-device paths:
+The port of ``src/repro/models/attention.py``.  On one device (``env``
+None):
 
   * ``flash_attention_local`` — prefill (``ring_attention`` on one
     device, ``attention.py:143``), through the flash kernel
@@ -23,8 +24,32 @@ The port of ``src/repro/models/attention.py``'s one-device paths:
     kernel's output carries no gradient (its wrapper refuses tensors that
     require grad).
 
-The ring over ranks of ``ring_attention`` waits for ROADMAP.md Queue 1
-item 6.
+On a grid (``env``, a ``distributed.sharding.MeshEnv``; JAX's
+``shard_map`` branches), activations are sequence-sharded over the
+``model`` axis and batch-sharded over ``data``:
+
+  * ``ring_attention`` — each cell's queries against the K/V blocks that
+    rotate around the ``model`` ring (``ppermute``), JAX's step order:
+    at step s cell r holds block (r - s) mod n.  Blocks above the causal
+    diagonal are skipped, and a window stops the ring after
+    min(n, ceil(window / S_loc) + 1) steps (``attention.py:171-174``); a
+    skipped block is one JAX masks whole, which leaves its online softmax
+    unchanged bit for bit.  In serving (no grad) each step is one flash
+    kernel launch with ``q_offset = (r - blk) · S_loc`` and the row
+    log-sum-exp, the steps' float32 outputs combined by their lse in step
+    order before one cast.  In training the same ring runs JAX's jnp
+    flash math (``_flash_update``) under autograd with global positions;
+  * ``cross_attention`` — the bidirectional ring over a sequence-sharded
+    memory, S_q != S_kv: plain torch blocks combined by their lse (the
+    flash kernel takes one S for q and k);
+  * ``decode_attention`` — the cache sequence-sharded (``cache_specs``):
+    the cell that owns ``pos`` writes the new K/V, each cell runs the
+    decode kernel on its shard with ``pos - start`` (a shard past ``pos``
+    has no live key: 0 and lse = -inf), and the shards' float32 outputs
+    are combined by their lse in rank order (JAX's ``pmax``/``psum``).
+
+The public functions take and return whole tensors, as JAX's do; the
+``*_cells`` forms take one tensor per cell and are what ``Model`` runs.
 
 Numerics: the scores are summed and scaled in float32 inside the kernels.
 In bf16 both kernels run P·V on the tensor cores with the probabilities
@@ -36,10 +61,12 @@ to rounding.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
@@ -54,10 +81,22 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor,
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+              ) -> None:
+    """``new`` (B, 1, ...) into ``cache`` (B, S, ...) at position ``pos``
+    (a 0-d int32 tensor on the cache's device) in place, and nothing when
+    ``pos`` lies outside the cache (JAX's ``owned``)."""
+    s = cache.shape[1]
+    idx = pos.clamp(0, s - 1).reshape(1).long()
+    owned = (pos >= 0) & (pos < s)
+    cache.index_copy_(1, idx, torch.where(
+        owned, new.to(cache.dtype), cache.index_select(1, idx)))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, pos: Union[int, torch.Tensor], *,
-                     window: int = 0
+                     window: int = 0, env: Optional[MeshEnv] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode against a (B, S, KVH, hd) cache.
 
@@ -67,14 +106,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     positions kpos <= pos.  ``pos`` is an int or a 0-d int32 tensor on the
     caches' device; the write and the kernel read it there, with no host
     round trip.  Returns (out (B, 1, H, hd), k_cache, v_cache).
+
+    With ``env``: the caches' S is sharded over ``model`` and the batch
+    over ``data`` (``_decode_cells``); the returned caches are the
+    written shards joined whole (the inputs themselves, written in place,
+    when the grid repeats their device).
     """
-    s = k_cache.shape[1]
+    if env is not None:
+        b = q.shape[0]
+        rep_spec, seq_spec = sh.seq_spec(env, b, 4, False), sh.seq_spec(
+            env, b, 4)
+        caches = [sh.shard(t, seq_spec, env) for t in (k_cache, v_cache)]
+        out = _decode_cells(
+            sh.shard(q, rep_spec, env), *caches,
+            sh.shard(k_new, rep_spec, env), sh.shard(v_new, rep_spec, env),
+            pos, env, window=window)
+        return (sh.unshard(out, rep_spec, env),
+                *(sh.unshard(c, seq_spec, env) for c in caches))
     pos = torch.as_tensor(pos, dtype=torch.int32, device=k_cache.device)
-    idx = pos.clamp(0, s - 1).reshape(1).long()
-    owned = (pos >= 0) & (pos < s)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache.index_copy_(1, idx, torch.where(
-            owned, new.to(cache.dtype), cache.index_select(1, idx)))
+    _write_at(k_cache, k_new, pos)
+    _write_at(v_cache, v_new, pos)
     out = decode_ops.decode_attention(q, k_cache, v_cache, pos,
                                       window=window)
     return out, k_cache, v_cache
@@ -111,14 +162,21 @@ def window_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return (out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache, kpos)
 
 
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> torch.Tensor:
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    env: Optional[MeshEnv] = None) -> torch.Tensor:
     """Bidirectional attention of q (B, S_q, H, hd) over a memory k, v
     (B, S_kv, KVH, hd) -> (B, S_q, H, hd) in q's dtype (plain torch).
     JAX's one-device ``ring_attention(causal=False)`` step: q scaled in
     its own dtype, scores in float32, probabilities cast to v's dtype
     before P·V, the sum normalised in float32 at the end (JAX does it
-    chunk by chunk with an online softmax: equal to rounding)."""
+    chunk by chunk with an online softmax: equal to rounding).  With
+    ``env``: the bidirectional ring over the memory (``_ring_cells``), q
+    and the memory sequence-sharded over ``model``."""
+    if env is not None:
+        spec = sh.seq_spec(env, q.shape[0], 4)
+        out = _ring_cells(*(sh.shard(t, spec, env) for t in (q, k, v)),
+                          env, causal=False, window=0)
+        return sh.unshard(out, spec, env)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd) * (hd ** -0.5)
@@ -241,8 +299,59 @@ class _FlashChunk(torch.autograd.Function):
                 None)
 
 
+def _heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q scaled by hd^-1/2 in its own dtype, as head-major rows (B·KVH,
+    Sq·G, hd) ordered (query, head of the group); k, v as (B·KVH, Sk,
+    hd)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qh = (q * (hd ** -0.5)).reshape(b, sq, kvh, g, hd).permute(
+        0, 2, 1, 3, 4).reshape(b * kvh, sq * g, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).reshape(b * kvh, sk, hd)
+              for t in (k, v))
+    return qh, kh, vh
+
+
+def _init_state(n: int, rows: int, hd: int, dev: torch.device):
+    """(acc, l, m) of the online softmax, float32."""
+    return (torch.zeros((n, rows, hd), dtype=torch.float32, device=dev),
+            torch.zeros((n, rows), dtype=torch.float32, device=dev),
+            torch.full((n, rows), NEG_INF, dtype=torch.float32, device=dev))
+
+
+def _flash_update(state, qh: torch.Tensor, kh: torch.Tensor,
+                  vh: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
+                  causal: bool, window: int, g: int):
+    """JAX's ``_flash_update`` (``attention.py:67``) on head-major rows:
+    the keys in chunks of the largest divisor of Sk that is at most
+    ``KV_CHUNK``, each chunk rematerialised (``_FlashChunk``); every chunk
+    computed, masked or not.  qpos (Sq,), kpos (Sk,) global positions."""
+    acc, l, m = state
+    sq, sk = qpos.shape[0], kpos.shape[0]
+    chunk = _pick_chunk(sk, KV_CHUNK)
+    for c in range(sk // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        masked = ~_mask(qpos, kpos[sl], causal, window)
+        masked = masked[:, None, :].expand(sq, g, chunk).reshape(sq * g,
+                                                                 chunk)
+        acc, l, m = _FlashChunk.apply(acc, l, m, qh, kh[:, sl], vh[:, sl],
+                                      masked)
+    return acc, l, m
+
+
+def _finish(state, b: int, sq: int, h: int, hd: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    acc, l, _ = state
+    kvh = acc.shape[0] // b
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(b, kvh, sq, h // kvh, hd).permute(
+        0, 2, 1, 3, 4).reshape(b, sq, h, hd).to(dtype)
+
+
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True, window: int = 0) -> torch.Tensor:
+                   causal: bool = True, window: int = 0,
+                   env: Optional[MeshEnv] = None) -> torch.Tensor:
     """Attention of the training path: JAX's ``ring_attention`` on one
     device.  q: (B, Sq, H, hd); k, v: (B, Sk, KVH, hd), Sk may differ
     from Sq (cross attention, ``causal=False``); query i and key j sit
@@ -261,29 +370,168 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``_MatmulF32``); widening q and k to float32 instead would move the
     products onto the CUDA cores (67 against 989 TFLOP/s).  The cost is
     every chunk's full (Sq·G, chunk) score block: causal masking halves
-    the useful work, and none of it is skipped, as in JAX."""
+    the useful work, and none of it is skipped, as in JAX.
+
+    With ``env``: the ring over the ``model`` axis (``_ring_cells``), q,
+    k and v sequence-sharded over ``model`` and batch-sharded over
+    ``data``; the flash kernel a step in serving, this math under
+    autograd in training."""
+    if env is not None:
+        spec = sh.seq_spec(env, q.shape[0], 4)
+        out = _ring_cells(*(sh.shard(t, spec, env) for t in (q, k, v)),
+                          env, causal=causal, window=window)
+        return sh.unshard(out, spec, env)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
     dev = q.device
-    qh = (q * (hd ** -0.5)).reshape(b, sq, kvh, g, hd).permute(
-        0, 2, 1, 3, 4).reshape(b * kvh, sq * g, hd)
-    kh, vh = (t.permute(0, 2, 1, 3).reshape(b * kvh, sk, hd)
-              for t in (k, v))
-    qpos = torch.arange(sq, device=dev)
-    kpos = torch.arange(sk, device=dev)
-    acc = torch.zeros((b * kvh, sq * g, hd), dtype=torch.float32, device=dev)
-    l = torch.zeros((b * kvh, sq * g), dtype=torch.float32, device=dev)
-    m = torch.full((b * kvh, sq * g), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    chunk = _pick_chunk(sk, KV_CHUNK)
-    for c in range(sk // chunk):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        masked = ~_mask(qpos, kpos[sl], causal, window)
-        masked = masked[:, None, :].expand(sq, g, chunk).reshape(sq * g,
-                                                                 chunk)
-        acc, l, m = _FlashChunk.apply(acc, l, m, qh, kh[:, sl], vh[:, sl],
-                                      masked)
-    out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.reshape(b, kvh, sq, g, hd).permute(0, 2, 1, 3, 4).reshape(
-        b, sq, h, hd).to(q.dtype)
+    qh, kh, vh = _heads(q, k, v)
+    state = _init_state(b * kvh, sq * (h // kvh), hd, dev)
+    state = _flash_update(state, qh, kh, vh, torch.arange(sq, device=dev),
+                          torch.arange(sk, device=dev), causal, window,
+                          h // kvh)
+    return _finish(state, b, sq, h, hd, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the grid: one tensor per cell, sequence over "model", batch over "data"
+# ---------------------------------------------------------------------------
+
+def ring_steps(n: int, s_loc: int, window: int) -> int:
+    """The ring's step count: every block, or with a window only the
+    min(n, ceil(window / S_loc) + 1) blocks it can reach
+    (``attention.py:171-174``)."""
+    if window > 0:
+        return min(n, -(-window // max(s_loc, 1)) + 1)
+    return n
+
+
+def _combine_lse(acc, out, lse):
+    """Step results (out float32, lse) folded in order into acc = (out,
+    lse): out weighted by exp(lse_i - lse_total).  A row that has seen no
+    key yet has lse = -inf and takes the new step whole."""
+    if acc is None:
+        return out, lse
+    o0, l0 = acc
+    tot = torch.logaddexp(l0, lse)
+    safe = torch.where(torch.isfinite(tot), tot, torch.zeros_like(tot))
+    w0 = torch.exp(l0 - safe)[..., None]
+    w1 = torch.exp(lse - safe)[..., None]
+    return o0 * w0 + out * w1, tot
+
+
+def _block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional attention of q (B, Sq, H, hd) over one memory block
+    k, v (B, Sk, KVH, hd), plain torch as ``cross_attention``: (out
+    float32, normalised within the block; lse (B, Sq, H))."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd) * (hd ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float())
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - mx)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype).float(),
+                       v.float()) / l
+    lse = (mx + torch.log(l))[..., 0]
+    return out.reshape(b, sq, h, hd), lse.reshape(b, sq, h)
+
+
+def _ring_cells(qs: sh.Cells, ks: sh.Cells, vs: sh.Cells, env: MeshEnv, *,
+                causal: bool, window: int) -> sh.Cells:
+    """The ring over ``model`` of JAX's ``ring_attention`` (``attention.py
+    :161``) on one tensor per cell: cell r's queries (B_loc, S_loc, H, hd)
+    at global positions r·S_loc + i, and at step s the K/V block of rank
+    blk = (r - s) mod n, passed one rank on by ``ppermute`` after every
+    step; blocks above the causal diagonal are skipped, and a window ends
+    the ring after ``ring_steps``.  In serving with S_q = S_kv each step
+    is one flash launch (``q_offset = (r - blk) · S_loc``, float32 output
+    and lse); in training (grad on) JAX's flash math runs under autograd;
+    a memory of another length (cross attention) runs ``_block_attend``.
+    Returns each cell's (B_loc, S_loc, H, hd) in q's dtype."""
+    n = env.tp_size
+    b, s_loc, h, hd = qs[0].shape
+    sk, kvh = ks[0].shape[1], ks[0].shape[2]
+    ranks = [env.axis_index(c, "model") for c in range(env.n_cells)]
+    n_steps = ring_steps(n, s_loc, window)
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*qs, *ks, *vs))
+    if train:
+        g = h // kvh
+        heads = sh.cellwise(_heads, qs, ks, vs)
+        qh, kh, vh = sh.unzip(heads)
+        state = sh.cellwise(
+            lambda q: _init_state(b * kvh, s_loc * g, hd, q.device), qs)
+    else:
+        state = [None] * env.n_cells
+        kh, vh = ks, vs
+    kernel = not train and s_loc == sk
+    if not kernel and not train and (causal or window):
+        raise ValueError("a masked ring over keys of another length has "
+                         "no serving form")
+    for step in range(n_steps):
+        def one(st, q, k, v, r):
+            blk = (r - step) % n
+            if causal and blk > r:
+                return st                     # above the diagonal
+            if train:
+                dev = q.device
+                return _flash_update(
+                    st, q, k, v, r * s_loc + torch.arange(s_loc, device=dev),
+                    blk * sk + torch.arange(sk, device=dev), causal, window,
+                    h // kvh)
+            if kernel:
+                out = flash_ops.flash_attention(
+                    q, k, v, causal=causal, window=window,
+                    q_offset=(r - blk) * s_loc if causal or window else 0,
+                    return_lse=True)
+            else:
+                out = _block_attend(q, k, v)
+            return _combine_lse(st, *out)
+
+        state = sh.cellwise(one, state, qh if train else qs, kh, vh, ranks)
+        if step + 1 < n_steps:
+            kh = sh.ppermute(kh, env, "model", 1)
+            vh = sh.ppermute(vh, env, "model", 1)
+    if train:
+        return sh.cellwise(
+            lambda st, q: _finish(st, b, s_loc, h, hd, q.dtype), state, qs)
+    return sh.cellwise(lambda st, q: st[0].to(q.dtype), state, qs)
+
+
+def _decode_cells(qs: sh.Cells, kcs: sh.Cells, vcs: sh.Cells,
+                  kns: sh.Cells, vns: sh.Cells,
+                  pos: Union[int, torch.Tensor], env: MeshEnv, *,
+                  window: int = 0) -> sh.Cells:
+    """JAX's split-K ``decode_attention`` (``attention.py:276``) on one
+    tensor per cell: cell (d, m) holds the cache positions
+    [m·S_loc, (m+1)·S_loc) of its batch rows; it writes the new K/V where
+    it owns ``pos`` (in place), runs the decode kernel on its shard at
+    ``pos - m·S_loc`` with the lse, and the ``model`` group's float32
+    outputs are combined by their lse in rank order on the group's first
+    device, then cast and sent to its cells (once per distinct device)."""
+    s_loc = kcs[0].shape[1]
+    parts: List[Any] = []
+    for c in range(env.n_cells):
+        dev = env.cells[c]
+        local = torch.as_tensor(pos, dtype=torch.int32, device=dev) \
+            - env.axis_index(c, "model") * s_loc
+        _write_at(kcs[c], kns[c], local)
+        _write_at(vcs[c], vns[c], local)
+        parts.append(decode_ops.decode_attention(
+            qs[c], kcs[c], vcs[c], local, window=window, return_lse=True))
+    out: List[Any] = [None] * env.n_cells
+    for grp in sh._groups(env, ("model",)):
+        dev0 = env.cells[grp[0]]
+        acc = None
+        for c in grp:
+            o, l = parts[c]
+            acc = _combine_lse(acc, o.to(dev0), l.to(dev0))
+        whole = acc[0].to(qs[grp[0]].dtype)
+        sent = {}
+        for c in grp:
+            dev = env.cells[c]
+            if dev not in sent:
+                sent[dev] = whole.to(dev)
+            out[c] = sent[dev]
+    return out

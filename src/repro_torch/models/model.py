@@ -29,6 +29,24 @@ aux loss added in.  No kernel of the port runs in ``loss``: the JAX
 package has no backward kernel to port, and the kernels' outputs carry
 no gradient (their wrappers refuse inputs that require grad).
 
+On a grid (``env``, a ``distributed.sharding.MeshEnv``): ``prefill``,
+``decode_step``, ``loss`` and ``init_cache`` lay the activations out as
+JAX constrains them (``model.py:485, 566, 605``): after the embedding,
+one piece per cell, the batch over ``data`` and the sequence over
+``model``; a decode step's token rows over ``data``, whole over
+``model``.  Each layer's weights come through ``gather_for_compute``
+(whole on each distinct device, no copy where a device holds them whole
+already; the expert tensors stay in their pieces), attention runs the
+ring (prefill, training) and the split-K decode over the cache shards,
+the recurrent layers their prefix or carry chain, MoE its expert-parallel
+dispatch.  The head follows ``_logits`` (``model.py:434-447``): the
+vocabulary over ``model``, each cell's slice of the logits from its rows
+of the unembedding, joined by rank (the loss: a log-sum-exp over the
+slices).  Caches are :class:`~repro_torch.distributed.sharding.Sharded`
+pieces by ``cache_specs`` (``gather_caches`` joins them whole); the
+parameters may be whole tensors or pieces (``Sharded``, as the grid
+``Trainer`` holds them).
+
 Differences from the JAX model, all of form and none of result:
   * parameters are a dict with a Python list of per-layer dicts under
     ``"layers"``, one per layer in layer order (JAX stacks each kind of
@@ -68,6 +86,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.lm import encoder_frames
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P, MeshEnv
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan.ref import M_INIT
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
@@ -101,6 +122,12 @@ def _cast(tree: Any, dt: torch.dtype, min_dim: int) -> Any:
     ``dt``."""
     if isinstance(tree, dict):
         return {k: _cast(v, dt, min_dim) for k, v in tree.items()}
+    if isinstance(tree, sh.Sharded):          # a leaf's pieces
+        made: Dict[int, torch.Tensor] = {}
+        for t in tree:
+            if id(t) not in made:
+                made[id(t)] = _cast(t, dt, min_dim)
+        return sh.Sharded([made[id(t)] for t in tree], tree.spec)
     if isinstance(tree, list):
         return [_cast(v, dt, min_dim) for v in tree]
     if tree.dim() >= min_dim and tree.dtype == torch.float32 and \
@@ -625,7 +652,7 @@ class Model:
         return x
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
-             remat: bool = True
+             remat: bool = True, env: Optional[MeshEnv] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Teacher-forced LM loss (JAX's ``Model.loss``, ``model.py:555``):
         the parameters cast as ``cast_params`` casts them (float32 masters
@@ -643,9 +670,11 @@ class Model:
         at once (1.25e9 of them, 5 GB, at qwen3-1.7b's vocabulary and
         2 × 4,096 tokens, and its softmax and gradient beside them); the
         per-token math is the same, and the chunks' sums are added in
-        chunk order."""
+        chunk order.  With ``env``: the grid (``_grid_loss``)."""
         cfg = self.cfg
         params = self.cast_params(params)
+        if env is not None:
+            return self._grid_loss(params, batch, env, remat)
         tokens, labels = batch["tokens"], batch["labels"]
         x = self._embed(params, tokens)
         if cfg.family == "vlm" and "patch_embeds" in batch:
@@ -680,7 +709,8 @@ class Model:
 
     # --- prefill -------------------------------------------------------------
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None, *,
+                env: Optional[MeshEnv] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Forward over the prompt ``batch["tokens"]`` (B, S) — with
         ``batch["patch_embeds"]`` (B, P, d) over the first P positions for
@@ -690,11 +720,15 @@ class Model:
         (B, cache_len, KVH, hd) holding the prompt's K/V (default
         cache_len: S) for ``"attn"`` (and the encoder's cross K/V for the
         encoder–decoder), the rolling window for ``"local"``, the final
-        recurrent state for ``"rec"``, ``"m"`` and ``"s"``."""
+        recurrent state for ``"rec"``, ``"m"`` and ``"s"``.  With ``env``:
+        the grid (``_grid_forward``); the caches are ``Sharded`` pieces by
+        ``cache_specs``."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache_len = cache_len or s
+        if env is not None:
+            return self._grid_prefill(params, batch, cache_len, env)
         x = self._embed(params, tokens)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(x.dtype)
@@ -747,14 +781,19 @@ class Model:
 
     # --- decode --------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int,
-                   device: Union[str, torch.device]) -> Cache:
+                   device: Union[str, torch.device, None] = None, *,
+                   env: Optional[MeshEnv] = None) -> Cache:
         """Empty caches, one dict per layer, as JAX's ``_layer_cache``
         (``model.py:263``) and ``init_cache`` (``model.py:712``): zero K/V
         (``"local"``: a ring of min(window, cache_len) slots, all empty),
         zero (c, n) and, for ``"s"``, zero h and m = -1e30; zero h and
         tail for ``"rec"``; zero cross K/V of ``encoder_frames`` frames
-        for the encoder–decoder."""
+        for the encoder–decoder.  With ``env``: made on the first cell and
+        cut by ``cache_specs`` into ``Sharded`` pieces."""
         cfg = self.cfg
+        if env is not None:
+            return self.shard_caches(
+                self.init_cache(batch, cache_len, env.first), env, batch)
         hn, hdm, d = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_model
         caches: Cache = []
         for kind in self.kinds:
@@ -790,15 +829,19 @@ class Model:
         return caches
 
     def decode_step(self, params: Params, caches: Cache, token: torch.Tensor,
-                    pos: Union[int, torch.Tensor]
+                    pos: Union[int, torch.Tensor], *,
+                    env: Optional[MeshEnv] = None
                     ) -> Tuple[torch.Tensor, Cache]:
         """token: (B, 1) int; pos: the new token's position, an int or a
         0-d int32 tensor on the device (read there: no host round trip;
         the recurrent layers ignore it).  Writes the token's K/V into the
         attention caches in place and the new recurrent states into their
         caches' dicts; returns (logits (B, 1, padded_vocab) float32,
-        caches)."""
+        caches).  With ``env``: the grid (``_grid_decode``), caches as
+        ``init_cache(env=...)`` or ``prefill(env=...)`` give them."""
         cfg = self.cfg
+        if env is not None:
+            return self._grid_decode(params, caches, token, pos, env)
         x = self._embed(params, token)
         b, _, d = x.shape
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -842,6 +885,543 @@ class Model:
                 x = x + (o.reshape(b, d) @ p["wo"])[:, None]
         x = norm_apply(cfg, x, params["final_norm"])
         return self._logits(params, x).float(), caches
+
+
+    # --- the grid -------------------------------------------------------------
+    # One tensor per cell (``sh.cellwise`` runs a step once per distinct
+    # argument tuple: work JAX replicates runs once per device).
+
+    def shard_caches(self, caches: Cache, env: MeshEnv, batch: int) -> Cache:
+        """Whole caches cut into ``Sharded`` pieces by ``cache_specs``."""
+        specs = sh.cache_specs(caches, env, batch)
+        return [{k: sh.shard(t, specs[i][k], env) for k, t in c.items()}
+                for i, c in enumerate(caches)]
+
+    @staticmethod
+    def gather_caches(caches: Cache, env: MeshEnv) -> Cache:
+        """Grid caches joined whole on the first cell's device."""
+        return [{k: sh.unshard(t, None, env) for k, t in c.items()}
+                for c in caches]
+
+    def _grid_norm(self, p: Params, xs: sh.Cells, env: MeshEnv
+                   ) -> sh.Cells:
+        """A top-level norm (``final_norm``, ``enc_norm``) on every cell."""
+        trees = sh.cell_trees(sh.gather_for_compute(p, env), env.n_cells)
+        return sh.cellwise(lambda q, x: norm_apply(self.cfg, x, q), trees,
+                           xs)
+
+    def _grid_layer(self, p: Params, env: MeshEnv):
+        """A layer's weights through ``gather_for_compute``: (the tree of
+        cell lists, one tree per cell)."""
+        lp = sh.gather_for_compute(p, env)
+        return lp, sh.cell_trees(lp, env.n_cells)
+
+    def _grid_tables(self, params: Params, env: MeshEnv) -> Params:
+        """``params`` with the embedding (and an untied unembedding) whole
+        on each cell's device, gathered once for the embedding and the
+        head (a cell list each; a device that holds them whole gets them
+        with no copy)."""
+        p = dict(params)
+        for key in ("embed", "unembed"):
+            if key in p:
+                p[key] = (sh.gather_whole(p[key], None, env)
+                          if isinstance(p[key], list)
+                          else sh.replicate(p[key], env))
+        return p
+
+    def _grid_embed(self, params: Params, tokens: torch.Tensor,
+                    batch: Dict[str, torch.Tensor], env: MeshEnv,
+                    seq: bool) -> sh.Cells:
+        """The embedding on the first cell (the VLM's patch embeddings
+        spliced over the first positions), laid out (dp, sp, None) — or
+        (dp, None, None) for a decode step's token.  ``params`` as
+        ``_grid_tables`` gives them."""
+        cfg = self.cfg
+        p = dict(params)
+        p["embed"] = params["embed"][0]
+        x = self._embed(p, tokens.to(env.first))
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(env.first, x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return sh.constrain(x, "dp", "sp" if seq else None, None, env=env)
+
+    def _positions(self, xs: sh.Cells, env: MeshEnv) -> sh.Cells:
+        """Each cell's global positions m·S_loc + arange(S_loc)."""
+        s_loc = xs[0].shape[1]
+        return sh.cellwise(
+            lambda x, m: m * s_loc + torch.arange(s_loc, device=x.device),
+            xs, [env.axis_index(c, "model") for c in range(env.n_cells)])
+
+    def _row_last(self, cells: sh.Cells, env: MeshEnv) -> sh.Cells:
+        """Each cell's copy of the value on the last ``model`` rank of its
+        group (a recurrent layer's final state), once per device."""
+        out: List[Any] = [None] * env.n_cells
+        for grp in sh._groups(env, ("model",)):
+            last = cells[grp[-1]]
+            sent = {}
+            for c in grp:
+                dev = env.cells[c]
+                if dev not in sent:
+                    sent[dev] = (tuple(t.to(dev) for t in last)
+                                 if isinstance(last, tuple) else last.to(dev))
+                out[c] = sent[dev]
+        return out
+
+    def _grid_ffn(self, lp: Params, trees: List[Params], hs: sh.Cells,
+                  env: MeshEnv, decode: bool, batch_split: bool = True):
+        """``_ffn`` on the grid: the MLP per cell, or the expert-parallel
+        MoE (and the shared experts' MLP).  Returns (y cells, aux or
+        None)."""
+        cfg = self.cfg
+        aux = None
+        if not cfg.is_moe:
+            return sh.cellwise(lambda p, h: mlp_apply(cfg, p["mlp"], h),
+                               trees, hs), aux
+        pc = moe._expert_cells(lp["moe"], env)
+        if decode:
+            ys = moe._decode_cells(cfg, pc, hs, env, batch_split=batch_split)
+        else:
+            ys, aux = moe._dispatch_cells(cfg, pc, hs, env)
+        if cfg.n_shared_experts:
+            ys = sh.cellwise(
+                lambda p, h, y: y + mlp_apply(cfg, p["shared_mlp"], h),
+                trees, hs, ys)
+        return ys, aux
+
+    def _grid_attn(self, kind: str, lp: Params, trees: List[Params],
+                   xs: sh.Cells, pos: Optional[sh.Cells], env: MeshEnv,
+                   causal: bool = True, cross=None):
+        """An attention layer on the grid in sequence form: the ring over
+        ``model`` (the flash kernel a step in serving), ``cross(xs)`` when
+        given, the FFN.  Returns (xs, k cells, v cells, aux or None)."""
+        cfg = self.cfg
+        window = cfg.window if kind == "local" else 0
+        hs = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm1"]),
+                         trees, xs)
+        qkv = sh.cellwise(
+            lambda p, h, ps: _attn_qkv(cfg, p["attn"], h, ps), trees, hs,
+            pos if pos is not None else [None] * env.n_cells)
+        q, k, v = sh.unzip(qkv)
+        o = attn._ring_cells(q, k, v, env, causal=causal, window=window)
+        xs = sh.cellwise(
+            lambda p, x, o: x + o.reshape(x.shape[0], x.shape[1],
+                                          cfg.q_dim) @ p["attn"]["wo"],
+            trees, xs, o)
+        if cross is not None:
+            xs = cross(xs)
+        h2 = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm2"]),
+                         trees, xs)
+        ys, aux = self._grid_ffn(lp, trees, h2, env, decode=False)
+        return sh.cellwise(torch.add, xs, ys), k, v, aux
+
+    def _grid_cross(self, lpc: Params, tpc: List[Params], xs: sh.Cells,
+                    ck: sh.Cells, cv: sh.Cells, env: MeshEnv) -> sh.Cells:
+        """Decoder cross attention on the grid: the bidirectional ring over
+        the encoder's sequence-sharded K/V."""
+        cfg = self.cfg
+        hs = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm"]), tpc, xs)
+        qs = sh.cellwise(
+            lambda p, h: (h @ p["attn"]["wq"]).reshape(
+                h.shape[0], h.shape[1], cfg.n_heads, cfg.hd), tpc, hs)
+        o = attn._ring_cells(qs, ck, cv, env, causal=False, window=0)
+        return sh.cellwise(
+            lambda p, x, o: x + o.reshape(x.shape[0], x.shape[1],
+                                          cfg.q_dim) @ p["attn"]["wo"],
+            tpc, xs, o)
+
+    def _grid_recurrent(self, kind: str, lp: Params, trees: List[Params],
+                        xs: sh.Cells, env: MeshEnv, train: bool):
+        """A ``"rec"``, ``"m"`` or ``"s"`` layer on the grid in sequence
+        form.  Returns (xs, each cell's cache dict of final states)."""
+        if kind == "rec":
+            gx = sh.cellwise(lambda p, x: self._rec_inputs(p, x), trees, xs)
+            gate, xin = sh.unzip(gx)
+            ws = [lp[k] for k in ("w_rg", "b_rg", "w_ig", "b_ig", "conv_w",
+                                  "conv_b", "lam")]
+            hr = rec._rglru_cells(xin, ws, env)
+            xs = sh.cellwise(lambda p, x, g, h: self._rec_out(p, x, g, h),
+                             trees, xs, gate, hr)
+            if xin[0].shape[1] >= 3:
+                tail = sh.cellwise(_conv_tail, xin)
+            else:
+                tail = sh.cellwise(_conv_tail,
+                                   sh.all_gather(xin, env, "model", 1))
+            h_last = sh.cellwise(lambda h: h[:, -1].float(), hr)
+            return xs, {"h": self._row_last(h_last, env),
+                        "tail": self._row_last(tail, env)}
+        if kind == "m":
+            ins = sh.cellwise(lambda p, x: self._mlstm_inputs(p, x), trees,
+                              xs)
+            o, finals = rec._mlstm_cells(*sh.unzip(ins), env,
+                                         rec.MLSTM_CHUNK)
+            xs = sh.cellwise(
+                lambda p, x, o: x + o.reshape(x.shape) @ p["wo"], trees, xs,
+                o)
+            fin = self._row_last(finals, env)
+            return xs, {"c": [f[1] for f in fin], "n": [f[2] for f in fin]}
+        pre = sh.cellwise(lambda p, x: self._slstm_inputs(p, x), trees, xs)
+        rs = lp["r_mat"]
+        if train:
+            o, finals = rec._slstm_train_cells(pre, rs, env)
+        else:
+            o, finals = rec._slstm_chain(
+                pre, env, lambda x, st, c: slstm_ops.slstm_scan(x, rs[c],
+                                                                *st))
+        xs = sh.cellwise(lambda p, x, o: x + o.reshape(x.shape) @ p["wo"],
+                         trees, xs, o)
+        fin = self._row_last(finals, env)
+        return xs, {k: [f[i] for f in fin] for i, k in
+                    enumerate(("c", "n", "h", "m"))}
+
+    def _grid_encoder(self, params: Params, frames: torch.Tensor,
+                      env: MeshEnv, remat: bool) -> sh.Cells:
+        """Whisper's encoder on the grid: the frames (with their sinusoidal
+        positions) laid out (dp, sp, None), bidirectional ring attention
+        layers, ``enc_norm``."""
+        cfg = self.cfg
+        x = frames.to(env.first)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+        xs = sh.constrain(x, "dp", "sp", None, env=env)
+
+        def layer(xs, p):
+            lp, trees = self._grid_layer(p, env)
+            return self._grid_attn("attn", lp, trees, xs, None, env,
+                                   causal=False)[0]
+
+        for p in params["enc_layers"]:
+            xs = (checkpoint(layer, xs, p, use_reentrant=False) if remat
+                  else layer(xs, p))
+        return self._grid_norm(params["enc_norm"], xs, env)
+
+    def _grid_stack(self, params: Params, xs: sh.Cells, env: MeshEnv,
+                    cache_len: Optional[int], train: bool, remat: bool,
+                    batch: int, enc: Optional[sh.Cells] = None):
+        """Every layer on the grid in sequence form.  Returns (xs, the
+        summed aux loss, each layer's caches as cell lists when
+        ``cache_len``)."""
+        cfg = self.cfg
+        pos = self._positions(xs, env)
+        caches: List[Dict[str, Any]] = []
+
+        def one(i, kind, p, xs):
+            lp, trees = self._grid_layer(p, env)
+            if kind in ("attn", "local"):
+                cross = None
+                cache: Dict[str, Any] = {}
+                if enc is not None:
+                    pc = params["cross_layers"][i]
+                    lpc, tpc = self._grid_layer(pc, env)
+                    ckv = sh.cellwise(lambda p, e: self._enc_kv(p, e), tpc,
+                                      enc)
+                    ck, cv = sh.unzip(ckv)
+                    cross = (lambda xs: self._grid_cross(lpc, tpc, xs, ck, cv,
+                                                         env))
+                    if cache_len:
+                        cache = {"cross_k": sh.all_gather(ck, env, "model",
+                                                          1),
+                                 "cross_v": sh.all_gather(cv, env, "model",
+                                                          1)}
+                xs, k, v, aux = self._grid_attn(kind, lp, trees, xs, pos,
+                                                env, cross=cross)
+                if cache_len:
+                    cache.update(self._grid_kv_cache(kind, k, v, env,
+                                                     cache_len, batch))
+                return xs, aux, cache
+            xs, cache = self._grid_recurrent(kind, lp, trees, xs, env, train)
+            return xs, None, cache
+
+        # training keeps each pattern group's input only and recomputes
+        # the group in the backward (the encoder–decoder: each layer), as
+        # the one-device ``_run_stack`` and ``_train_decoder`` do
+        period = 1 if enc is not None else len(cfg.block_pattern)
+        layers = list(enumerate(zip(self.kinds, params["layers"])))
+        aux_total = None
+
+        def group(xs, chunk):
+            auxs, cs = [], []
+            for i, (kind, p) in chunk:
+                xs, a, c = one(i, kind, p, xs)
+                auxs.append(a)
+                cs.append(c)
+            return xs, auxs, cs
+
+        i0 = 0
+        while i0 < len(layers):
+            n = period if i0 < self.n_stacked else 1
+            chunk = layers[i0:i0 + n]
+            if train and (remat or enc is not None) and (
+                    i0 < self.n_stacked or enc is not None):
+                xs, auxs, cs = checkpoint(group, xs, chunk,
+                                          use_reentrant=False)
+            else:
+                xs, auxs, cs = group(xs, chunk)
+            for a in auxs:
+                if a is not None:
+                    aux_total = a if aux_total is None else aux_total + a
+            caches += cs
+            i0 += n
+        return xs, aux_total, caches
+
+    def _grid_kv_cache(self, kind: str, k: sh.Cells, v: sh.Cells,
+                       env: MeshEnv, cache_len: int, b: int
+                       ) -> Dict[str, Any]:
+        """A prompt's K/V cells (batch ``b`` in all) as the layer's decode
+        cache: joined whole, padded to ``cache_len`` (``"attn"``) or kept
+        as the rolling window (``"local"``), cut by ``cache_specs``."""
+        spec = sh.seq_spec(env, b, 4)
+        kw, vw = sh.unshard(k, spec, env), sh.unshard(v, spec, env)
+        if kind == "local":
+            whole = _window_cache(kw, vw, self.cfg.window, cache_len)
+        else:
+            whole = {"k": _pad_cache(kw, cache_len),
+                     "v": _pad_cache(vw, cache_len)}
+        return self.shard_caches([whole], env, kw.shape[0])[0]
+
+    def _grid_head(self, params: Params, xs: sh.Cells, env: MeshEnv,
+                   batch_split: bool) -> torch.Tensor:
+        """``final_norm`` and ``_logits`` on the grid (``model.py:434-447``):
+        each cell's rows (B_loc, 1, d) against its vocabulary slice (the
+        vocabulary over ``model`` when it divides, else whole), joined as
+        (dp, None, tp) into float32 logits (B, 1, V) on the first cell."""
+        hs = self._grid_norm(params["final_norm"], xs, env)
+        w_slices, spec = self._vocab_slices(params, env)
+        logits = sh.cellwise(lambda h, w: (h @ w.t()).float(), hs, w_slices)
+        dp = env.dp_axes if batch_split else None
+        return sh.unshard(logits, P(dp, None, spec), env)
+
+    def _vocab_slices(self, params: Params, env: MeshEnv):
+        """Each cell's rows of the unembedding: its ``model`` rank's slice
+        of the vocabulary (a view of the weights gathered whole on its
+        device), or the whole when V does not divide.  Returns (cells, the
+        vocab dim's axis or None)."""
+        key = "embed" if self.cfg.tie_embeddings else "unembed"
+        whole = params[key]                  # as _grid_tables gives them
+        n = env.tp_size
+        v = whole[0].shape[0]
+        if n == 1 or v % n:
+            return whole, None
+        step = v // n
+        return sh.cellwise(lambda t, m: t[m * step:(m + 1) * step], whole,
+                           [env.axis_index(c, "model")
+                            for c in range(env.n_cells)]), env.tp_axis
+
+    def _grid_prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                      cache_len: int, env: MeshEnv):
+        cfg = self.cfg
+        params = self._grid_tables(params, env)
+        xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
+        enc = None
+        if cfg.is_encoder_decoder:
+            enc = self._grid_encoder(params, batch["frames"].to(
+                env.first, xs[0].dtype), env, remat=False)
+        b = batch["tokens"].shape[0]
+        xs, _, cells = self._grid_stack(params, xs, env, cache_len,
+                                        train=False, remat=False, batch=b,
+                                        enc=enc)
+        split = bool(env.dp_axes) and b % env.dp_size == 0
+        state_spec = P(env.dp_axes if split else None)
+        caches = [{name: t if isinstance(t, sh.Sharded)   # states, cross K/V:
+                   else sh.Sharded(t, state_spec)         # batch over DP
+                   for name, t in c.items()} for c in cells]
+        # the last position lives on each row's last "model" rank
+        last = self._row_last(sh.cellwise(lambda x: x[:, -1:], xs), env)
+        return self._grid_head(params, last, env, split), caches
+
+    def _grid_loss(self, params: Params, batch: Dict[str, torch.Tensor],
+                   env: MeshEnv, remat: bool):
+        """``loss`` on the grid: the stack in training form over (dp, sp)
+        cells, then the vocabulary-parallel NLL (``_grid_nll``), summed
+        over the cells in rank order."""
+        cfg = self.cfg
+        params = self._grid_tables(params, env)
+        xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
+        enc = None
+        if cfg.is_encoder_decoder:
+            enc = self._grid_encoder(params, batch["frames"].to(
+                env.first, xs[0].dtype), env, remat=True)
+        xs, aux, _ = self._grid_stack(params, xs, env, None, train=True,
+                                      remat=remat,
+                                      batch=batch["tokens"].shape[0],
+                                      enc=enc)
+        if aux is None or cfg.is_encoder_decoder:
+            aux = torch.zeros((), dtype=torch.float32, device=env.first)
+        labels = batch["labels"].to(env.first)
+        ls = sh.constrain(labels, "dp", "sp", env=env)
+        nll = self._grid_nll(params, xs, ls, env)
+        loss = nll / torch.clamp((labels >= 0).sum().float(), min=1.0)
+        return loss + 0.01 * aux, {"nll": loss, "aux": aux}
+
+    def _grid_nll(self, params: Params, xs: sh.Cells, ls: sh.Cells,
+                  env: MeshEnv) -> torch.Tensor:
+        """Σ NLL over every cell's tokens: ``final_norm``, then per data row
+        the rows all-gathered over ``model`` (the (dp, None, tp) layout of
+        JAX's logits) against each cell's vocabulary slice, ``HEAD_CHUNK``
+        tokens at a time (each chunk recomputed in the backward); the
+        slices' log-sum-exps and gold logits combined in rank order.
+        Without a vocabulary split each cell takes its own tokens whole."""
+        hs = self._grid_norm(params["final_norm"], xs, env)
+        w_slices, split = self._vocab_slices(params, env)
+        if split is None:
+            parts = sh.cellwise(
+                lambda h, w, l: sum(
+                    checkpoint(_nll_chunk_sum, h.reshape(-1, h.shape[-1])[i:
+                               i + HEAD_CHUNK], w,
+                               l.reshape(-1)[i:i + HEAD_CHUNK],
+                               use_reentrant=False)
+                    for i in range(0, l.numel(), HEAD_CHUNK)),
+                hs, w_slices, ls)
+            uniq = list({id(p): p for p in parts}.values())
+            return sh.all_reduce([p.to(env.first) for p in uniq])[0]
+        rows = sh.all_gather(hs, env, "model", 1)
+        lrow = sh.all_gather(ls, env, "model", 1)
+        step = w_slices[0].shape[0]
+        total = None
+        for grp in sh._groups(env, ("model",)):
+            d = rows[grp[0]].shape[-1]
+            hrows = [rows[c].reshape(-1, d) for c in grp]
+            labs = [lrow[c].reshape(-1) for c in grp]
+            for i in range(0, labs[0].numel(), HEAD_CHUNK):
+                part = checkpoint(
+                    _vocab_nll_chunk_sum, step,
+                    [h[i:i + HEAD_CHUNK] for h in hrows],
+                    [l[i:i + HEAD_CHUNK] for l in labs],
+                    *[w_slices[c] for c in grp], use_reentrant=False)
+                part = part.to(env.first)
+                total = part if total is None else total + part
+        return total
+
+    def _grid_decode(self, params: Params, caches: Cache,
+                     token: torch.Tensor, pos, env: MeshEnv):
+        """``decode_step`` on the grid: the token rows over ``data`` (whole
+        over ``model``, each step once per device), the split-K decode
+        over the cache shards, the rolling window gathered over ``model``
+        and cut again, the recurrent states replicated over ``model``."""
+        cfg = self.cfg
+        b = token.shape[0]
+        params = self._grid_tables(params, env)
+        xs = self._grid_embed(params, token, {}, env, seq=False)
+        batch_split = bool(env.dp_axes) and b % env.dp_size == 0
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=env.first)
+        poss = sh.cellwise(lambda x: pos.to(x.device).reshape(1), xs)
+        for i, (kind, p, c) in enumerate(zip(self.kinds, params["layers"],
+                                             caches)):
+            lp, trees = self._grid_layer(p, env)
+            if kind in ("attn", "local"):
+                hs = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm1"]),
+                                 trees, xs)
+                q, k, v = sh.unzip(sh.cellwise(
+                    lambda p, h, ps: _attn_qkv(cfg, p["attn"], h, ps), trees,
+                    hs, poss))
+                if kind == "attn":
+                    o = attn._decode_cells(q, c["k"], c["v"], k, v, pos, env)
+                else:
+                    o = self._grid_window_decode(c, q, k, v, pos, env)
+                xs = sh.cellwise(
+                    lambda p, x, o: x + o.reshape(x.shape[0], 1, cfg.q_dim)
+                    @ p["attn"]["wo"], trees, xs, o)
+                if cfg.is_encoder_decoder:
+                    lpc, tpc = self._grid_layer(params["cross_layers"][i],
+                                                env)
+                    xs = sh.cellwise(
+                        lambda p, x, ck, cv: self._cross_layer(p, x, ck, cv),
+                        tpc, xs, c["cross_k"], c["cross_v"])
+                h2 = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm2"]),
+                                 trees, xs)
+                ys, _ = self._grid_ffn(lp, trees, h2, env, decode=True,
+                                       batch_split=batch_split)
+                xs = sh.cellwise(torch.add, xs, ys)
+                continue
+            names = {"rec": ("h", "tail"), "m": ("c", "n"),
+                     "s": ("c", "n", "h", "m")}[kind]
+            state = sh.cellwise(lambda *t: t, *[c[k] for k in names])
+
+            def step(p, x, st, kind=kind):
+                bb, _, d = x.shape
+                if kind == "rec":
+                    gate, xin = self._rec_inputs(p, x[:, 0])
+                    new, hr = rec.rglru_decode_step(
+                        st, xin, p["w_rg"], p["b_rg"], p["w_ig"], p["b_ig"],
+                        p["conv_w"], p["conv_b"], p["lam"])
+                    return self._rec_out(p, x, gate[:, None],
+                                         hr[:, None]), new
+                if kind == "m":
+                    q, k, v, i_raw, f_raw = (
+                        t[:, 0] for t in self._mlstm_inputs(p, x))
+                    new, o = rec.mlstm_decode_step(st, q, k, v, i_raw, f_raw)
+                    return x + (o.reshape(bb, d) @ p["wo"])[:, None], new
+                new, o = rec.slstm_decode_step(
+                    st, self._slstm_inputs(p, x)[:, 0], p["r_mat"])
+                return x + (o.reshape(bb, d) @ p["wo"])[:, None], new
+
+            out = sh.cellwise(step, trees, xs, state)
+            xs = [o[0] for o in out]
+            for j, k in enumerate(names):
+                c[k] = sh.Sharded([o[1][j] for o in out], c[k].spec)
+        return self._grid_head(params, xs, env, batch_split), caches
+
+    def _grid_window_decode(self, c: Dict[str, Any], q: sh.Cells,
+                            k: sh.Cells, v: sh.Cells, pos, env: MeshEnv
+                            ) -> sh.Cells:
+        """A ``"local"`` layer's decode on the grid: the rolling window
+        (cut over ``model`` by ``cache_specs`` when W divides) gathered
+        whole per row, ``window_decode_attention`` once per device, the
+        window cut again into the layer's cache."""
+        cfg = self.cfg
+        kspec = c["k"].spec
+        split = len(kspec) > 1 and kspec[1] is not None
+        kc = sh.all_gather(c["k"], env, "model", 1) if split else c["k"]
+        vc = sh.all_gather(c["v"], env, "model", 1) if split else c["v"]
+        kp = sh.cellwise(lambda t: t.clone(), c["kpos"])
+        out = sh.cellwise(
+            lambda q, kc, vc, kp, k, v: attn.window_decode_attention(
+                q, kc, vc, kp, k, v, pos.to(q.device), window=cfg.window),
+            q, kc, vc, kp, k, v)
+        o = [t[0] for t in out]
+        for name, j in (("k", 1), ("v", 2)):
+            whole = [t[j] for t in out]
+            if split:
+                w_loc = c[name][0].shape[1]
+                whole = sh.cellwise(
+                    lambda t, m: t[:, m * w_loc:(m + 1) * w_loc], whole,
+                    [env.axis_index(cc, "model") for cc in range(env.n_cells)])
+            c[name] = sh.Sharded(whole, kspec)
+        c["kpos"] = sh.Sharded([t[3] for t in out], c["kpos"].spec)
+        return o
+
+
+def _vocab_nll_chunk_sum(step: int, hs: List[torch.Tensor],
+                         labels: List[torch.Tensor], *ws: torch.Tensor
+                         ) -> torch.Tensor:
+    """Σ NLL of one chunk of a data row's tokens with the vocabulary split
+    over the ``model`` ranks: rank m's rows hs[m] (T, d) (the same tokens
+    on its device) against its slice ws[m] (V / n, d) of the
+    unembedding; the slices' log-sum-exps and the gold logit (from the
+    slice that holds the label) combined in rank order on rank 0's
+    device, where ``labels >= 0``."""
+    dev0 = hs[0].device
+    lses, gold = [], None
+    for m, (h, lab, w) in enumerate(zip(hs, labels, ws)):
+        lg = (h @ w.t()).float()
+        local = lab.long() - m * step
+        mine = (local >= 0) & (local < step)
+        g = lg.gather(-1, local.clamp(0, step - 1)[:, None])[:, 0]
+        g = torch.where(mine, g, torch.zeros_like(g)).to(dev0)
+        lses.append(torch.logsumexp(lg, -1).to(dev0))
+        gold = g if gold is None else gold + g
+    lse = torch.logsumexp(torch.stack(lses), 0)
+    return ((lse - gold) * (labels[0] >= 0).float()).sum()
+
+
+def _nll_chunk_sum(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Σ NLL of ``labels`` over rows h (T, d) against the whole
+    unembedding w (V, d), where ``labels >= 0``."""
+    logits = (h @ w.t()).float()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[:, None])[:, 0]
+    return ((lse - gold) * mask).sum()
 
 
 PORTED_KINDS = ("attn", "local", "rec", "m", "s")

@@ -16,6 +16,20 @@ position, except the embedding gather's (an ``index_put_`` with
 ``accumulate=True``), which PyTorch computes on CUDA by sorting the
 indices (its ``use_deterministic_algorithms`` documentation lists only
 the CPU form as nondeterministic).
+
+On a grid (``env``; JAX's ``trainer.py:64-75``): the float32 masters and
+the optimizer state rest as ``Sharded`` pieces by ``infer_param_specs``
+(the train profile's 2-D FSDP over ("data", "model")), the step casts
+the pieces and takes the gradients with respect to them, so they come
+back in the masters' layout: where several devices use a leaf, its
+pieces' gradients are added in device order (``gather_for_compute``), so
+the data-parallel sum has a fixed order.  The optimizer's rules read
+whole leaves (the global norm, JAX's stacks, Adafactor's factored
+moments), so the update joins each leaf whole on the first cell, runs
+the one-device update and cuts the results again; on a grid that repeats
+one device the joins and cuts of the masters and the state are views,
+no copies.  A checkpoint holds whole tensors, the same files as on one
+device.
 """
 from __future__ import annotations
 
@@ -25,7 +39,9 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.checkpoint import CheckpointManager
+from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import Model, Params
 from repro_torch.train.optim import (OptimizerConfig, build_optimizer,
@@ -41,15 +57,90 @@ class TrainState:
     data_cursor: int = 0         # host-side; checkpointed
 
 
+def shard_tree(tree: Any, env: MeshEnv) -> Any:
+    """Every tensor of ``tree`` cut into ``Sharded`` pieces by
+    ``infer_param_specs`` (the optimizer state takes its parameters'
+    rules: ``"m/layers/3/attn/wq"`` reads as its parameter)."""
+    return sh.device_put(tree, sh.param_shardings(tree, env))
+
+
+def join_tree(tree: Any, env: MeshEnv) -> Any:
+    """The inverse of :func:`shard_tree`: every ``Sharded`` leaf whole on
+    the first cell's device."""
+    if isinstance(tree, sh.Sharded):
+        return sh.unshard(tree, None, env)
+    if isinstance(tree, dict):
+        return {k: join_tree(v, env) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(join_tree(v, env) for v in tree)
+    return tree
+
+
+def _pieces(tree: Any) -> list:
+    """The distinct tensors of a tree of ``Sharded`` leaves, in leaf
+    order."""
+    if isinstance(tree, sh.Sharded):
+        return list({id(t): t for t in tree}.values())
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _pieces(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _pieces(v)]
+    return [tree]
+
+
+def _map_pieces(fn, tree: Any) -> Any:
+    """``fn`` on every distinct piece of a tree of ``Sharded`` leaves."""
+    if isinstance(tree, sh.Sharded):
+        made = {}
+        for t in tree:
+            if id(t) not in made:
+                made[id(t)] = fn(t)
+        return sh.Sharded([made[id(t)] for t in tree], tree.spec)
+    if isinstance(tree, dict):
+        return {k: _map_pieces(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_pieces(fn, v) for v in tree)
+    return fn(tree)
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
-                    remat: bool = True):
+                    remat: bool = True, env: Optional[MeshEnv] = None):
     """(params, opt_state, step, batch) -> (params', opt_state', step + 1,
     metrics {"loss", "grad_norm", "nll", "aux"}, 0-d tensors on the
     device).  The gradients are taken with respect to the compute-dtype
     copies of the float32 masters (``Model.cast_params``: the stacked ≥2-D
     rule of JAX's ``cast_params``), cast to float32 and applied to the
     masters by the optimizer, built with ``model.jax_stacks`` for its
-    rules that read JAX's stacked layout."""
+    rules that read JAX's stacked layout.  With ``env``: params and
+    opt_state are trees of ``Sharded`` pieces (:func:`shard_tree`), and
+    the step returns them so."""
+
+    def grid_step(params, opt_state, step, batch):
+        with torch.no_grad():
+            p_compute = _map_pieces(lambda x: x.detach().requires_grad_(),
+                                    model.cast_params(params))
+        loss, metrics = model.loss(p_compute, batch, remat=remat, env=env)
+        flat = _pieces(p_compute)
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+        out = {"loss": loss.detach(),
+               **{k: v.detach() for k, v in metrics.items()}}
+        by_id = {id(t): torch.zeros_like(t) if g is None else g
+                 for t, g in zip(flat, got)}
+        grads = _map_pieces(lambda t: by_id[id(t)], p_compute)
+        del loss, metrics, p_compute, flat, got, by_id
+        # on one device a leaf's gradient pieces are views of its gathered
+        # weight's gradient, so the join is that tensor itself, no copy
+        grads = join_tree(grads, env)
+        grads = unflatten(grads, [g.float() for g in leaves(grads)])
+        whole = join_tree(params, env)
+        update = build_optimizer(opt_cfg, model.jax_stacks(whole))[1]
+        new_params, new_opt, out["grad_norm"] = update(
+            grads, join_tree(opt_state, env), whole, step)
+        return (shard_tree(new_params, env), shard_tree(new_opt, env),
+                step + 1, out)
+
+    if env is not None:
+        return grid_step
 
     def train_step(params: Params, opt_state: Any, step: torch.Tensor,
                    batch: Dict[str, torch.Tensor]):
@@ -76,18 +167,22 @@ class Trainer:
     def __init__(self, model: Model, opt_cfg: OptimizerConfig, *,
                  ckpt_dir: Optional[str] = None, keep: int = 3,
                  save_every: int = 50, remat: bool = True, seed: int = 0,
-                 device=None):
+                 device=None, env: Optional[MeshEnv] = None):
         """``device``: where the state lives and the steps run (the
         current card by default; ``"cpu"`` for the CPU; a card asked for
-        without one raises ``DeviceUnavailableError``)."""
+        without one raises ``DeviceUnavailableError``).  ``env``: the grid
+        the state is sharded over and the steps run on (its first cell is
+        ``device``)."""
         self.model = model
         self.opt_cfg = opt_cfg
-        self.device = resolve_device(device)
+        self.env = env
+        self.device = env.first if env is not None else resolve_device(
+            device)
         self.save_every = save_every
         self.ckpt = (CheckpointManager(ckpt_dir, keep=keep)
                      if ckpt_dir else None)
         self._opt_init = build_optimizer(opt_cfg)[0]
-        self._step_fn = make_train_step(model, opt_cfg, remat=remat)
+        self._step_fn = make_train_step(model, opt_cfg, remat=remat, env=env)
         self._seed = seed
 
     def init_state(self) -> TrainState:
@@ -97,10 +192,17 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self._seed)
         rng = gen.get_state()
         params = self.model.init(gen)
-        return TrainState(params=params, opt_state=self._opt_init(params),
+        return TrainState(params=self._shard(params),
+                          opt_state=self._shard(self._opt_init(params)),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=self.device),
                           rng=rng, data_cursor=0)
+
+    def _shard(self, tree):
+        return tree if self.env is None else shard_tree(tree, self.env)
+
+    def _join(self, tree):
+        return tree if self.env is None else join_tree(tree, self.env)
 
     def restore_or_init(self) -> TrainState:
         if self.ckpt is not None:
@@ -112,8 +214,8 @@ class Trainer:
                     return t.to(self.device)
 
                 return TrainState(
-                    params=tree_map(dev, tree["params"]),
-                    opt_state=tree_map(dev, tree["opt_state"]),
+                    params=self._shard(tree_map(dev, tree["params"])),
+                    opt_state=self._shard(tree_map(dev, tree["opt_state"])),
                     step=torch.tensor(meta["step"], dtype=torch.int32,
                                       device=self.device),
                     rng=tree["rng"], data_cursor=int(meta["data_cursor"]))
@@ -124,8 +226,8 @@ class Trainer:
             return
         step = int(state.step)
         self.ckpt.save(
-            {"params": state.params, "opt_state": state.opt_state,
-             "rng": state.rng},
+            {"params": self._join(state.params),
+             "opt_state": self._join(state.opt_state), "rng": state.rng},
             meta={"step": step, "data_cursor": int(state.data_cursor)},
             step=step)
 

@@ -662,6 +662,112 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                     torch.tensor(3, dtype=torch.int32))
 
 
+# one ring step (q_offset, lse) and one shard of a split-K decode (lse,
+# the empty shard): the extensions the sequence-parallel paths launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal,window,q_offset", [
+    (1, 200, 4, 2, 128, True, 0, 0),      # offset 0 with lse
+    (1, 200, 4, 2, 128, True, 0, 200),    # the step one block back
+    (1, 200, 4, 2, 128, True, 0, 600),    # three blocks back, S % 64 != 0
+    (2, 256, 4, 2, 64, True, 100, 256),   # a window into the last block
+    (2, 256, 4, 2, 64, True, 300, 512),   # a window two blocks back
+    (1, 128, 4, 2, 64, True, 64, 256),    # a window past the block: no key
+    (1, 96, 10, 2, 64, True, 0, 37),      # G = 5, an offset mid-tile
+    (2, 70, 4, 2, 32, False, 0, 140),     # bidirectional: the offset is moot
+    (2, 1024, 16, 8, 128, True, 0, 2048),   # qwen3-1.7b's ring step
+    (2, 1024, 16, 1, 256, True, 2048, 1024),  # recurrentgemma's "local"
+])
+def test_flash_attention_ring_step_matches_plain(cuda, dtype, b, s, h, kvh,
+                                                 hd, causal, window,
+                                                 q_offset):
+    q = _n((b, s, h, hd), cuda, dtype)
+    k = _n((b, s, kvh, hd), cuda, dtype)
+    v = _n((b, s, kvh, hd), cuda, dtype)
+    before = flash_ops.flash_attention_launches
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_launches == before + 1
+    assert out.dtype == torch.float32 and lse.shape == (b, s, h)
+    want, want_lse = flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        q_offset=q_offset, return_lse=True)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    assert not torch.isnan(out).any()
+    # the same bits over 5 calls, and without lse the step's offset still
+    # masks as the plain version does
+    for _ in range(5):
+        again = flash_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          return_lse=True)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    plain = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+    assert plain.dtype == dtype
+    torch.testing.assert_close(plain.float(), want, rtol=rtol, atol=atol)
+
+
+def test_flash_attention_offset_zero_keeps_its_bits(cuda):
+    """q_offset = 0 without lse is the launch the serve path always made;
+    with lse its f32 output rounds to the same bf16 within one ulp."""
+    b, s, h, kvh, hd = 2, 1000, 16, 8, 128
+    q = _n((b, s, h, hd), cuda, torch.bfloat16)
+    k = _n((b, s, kvh, hd), cuda, torch.bfloat16)
+    v = _n((b, s, kvh, hd), cuda, torch.bfloat16)
+    base = flash_ops.flash_attention(q, k, v)
+    assert torch.equal(flash_ops.flash_attention(q, k, v, q_offset=0), base)
+    out, _ = flash_ops.flash_attention(q, k, v, return_lse=True)
+    torch.testing.assert_close(out.to(torch.bfloat16), base, rtol=1e-2,
+                               atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,pos,window", [
+    (2, 256, 4, 2, 128, 100, 0),      # the shard that holds pos
+    (2, 256, 4, 2, 128, -1, 0),       # the shard just past pos: empty
+    (2, 256, 4, 2, 128, -300, 0),     # far past pos: empty
+    (2, 256, 4, 2, 128, 700, 0),      # a shard before pos: all live
+    (1, 512, 4, 2, 128, 1000, 64),    # before pos, wholly below the window
+    (1, 512, 4, 2, 128, 540, 64),     # the window's first keys
+    (2, 1040, 16, 8, 128, 30, 0),     # qwen3-1.7b's shard at the chip's grid
+    (2, 1040, 64, 4, 128, -10, 0),    # qwen3-moe's heads, empty
+])
+def test_decode_attention_shard_matches_plain(cuda, dtype, b, s, h, kvh, hd,
+                                             pos, window):
+    q = _n((b, 1, h, hd), cuda, dtype)
+    kc = _n((b, s, kvh, hd), cuda, dtype)
+    vc = _n((b, s, kvh, hd), cuda, dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = decode_ops.decode_attention_launches
+    out, lse = decode_ops.decode_attention(q, kc, vc, p, window=window,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention_launches == before + 1
+    assert out.dtype == torch.float32 and lse.shape == (b, 1, h)
+    want, want_lse = decode_attention_ref(q.float(), kc.float(), vc.float(),
+                                          pos, window=window,
+                                          return_lse=True)
+    atol, rtol = ATTN_TOL[dtype]
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    for _ in range(5):
+        again = decode_ops.decode_attention(q, kc, vc, p, window=window,
+                                            return_lse=True)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
 def test_serve_path_launches_the_kernels_and_matches_the_cpu(cuda):
     """A reduced float32 qwen3 on the card: 1 flash launch per layer per
     prefill, 1 decode launch per layer per step, the logits of the CPU
@@ -1309,3 +1415,76 @@ def test_bf16_trainer_restarts_bit_for_bit_on_the_card(cuda, tmp_path):
     for a, b in zip(leaves(s.params) + leaves(s.opt_state),
                     leaves(s2.params) + leaves(s2.opt_state)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the several-device paths on grids that name the card several times
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,kernel", [
+    ("qwen3-1.7b", "decode"), ("xlstm-1.3b", "slstm"),
+    ("recurrentgemma-9b", "flash"), ("qwen3-moe-235b-a22b", "decode")])
+def test_grid_serve_path_on_the_card_matches_one_device(cuda, arch, kernel):
+    """A reduced float32 model on a (1, 4) grid of the card against the
+    same model on the card alone: prefill and 3 decode steps within 1e-4
+    of the largest logit, and the grid launched its kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.distributed.sharding import MeshEnv
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    if cfg.is_moe:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=4.0 * cfg.n_experts / cfg.moe_top_k)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    env = MeshEnv([[cuda] * 4])
+    batch = {"tokens": make_batch(cfg, 2, 64, 0, 0, device=cuda)["tokens"]}
+    counters = {"flash": (flash_ops, "flash_attention_launches"),
+                "decode": (decode_ops, "decode_attention_launches"),
+                "slstm": (slstm_ops, "slstm_scan_launches")}
+    mod, name = counters[kernel]
+    with torch.inference_mode():
+        l1, c1 = model.prefill(params, batch, cache_len=72)
+        before = getattr(mod, name)
+        l2, c2 = model.prefill(params, batch, cache_len=72, env=env)
+        for step in range(3):
+            assert float((l2 - l1).abs().max()) <= 1e-4 * float(
+                l1.abs().max())
+            tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
+            l1, c1 = model.decode_step(params, c1, tok, 64 + step)
+            l2, c2 = model.decode_step(params, c2, tok, 64 + step, env=env)
+        torch.cuda.synchronize()
+    assert getattr(mod, name) > before
+
+
+def test_grid_training_on_the_card_matches_one_device(cuda):
+    """A reduced float32 model's loss and gradients on a (2, 2) grid of
+    the card (data 2 x sequence 2) against the card alone, at 1e-4 of
+    each leaf's largest."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import make_batch
+    from repro_torch.distributed.sharding import MeshEnv
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optim import leaves, unflatten
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = make_batch(cfg, 4, 64, 0, 0, device=cuda)
+    got = []
+    for env in (None, MeshEnv([[cuda] * 2] * 2)):
+        ps = [t.clone().requires_grad_() for t in leaves(params)]
+        loss, _ = model.loss(unflatten(params, ps), batch, env=env)
+        got.append((loss.detach(), torch.autograd.grad(loss, ps)))
+    (l1, g1), (l2, g2) = got
+    assert float((l2 - l1).abs()) <= 1e-4 * float(l1.abs())
+    for a, b in zip(g1, g2):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(a.abs().max()), 1e-30)

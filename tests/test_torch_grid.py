@@ -1,0 +1,374 @@
+"""The port's LM sharding rules and whole models on grids of ``"cpu"``.
+
+JAX runs once, in one subprocess with
+``--xla_force_host_platform_device_count=8``, on a (2, 4) ("data",
+"model") mesh: ``infer_param_specs`` (train and serve profiles),
+``batch_specs`` and ``cache_specs`` for every arch's reduced config, and
+two reduced models (qwen3-1.7b, qwen3-moe-235b-a22b with its drops) on
+the mesh: prefill logits, a decode step and the loss.  The port's rules
+must give, leaf for leaf, JAX's spec with the stacked lead entry dropped
+(the port keeps per-layer lists).  Then every family's reduced model runs
+on a (2, 2) grid (data 2 x sequence 2) against the port's one-device
+model, which ``test_torch_lm.py`` and its siblings hold to JAX: logits,
+the caches after the prefill and after 4 decode steps, the loss and its
+gradients, at 1e-4 of the largest magnitude; the grid ``Trainer`` over 3
+steps; ``generate``.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.data.lm import make_batch  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.distributed.sharding import MeshEnv  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.train.optim import OptimizerConfig, leaves, unflatten  # noqa: E402
+from repro_torch.train.trainer import Trainer, join_tree  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = 1e-4
+SPEC_BATCH, SPEC_CACHE = 10, 40     # no reduced config has a dim of 10
+JAX_MODELS = ("qwen3-1.7b", "qwen3-moe-235b-a22b")
+FAMILIES = ("qwen3-1.7b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
+            "recurrentgemma-9b", "llava-next-34b", "whisper-tiny")
+GRID22 = MeshEnv([["cpu"] * 2] * 2)
+GRID24 = MeshEnv([["cpu"] * 4] * 2)
+
+JAX_BODY = r'''
+import json, sys, dataclasses
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.configs import ARCHS
+from repro.distributed.sharding import (MeshEnv, batch_specs, cache_specs,
+                                        infer_param_specs, set_env)
+from repro.models.model import build_model
+
+src, dst_json, dst_npz, batch, cache_len, models = (
+    sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]),
+    int(sys.argv[5]), json.loads(sys.argv[6]))
+auto = jax.sharding.AxisType.Auto
+mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(auto,) * 2)
+
+def flat(tree):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, P))[0]:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        out[key] = [list(e) if isinstance(e, tuple) else e for e in leaf]
+    return out
+
+specs = {}
+for name, cfg in ARCHS.items():
+    cfg = cfg.reduced()
+    m = build_model(cfg)
+    shapes = jax.eval_shape(m.init, jax.random.PRNGKey(0))
+    caches = jax.eval_shape(lambda: m.init_cache(batch, cache_len))
+    for prof in ("train", "serve"):
+        env = MeshEnv(mesh=mesh, profile=prof)
+        specs[f"{name}/params/{prof}"] = flat(infer_param_specs(shapes, env))
+    env = MeshEnv(mesh=mesh)
+    specs[f"{name}/cache"] = flat(cache_specs(caches, env, batch))
+    from repro.data.lm import make_batch
+    b = jax.eval_shape(lambda: make_batch(cfg, 4, 32, 0, 0))
+    specs[f"{name}/batch"] = flat(batch_specs(b, env))
+json.dump(specs, open(dst_json, "w"))
+
+inp = np.load(src)
+out = {}
+env = MeshEnv(mesh=mesh)
+for name in models:
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
+    m = build_model(cfg)
+    p = m.init(jax.random.PRNGKey(0))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(p)[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        out[f"{name}/p/{key}"] = np.asarray(leaf)
+    tokens = jnp.asarray(inp[f"{name}/tokens"])
+    labels = jnp.asarray(inp[f"{name}/labels"])
+    with mesh, set_env(env):
+        lg, c = m.prefill(p, {"tokens": tokens}, env, cache_len=40)
+        nxt = jnp.argmax(lg[:, -1], -1)[:, None].astype(jnp.int32)
+        lg2, _ = m.decode_step(p, c, nxt, jnp.asarray(32, jnp.int32), env)
+        loss, _ = m.loss(p, {"tokens": tokens, "labels": labels}, env)
+    out[f"{name}/prefill"] = np.asarray(lg)
+    out[f"{name}/decode"] = np.asarray(lg2)
+    out[f"{name}/loss"] = np.asarray(loss)
+np.savez(dst_npz, **out)
+'''
+
+
+def _batch(cfg, b=4, s=32):
+    return {k: torch.as_tensor(v) for k, v in
+            make_batch(cfg, b, s, 0, 0).items()}
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("grid")
+    inp = {}
+    for name in JAX_MODELS:
+        bt = _batch(ARCHS[name].reduced())
+        inp[f"{name}/tokens"] = bt["tokens"].numpy()
+        inp[f"{name}/labels"] = bt["labels"].numpy()
+    np.savez(tmp / "in.npz", **inp)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(JAX_BODY),
+         str(tmp / "in.npz"), str(tmp / "specs.json"), str(tmp / "out.npz"),
+         str(SPEC_BATCH), str(SPEC_CACHE), json.dumps(JAX_MODELS)],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + "\n" + proc.stderr
+    specs = json.load(open(tmp / "specs.json"))
+    with np.load(tmp / "out.npz") as got:
+        out = {k: got[k] for k in got.files}
+    return specs, out
+
+
+def _norm(spec):
+    """A spec as a list of None / axis name / list of names (one-name
+    tuples as the name)."""
+    out = []
+    for e in spec:
+        if isinstance(e, (list, tuple)):
+            e = list(e)
+            e = e[0] if len(e) == 1 else e
+        out.append(e)
+    return out
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{path}/{k}" if path else k).items()}
+    if isinstance(tree, list) and not isinstance(tree, sh.PartitionSpec):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _flat(v, f"{path}/{i}" if path else str(i))
+                .items()}
+    return {path: tree}
+
+
+def _jax_param_path(cfg, path: str):
+    """The JAX leaf of a port parameter path, and whether JAX stacks it."""
+    parts = path.split("/")
+    model = build_model(cfg)
+    period = len(cfg.block_pattern)
+    if parts[0] == "layers":
+        i = int(parts[1])
+        kind = model.kinds[i]
+        if i < model.n_stacked:
+            return "/".join(["stack", f"{i % period}_{kind}"] + parts[2:]), \
+                True
+        return "/".join(["tail", f"{i - model.n_stacked}_{kind}"]
+                        + parts[2:]), False
+    if parts[0] in ("enc_layers", "cross_layers"):
+        return "/".join([parts[0].replace("layers", "stack")] + parts[2:]), \
+            True
+    return path, False
+
+
+def _jax_cache_path(cfg, path: str):
+    i, name = path.split("/")
+    i = int(i)
+    model = build_model(cfg)
+    kind = model.kinds[i]
+    if name in ("cross_k", "cross_v"):
+        return f"enc_kv/{'kv'.index(name[-1])}", True
+    if i < model.n_stacked:
+        period = len(cfg.block_pattern)
+        return f"stack/{i % period}_{kind}/{name}", True
+    return f"tail/{i - model.n_stacked}_{kind}/{name}", False
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_specs_match_jax_with_the_lead_dropped(jax_ref, arch):
+    specs, _ = jax_ref
+    cfg = ARCHS[arch].reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    for prof in ("train", "serve"):
+        env = MeshEnv([["cpu"] * 4] * 2, profile=prof)
+        want = specs[f"{arch}/params/{prof}"]
+        got = _flat(sh.infer_param_specs(params, env))
+        seen = set()
+        for path, spec in got.items():
+            jpath, stacked = _jax_param_path(cfg, path)
+            w = want[jpath]
+            seen.add(jpath)
+            if stacked:
+                assert w[0] is None, (jpath, w)
+                w = w[1:]
+            assert _norm(spec) == _norm(w), (prof, path, spec, w)
+        assert seen == set(want)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_batch_and_cache_specs_match_jax(jax_ref, arch):
+    specs, _ = jax_ref
+    cfg = ARCHS[arch].reduced()
+    model = build_model(cfg)
+    got = _flat(sh.batch_specs(_batch(cfg), GRID24))
+    want = specs[f"{arch}/batch"]
+    assert set(got) == set(want)
+    for k in got:
+        assert _norm(got[k]) == _norm(want[k]), (k, got[k], want[k])
+    caches = model.init_cache(SPEC_BATCH, SPEC_CACHE, "cpu")
+    got = _flat(sh.cache_specs(caches, GRID24, SPEC_BATCH))
+    want = specs[f"{arch}/cache"]
+    for path, spec in got.items():
+        jpath, stacked = _jax_cache_path(cfg, path)
+        w = want[jpath]
+        if stacked:
+            assert w[0] is None, (jpath, w)
+            w = w[1:]
+        assert _norm(spec) == _norm(w), (path, spec, w)
+
+
+def _unflat(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+@pytest.mark.parametrize("arch", JAX_MODELS)
+def test_grid_model_matches_the_jax_model_on_its_mesh(jax_ref, arch):
+    """JAX's Model.prefill/decode_step/loss on a forced (2, 4) mesh against
+    the port's on a (2, 4) grid of "cpu", the same weights: MoE capacity
+    is per cell on both, so the drops match too."""
+    _, out = jax_ref
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="float32")
+    model = build_model(cfg)
+    prefix = f"{arch}/p/"
+    params = params_from_jax(cfg, _unflat(
+        {k[len(prefix):]: v for k, v in out.items() if k.startswith(prefix)}))
+    bt = _batch(cfg)
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, {"tokens": bt["tokens"]},
+                                   cache_len=40, env=GRID24)
+        nxt = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        lg2, _ = model.decode_step(params, caches, nxt, 32, env=GRID24)
+    for got, key in ((lg, "prefill"), (lg2, "decode")):
+        want = out[f"{arch}/{key}"]
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=TOL * np.abs(want).max())
+    loss, _ = model.loss(params, bt, env=GRID24)
+    np.testing.assert_allclose(float(loss), float(out[f"{arch}/loss"]),
+                               rtol=TOL)
+
+
+def _f32(arch):
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="float32")
+    if cfg.is_moe:       # generous capacity: no drops on either side
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=4.0 * cfg.n_experts / cfg.moe_top_k)
+    return cfg
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_on_a_grid_matches_one_device(arch):
+    cfg = _f32(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    full = _batch(cfg)
+    batch = {k: v for k, v in full.items() if k != "labels"}
+    with torch.inference_mode():
+        l1, c1 = model.prefill(params, batch, cache_len=40)
+        l2, c2 = model.prefill(params, batch, cache_len=40, env=GRID22)
+        assert _rel(l2, l1) < TOL
+        for step in range(5):
+            whole = model.gather_caches(c2, GRID22)
+            for i, c in enumerate(c1):
+                for k in c:
+                    assert _rel(whole[i][k], c[k]) < TOL, (step, i, k)
+            if step == 4:
+                break
+            tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
+            l1, c1 = model.decode_step(params, c1, tok, 32 + step)
+            l2, c2 = model.decode_step(params, c2, tok, 32 + step,
+                                       env=GRID22)
+            assert _rel(l2, l1) < TOL, step
+    grads = []
+    for env in (None, GRID22):
+        ps = [t.clone().requires_grad_() for t in leaves(params)]
+        loss, _ = model.loss(unflatten(params, ps), full, env=env)
+        grads.append((loss, torch.autograd.grad(loss, ps)))
+    (loss1, g1), (loss2, g2) = grads
+    assert abs(float(loss2.detach() - loss1.detach())) < TOL * abs(
+        float(loss1.detach()))
+    for a, b in zip(g1, g2):
+        assert _rel(b, a) < TOL
+
+
+def test_grid_trainer_follows_the_one_device_trainer():
+    """3 AdamW steps: the masters and the state rest as pieces by
+    ``infer_param_specs``, and the joined masters follow one device."""
+    cfg = _f32("qwen3-1.7b")
+    model = build_model(cfg)
+    full = _batch(cfg)
+    one = Trainer(model, OptimizerConfig(), device="cpu", seed=0)
+    grid = Trainer(model, OptimizerConfig(), env=GRID22, seed=0)
+    s1, s2 = one.init_state(), grid.init_state()
+    wq = s2.params["layers"][0]["attn"]["wq"]
+    assert isinstance(wq, sh.Sharded) and wq.spec == ("data", "model")
+    assert wq[3].shape == (cfg.d_model // 2, cfg.q_dim // 2)
+    s1 = one.fit(s1, iter([full] * 3), 3, log_every=0)
+    s2 = grid.fit(s2, iter([full] * 3), 3, log_every=0)
+    for a, b in zip(leaves(s1.params), leaves(join_tree(s2.params, GRID22))):
+        assert float((a - b).abs().max()) < TOL
+
+
+def test_generate_on_a_grid_gives_the_one_device_tokens():
+    cfg = _f32("qwen3-1.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": _batch(cfg)["tokens"]}
+    want = generate(model, params, batch, steps=6, cache_len=40)
+    got = generate(model, params, batch, steps=6, cache_len=40, env=GRID22)
+    assert torch.equal(got, want)
+
+
+def test_gather_for_compute_makes_no_copy_on_a_repeated_device():
+    """A grid that names one device four times gathers a layer's weights
+    once: the whole tensor itself, shared by every cell."""
+    p = {"attn": {"wq": torch.randn(8, 12)}, "norm1": {"scale":
+                                                       torch.zeros(8)}}
+    got = sh.gather_for_compute(p, GRID22)
+    assert all(t is p["attn"]["wq"] for t in got["attn"]["wq"])
+    assert all(t is p["norm1"]["scale"] for t in got["norm1"]["scale"])
+    assert sh.gather_for_compute(p) is p            # no env: the identity
+
+
+def test_constrain_lays_out_by_logical_names():
+    x = torch.randn(4, 6, 8)
+    assert sh.constrain(x, "dp", "sp", None) is x   # no env
+    env = MeshEnv([["cpu"] * 4] * 2)
+    cells = sh.constrain(x, "dp", "sp", None, env=env)
+    # 6 does not divide over 4 "model" ranks: the sequence stays whole
+    assert cells.spec == ("data", None, None)
+    assert cells[0].shape == (2, 6, 8)
+    assert sh.logical_spec((4, 8, 6), ("dp", "sp", "tp"), env) == \
+        ("data", "model", None)

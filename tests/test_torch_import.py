@@ -39,6 +39,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.train, repro_torch.launch.train\n"
         "import repro_torch.distributed.checkpoint\n"
         "import repro_torch.distributed.compression\n"
+        "import repro_torch.distributed.pipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'triton')\n"
