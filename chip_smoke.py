@@ -225,7 +225,21 @@ Phases, each of which fails the run if anything in it fails:
    3·S_loc; the window's 0 to 2·S_loc), the decode kernel on the shard
    that holds pos and on an empty one, and the sLSTM scan at a chain
    cell's shape, each against its plain version, five calls giving the
-   same bits.
+   same bits;
+14. examples — the four torch example scripts (``examples/*_torch.py``)
+   run in this process through their ``main`` on the card, as a user runs
+   them (``--device``), at their own sizes: quickstart (a 12 x 400 LDA),
+   interactive_analysis (16 x 600: range queries, a union predicate, an
+   Alg. 4 batch, recovery and repartition), serve_lm for xlstm-1.3b and
+   qwen3-1.7b (reduced configs, 4 x 32-token prompts, 24 greedy steps)
+   and train_lm (smollm-360m reduced, 60 steps, a restart, 10 more).
+   Each script's wall time and launches are printed.  The two MLego
+   scripts run first on the CPU at session seeds 0 and 1: on the card
+   every planning fact must equal the seed-0 CPU run's and every held-out
+   lpp must lie within ``EXAMPLE_LPP_SPREADS`` x the two seeds' spread of
+   the interval they span.  ``vb_estep`` must launch in both MLego
+   scripts, ``slstm_scan`` in the xlstm serve run, ``flash_attention``
+   and ``decode_attention`` in the qwen3 one.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
@@ -234,7 +248,8 @@ for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
 10 for the ``"hybrid"``, ``"vlm"`` and ``"audio"`` paths, phase 11 for
 the ``"moe"`` path, both models' counts summed, phase 12 for the
 ``"train"`` path, 0 for every kernel, phase 13 for the ``"grid"`` path,
-its runs' counts summed),
+its runs' counts summed, phase 14 for the ``"examples"`` path, its
+scripts' counts summed),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -433,12 +448,9 @@ def service_phase(corpus, cfg, device, unit: float, card: str) -> dict:
                 return theta
             return train
 
-    counters = ((merge_ops, "merge_topics_launches"),
-                (merge_ops, "merge_topics_ragged_launches"),
-                (merge_ops, "merge_topics_batch_launches"),
-                (estep_ops, "launches"),
-                (gibbs_ops, "gibbs_sweep_launches"),
-                (gibbs_ops, "cgs_sweep_exact_launches"))
+    counters = [report_counters()[k] for k in (
+        "merge_topics", "merge_topics_ragged", "merge_topics_batch",
+        "vb_estep", "gibbs_sweep", "cgs_sweep_exact")]
     for mod, name in counters:
         setattr(mod, name, 0)
     grew = {}
@@ -737,10 +749,8 @@ def service_phase(corpus, cfg, device, unit: float, card: str) -> dict:
              if t.is_alive()]
     check(not closer.is_alive() and not alive,
           f"close() left threads running: {alive}")
-    launches = {"merge_topics": merge_ops.merge_topics_launches,
-                "merge_topics_ragged": merge_ops.merge_topics_ragged_launches,
-                "vb_estep": estep_ops.launches,
-                "gibbs_sweep": gibbs_ops.gibbs_sweep_launches}
+    launches = read_counts(("merge_topics", "merge_topics_ragged",
+                            "vb_estep", "gibbs_sweep"))
     log(f"[service] kernel launches on the service path: {launches}; "
         f"exact scan {gibbs_ops.cgs_sweep_exact_launches}, batched merge "
         f"{merge_ops.merge_topics_batch_launches}; step deltas {grew}; "
@@ -866,11 +876,8 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
     check(capped.cache.evictions > 0,
           f"the device backend kept 8 models under {max_bytes} B")
 
-    counters = {"merge_topics": (merge_ops, "merge_topics_launches"),
-                "merge_topics_ragged": (merge_ops,
-                                        "merge_topics_ragged_launches"),
-                "vb_estep": (estep_ops, "launches"),
-                "gibbs_sweep": (gibbs_ops, "gibbs_sweep_launches")}
+    counters = {k_: report_counters()[k_] for k_ in (
+        "merge_topics", "merge_topics_ragged", "vb_estep", "gibbs_sweep")}
 
     def snap():
         return {k_: getattr(mod, name) for k_, (mod, name) in
@@ -1806,6 +1813,23 @@ def kernel_counters() -> list:
             and isinstance(getattr(mod, n), int)]
 
 
+def report_counters() -> dict:
+    """{kernel name of the report: (module, counter name)}, derived from
+    ``kernel_counters()``: ``<name>_launches``, or the E-step module's bare
+    ``launches``; the sLSTM scan's per-route counts are not kernels."""
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    routes = {f"slstm_{r}_launches" for r in slstm_ops.ROUTES}
+    return {(n[:-len("_launches")] if n != "launches"
+             else mod.__name__.split(".")[-2]): (mod, n)
+            for mod, n in kernel_counters() if n not in routes}
+
+
+def read_counts(names) -> dict:
+    """{kernel name of the report: its launch counter now}."""
+    counters = report_counters()
+    return {k: getattr(*counters[k]) for k in names}
+
+
 def train_split(model, params, x, positions) -> dict:
     """One layer's forward and backward in training form at x's shape,
     split by CUDA events (mean of 3 after a warm-up): the attention half
@@ -2423,6 +2447,255 @@ def grid_train(device, card: str) -> dict:
     del m32, p32, got, g1, g2
     torch.cuda.empty_cache()
     return dict(pdiff=pdiff, gerr=gerr, lerr=lerr)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the example scripts
+# ---------------------------------------------------------------------------
+
+# (label, script under examples/, arguments, kernels it must launch)
+EXAMPLES = (
+    ("quickstart", "quickstart_torch.py", [], ("vb_estep",)),
+    ("interactive", "interactive_analysis_torch.py", [], ("vb_estep",)),
+    ("serve xlstm-1.3b", "serve_lm_torch.py", ["--arch", "xlstm-1.3b"],
+     ("slstm_scan",)),
+    ("serve qwen3-1.7b", "serve_lm_torch.py", ["--arch", "qwen3-1.7b"],
+     ("flash_attention", "decode_attention")),
+    ("train", "train_lm_torch.py", [], ()),
+)
+EXAMPLE_LPP_SPREADS = 3.0   # a card lpp's room: 3x the CPU seeds' spread
+# the wrapper the examples reach for each kernel: (package under
+# repro_torch.kernels, function); the E-step's dense wrapper calls
+# vb_estep_csr, which launches
+EXAMPLE_WRAPPERS = {"vb_estep": ("vb_estep", "vb_estep_csr"),
+                    "flash_attention": ("flash_attention", "flash_attention"),
+                    "decode_attention": ("decode_attention",
+                                         "decode_attention"),
+                    "slstm_scan": ("slstm_scan", "slstm_scan")}
+
+
+def copy_inputs(x):
+    """A call's argument with its tensors cloned (a dataclass such as the
+    E-step's CSR field by field), so that what the caller later writes in
+    place (a decode cache) does not change it."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: copy_inputs(getattr(
+            x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(copy_inputs(v) for v in x)
+    return x
+
+
+def input_key(kname: str, args: dict) -> tuple:
+    """(key, size) of a wrapper's call: calls of one key are one row of
+    the kernel checks, and the call of the largest size is kept.  The
+    E-step's key is (K, V) and n_iters and its size the documents D (one
+    fit a window); the others' key is every tensor's shape and dtype and
+    every other argument but the decode position, their size 0 (the first
+    call is kept)."""
+    import torch
+    if kname == "vb_estep":
+        return ((tuple(args["exp_elog_beta"].shape), args["n_iters"]),
+                args["gamma0"].shape[0])
+    return tuple((n, tuple(v.shape), str(v.dtype))
+                 if isinstance(v, torch.Tensor) else (n, v)
+                 for n, v in args.items() if n != "pos"), 0
+
+
+def recording(kname: str, fn, label: list, captured: dict):
+    """``fn`` that also keeps, in ``captured[(kname, label[0], key)]``, a
+    copy of its inputs (``input_key``) before it runs them."""
+    import functools
+    import inspect
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        key, size = input_key(kname, bound.arguments)
+        slot = (kname, label[0], key)
+        if slot not in captured or size > captured[slot][0]:
+            captured[slot] = (size, {n: copy_inputs(v) for n, v in
+                                     bound.arguments.items()})
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def load_example(script: str, seed: int = 0):
+    """A fresh module of ``examples/<script>``; with ``seed`` its
+    ``MLegoSession`` opens sessions at that seed."""
+    import functools
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{Path(script).stem}_{seed}", ROOT / "examples" / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if seed:
+        mod.MLegoSession = functools.partial(mod.MLegoSession, seed=seed)
+    return mod
+
+
+def example_split(facts: dict) -> tuple:
+    """(planning facts, held-out lpps) of an MLego script's ``main``: the
+    lpps pulled out in the order the script printed them, the rest (model
+    ids, tokens, parts, store, Alg. 4's totals, gaps, spans) left."""
+    lpps = []
+
+    def strip(x):
+        if isinstance(x, dict):
+            if "lpp" in x:
+                lpps.append(x["lpp"])
+            return {k: strip(v) for k, v in x.items()
+                    if k not in ("lpp", "device")}
+        if isinstance(x, list):
+            return [strip(v) for v in x]
+        return x
+    return strip(facts), lpps
+
+
+def examples_phase(device, card: str) -> dict:
+    """Phase 14: the four torch example scripts' ``main`` run in this
+    process on the card, as a user runs them (``--device``), each with
+    every kernel counter zeroed just before and read just after; each
+    script's wall time and launches are printed.  The two MLego scripts run
+    first on the CPU at session seeds 0 and 1 (the kernels' plain
+    versions): on the card every planning fact must equal the seed-0 CPU
+    run's, and every held-out lpp must lie within ``EXAMPLE_LPP_SPREADS``
+    x the two CPU seeds' spread of the interval they span (the card draws
+    other random numbers than the CPU).  The serve scripts run first on
+    the CPU too (their weights and prompts are drawn there): the card's
+    tokens must equal the CPU's, and be finite of the shape asked for.
+    The train script: finite losses, the restart's step and cursor.  While
+    the scripts run on the card, the wrappers of ``EXAMPLE_WRAPPERS`` keep
+    a copy of one call's inputs at each shape (``recording``).  Returns
+    the launches summed over the scripts, each script's wall time and
+    launches, and those inputs by (kernel, script, key)."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[examples] {msg}")
+
+    cpu = {}
+    for label, script, argv, _ in EXAMPLES[:4]:
+        t0 = time.perf_counter()
+        runs = []
+        for seed in ((0,) if label.startswith("serve") else (0, 1)):
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs.append(load_example(script, seed).main(
+                    argv + ["--device", "cpu"]))
+        if label.startswith("serve"):
+            cpu[label] = runs[0]["tokens"]
+            log(f"[examples] {label} on the CPU "
+                f"({time.perf_counter() - t0:.1f} s)")
+            continue
+        runs = [example_split(f) for f in runs]
+        check(runs[0][0] == runs[1][0],
+              f"{label}: the CPU's two seeds planned differently")
+        cpu[label] = runs
+        log(f"[examples] {label} on the CPU, seeds 0 and 1 "
+            f"({time.perf_counter() - t0:.1f} s): lpp "
+            f"{[round(x, 4) for x in runs[0][1]]} and "
+            f"{[round(x, 4) for x in runs[1][1]]}")
+
+    counters = report_counters()
+    total = dict.fromkeys(counters, 0)
+    out = {}
+    # the wrappers keep a copy of one call's inputs at each shape, for the
+    # kernel checks after the phase
+    captured, current = {}, [None]
+    wrapped = []
+    for kname, (pkg, fn_name) in EXAMPLE_WRAPPERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+        fn = getattr(mod, fn_name)
+        wrapped.append((mod, fn_name, fn))
+        setattr(mod, fn_name, recording(kname, fn, current, captured))
+    torch.cuda.empty_cache()
+    try:
+        for label, script, argv, kernels in EXAMPLES:
+            mod = load_example(script)
+            current[0] = label
+            log(f"[examples] {label}: examples/{script} "
+                f"{' '.join(argv + ['--device', str(device)])}")
+            for m, n in kernel_counters():
+                setattr(m, n, 0)
+            t0 = time.perf_counter()
+            facts = mod.main(argv + ["--device", str(device)])
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            got = {k: getattr(m, n) for k, (m, n) in counters.items()}
+            for k, n in got.items():
+                total[k] += n
+            launched = {k: n for k, n in got.items() if n}
+            extra = ""
+            if "slstm_scan" in kernels:
+                from repro_torch.kernels.slstm_scan import ops as slstm_ops
+                extra = ", sLSTM routes " + str(
+                    {r: getattr(slstm_ops, f"slstm_{r}_launches")
+                     for r in slstm_ops.ROUTES})
+            log(f"[examples] {label}: {wall:.2f} s wall, launches "
+                f"{launched}{extra}; on {card}")
+            for k in kernels:
+                check(got[k] > 0, f"{label} never launched {k}")
+                check(any(c[:2] == (k, label) for c in captured),
+                      f"{label}: no call of {k} was recorded")
+            check(facts["device"] == str(device), f"{label} ran on "
+                  f"{facts['device']}")
+            if label.startswith("serve"):
+                check(facts["tokens_shape"] == [4, 24]
+                      and facts["logits_finite"]
+                      and all(0 <= t < facts["padded_vocab"]
+                              for row in facts["tokens"] for t in row),
+                      f"{label}: tokens {facts['tokens_shape']}, finite "
+                      f"{facts['logits_finite']}")
+                check(facts["tokens"] == cpu[label],
+                      f"{label}: the card's tokens {facts['tokens']} differ "
+                      f"from the CPU's {cpu[label]}")
+                log(f"[examples] {label}: the card's {facts['tokens_shape']}"
+                    f" tokens equal the CPU's")
+            elif label in cpu:
+                plan, lpps = example_split(facts)
+                (plan0, lpp0), (_, lpp1) = cpu[label]
+                check(plan == plan0, f"{label}: the card's plan facts {plan}"
+                      f" differ from the CPU's {plan0}")
+                for g, a, b in zip(lpps, lpp0, lpp1):
+                    room = EXAMPLE_LPP_SPREADS * abs(a - b)
+                    check(min(a, b) - room <= g <= max(a, b) + room,
+                          f"{label}: lpp {g} outside [{min(a, b)}, "
+                          f"{max(a, b)}] +- {room}")
+                check(len(lpps) == len(lpp0), f"{label}: lpp count")
+                log(f"[examples] {label}: plan facts equal the CPU's; lpp "
+                    f"{[round(x, 4) for x in lpps]} within "
+                    f"{EXAMPLE_LPP_SPREADS}x the CPU seeds' spread")
+            else:
+                check(all(np.isfinite(x) for _, x in facts["losses"])
+                      and (facts["resumed_step"], facts["resumed_cursor"],
+                           facts["final_step"]) == (60, 60, 70),
+                      f"{label}: losses {facts['losses']}, resumed at "
+                      f"{facts['resumed_step']} (cursor "
+                      f"{facts['resumed_cursor']}), ended at "
+                      f"{facts['final_step']}")
+            out[label] = dict(wall_s=wall, launches=launched)
+            del mod, facts
+    finally:
+        for mod, fn_name, fn in wrapped:
+            setattr(mod, fn_name, fn)
+    torch.cuda.empty_cache()
+    log(f"[examples] phase 14 ran {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}; on {card}")
+    return dict(launches=total, runs=out,
+                captured={k: a for k, (_, a) in captured.items()})
 
 
 def main() -> int:
@@ -3336,9 +3609,8 @@ def main() -> int:
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, merge "
         f"{batch.merge_device_ms:.2f} ms, pad rows {batch.pad_rows}")
     torch.cuda.synchronize()
-    launches = {"merge_topics": merge_ops.merge_topics_launches,
-                "merge_topics_ragged": merge_ops.merge_topics_ragged_launches,
-                "vb_estep": estep_ops.launches}
+    launches = read_counts(("merge_topics", "merge_topics_ragged",
+                            "vb_estep"))
     log(f"[main] kernel launches on the main path: {launches}")
     for kname, count in launches.items():
         if count <= 0:
@@ -3839,6 +4111,14 @@ def main() -> int:
         f"took {grid_s:.1f} s in all (the families' and the MoE grid runs "
         f"are timed within their phases)")
 
+    # -- 14. the example scripts --------------------------------------------
+    # every counter zeroed inside, just before each script's main
+    ex_out = examples_phase(dev, card)
+    for kname in report:
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["examples"] = ex_out["launches"][kname]
+        report[kname]["launches"] = sum(by_path.values())
+
     # the attention kernels at the shapes phases 10 and 11 gave them, held
     # against their plain versions and timed (uncounted) in bf16, five
     # repeat calls giving the same bits (the SASS check of phase 2 covers
@@ -4108,6 +4388,126 @@ def main() -> int:
         f"state: max abs err {err:.3g}; {ms:.4f} ms; bound {b_ms:.4f} ms "
         f"({b_by}); plain {plain:.3f} ms; same bits over 5 calls; on {card}")
     del xpre, r, st, got, got_st, want, want_st, again
+    # phase 14's kernels at the inputs the examples gave them (a copy of
+    # one call at each shape, for the E-step the largest window at each
+    # (K, V)), held against their plain versions at their usual tolerances
+    # and timed (uncounted): vb_estep at both MLego scripts' widths, flash
+    # and decode at the reduced qwen3-1.7b's (float32, hd = 16), the sLSTM
+    # scan's cooperative (the prompt) and step (a decode step) routes at
+    # the reduced xlstm-1.3b's; SDPA the library figure for attention
+    shapes["vb_estep"] = {}
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    for (kname, label, _), a in ex_out["captured"].items():
+        lib_fn, extra = None, ""
+        if kname == "vb_estep":
+            csr, eeb, g0 = a["csr"], a["exp_elog_beta"], a["gamma0"]
+            alpha, iters = a["alpha"], a["n_iters"]
+            (d, v), k, nnz = csr.shape, eeb.shape[0], csr.nnz
+
+            def run():
+                return estep_ops.vb_estep_csr(csr, eeb, g0, alpha, iters)
+
+            def plain_fn():
+                return vb_estep_csr_ref(csr, eeb, g0, alpha, iters)
+            got, want = run(), plain_fn()
+            err = max(close(x, y, ESTEP_TOL) for x, y in zip(got, want))
+            msg = f"max abs err {err:.3g} (tol {ESTEP_TOL})"
+            b_ms, b_by = bound_ms(
+                4 * (4 * nnz + d + 1 + v + 1 + k * v + 2 * d * k + k * v),
+                (iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v)
+            shape = f"D={d} K={k} V={v} n_iters={iters} nnz={nnz}"
+        elif kname == "slstm_scan":
+            xpre, r = a["xpre"], a["r_mat"]
+            st = tuple(a[n] for n in ("c0", "n0", "h0", "m0"))
+            b, s, _, h, hd = xpre.shape
+
+            def run():
+                return slstm_ops.slstm_scan(xpre, r, *st)
+
+            def plain_fn():
+                return slstm_scan_ref(xpre, r, *st)
+            (got, got_st), (want, want_st) = run(), plain_fn()
+            tol = 1e-5 if s <= 64 else 1e-4
+            h_tol = tol if xpre.dtype == f32 else 2.0 ** -7
+            err = max([close(got.float(), want.float(), h_tol)]
+                      + [close(g, w, tol) for g, w in zip(got_st, want_st)])
+            msg = f"max abs err {err:.3g} (tol h {h_tol:.3g}, state {tol})"
+            b_ms, b_by = slstm_bound(b, s, h, hd, xpre.element_size(),
+                                     r.element_size())
+            shape = (f"B={b} S={s} H={h} hd={hd} xpre {dt_name[xpre.dtype]}"
+                     f" R {dt_name[r.dtype]} "
+                     f"({slstm_plan(b, s, h, hd, r.dtype)})")
+        else:
+            q, kc, vc = (a[n] for n in (("q", "k", "v") if kname ==
+                                        "flash_attention" else
+                                        ("q", "k_cache", "v_cache")))
+            b, s, h, hd = (q.shape[0], kc.shape[1], q.shape[2], q.shape[3])
+            kvh, el, window = kc.shape[2], q.element_size(), a["window"]
+            qt = q.transpose(1, 2)
+            if kname == "flash_attention":
+                kw = {n: a[n] for n in ("causal", "window", "q_offset",
+                                        "return_lse")}
+
+                def run():
+                    return flash_ops.flash_attention(q, kc, vc, **kw)
+
+                def plain_fn():
+                    return flash_attention_ref(q, kc, vc, **kw)
+                pos = torch.arange(s, device=dev)
+                dd = (pos + kw["q_offset"])[:, None] - pos[None, :]
+                mask = None
+                if kw["causal"]:
+                    mask = (dd >= 0) & ((dd < window) if window else True)
+                pairs = int(mask.sum()) if mask is not None else s * s
+                kt, vt = (x.transpose(1, 2) for x in (kc, vc))
+                n_bytes = el * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+                shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal="
+                         f"{kw['causal']} window={window} q_offset="
+                         f"{kw['q_offset']} {dt_name[q.dtype]}")
+            else:
+                p = int(a["pos"])
+                lo = max(0, p - window + 1) if window else 0
+                live = max(0, min(p, s - 1) + 1 - lo)
+                kw = {n: a[n] for n in ("window", "return_lse")}
+
+                def run():
+                    return decode_ops.decode_attention(q, kc, vc, a["pos"],
+                                                       **kw)
+
+                def plain_fn():
+                    return decode_attention_ref(q, kc, vc, p, **kw)
+                mask = None
+                pairs = live
+                kt, vt = (x[:, lo:lo + live].transpose(1, 2)
+                          for x in (kc, vc))
+                n_bytes = el * (2 * b * live * kvh * hd + 2 * b * h * hd)
+                shape = (f"B={b} S={s} pos={p} H={h} KVH={kvh} hd={hd} "
+                         f"window={window} {dt_name[q.dtype]}")
+            got, want = outs(run()), outs(plain_fn())
+            err, msg = attn_close(got[0], want[0], q.dtype)
+            if len(got) > 1:
+                seen = torch.isfinite(want[1])
+                close(got[1][seen], want[1][seen], 1e-3, 1e-4)
+            b_ms, b_by = bound_ms(n_bytes, 4 * hd * b * h * pairs,
+                                  peak[q.dtype])
+            if pairs:
+                def lib_fn():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        ms = time_ms(run, 20)
+        plain = time_ms(plain_fn, 5)
+        lib = time_ms(lib_fn, 20) if lib_fn is not None else None
+        shapes[kname][f"example {label}: {shape}"] = dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"[kernels] {kname} (example {label}) {shape}: {msg}; "
+            f"{ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); plain {plain:.4f} "
+            f"ms; library {'-' if lib is None else f'{lib:.4f}'} ms; on "
+            f"{card}")
+    del ex_out
     for kname, rows in shapes.items():
         report[kname]["shapes"] = rows
         report[kname]["max_abs_err"] = max(

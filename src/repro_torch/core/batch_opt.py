@@ -155,11 +155,17 @@ def batch_optimize(models: Sequence, queries: Sequence[Interval], index,
             drop[m.model_id] = (bene - base) - c_m > 0.0
             n_scored += 1
 
-        # lines 7-13: prune each L_1 plan, rank by T(P) with qi swapped in
+        # lines 7-13: prune each L_1 plan, rank by T(P) with qi swapped in.
+        # The current plan also stays a candidate unpruned (a deliberate
+        # difference from the reference): pruning it too could swap it for
+        # a worse plan, leaving T(P) above the per-query default.  Taken
+        # last and only when strictly better, it changes no batch the
+        # pruned plans already serve.
         best_plan, best_t = plans[i], None
         seen = set()
-        for p in roots + [plans[i]]:
-            p_star = tuple(m for m in p if not drop.get(m.model_id, False))
+        cands = [tuple(m for m in p if not drop.get(m.model_id, False))
+                 for p in roots + [plans[i]]] + [plans[i]]
+        for p_star in cands:
             k = plan_key(p_star)
             if k in seen:
                 continue

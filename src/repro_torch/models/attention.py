@@ -188,6 +188,24 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def cross_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Attention of a decode step's q (B, 1, H, hd) over the encoder's
+    k, v (B, S_kv, KVH, hd) -> (B, 1, H, hd) in q's dtype (plain torch),
+    in the order of JAX's decode step (``cross_step``, ``model.py:751``):
+    float32 scores scaled by hd^-0.5, a float32 softmax, the normalised
+    probabilities cast to v's dtype, then P·V.  ``cross_attention``
+    scales q in its own dtype and normalises after P·V: in bf16 the two
+    part by rounding."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float())
+    p = torch.softmax(s * (hd ** -0.5), dim=-1).to(v.dtype)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.float(), v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the training path: JAX's jnp flash math under autograd
 # ---------------------------------------------------------------------------

@@ -536,13 +536,12 @@ class Model:
     def _cross_layer(self, pc: Params, x: torch.Tensor, ck: torch.Tensor,
                      cv: torch.Tensor, attend=attn.cross_attention
                      ) -> torch.Tensor:
-        """Decoder cross-attention over the encoder's K/V (``model.py:495``),
-        in prefill and for the one token of a decode step
-        (``attention.cross_attention``), and in training
-        (``ring_attention(causal=False)``, as ``loss`` passes it).  JAX's
-        decode step (``model.py:751``) normalises the probabilities before
-        it casts them to the model dtype, ``cross_attention`` after P·V:
-        equal to rounding, and the same in float32."""
+        """Decoder cross-attention over the encoder's K/V (``model.py:495``):
+        in prefill through ``attention.cross_attention``, for the one token
+        of a decode step through ``attention.cross_decode_attention`` (JAX's
+        ``cross_step``, ``model.py:751``, which normalises before the cast
+        to the model dtype), and in training through
+        ``ring_attention(causal=False)``, as ``loss`` passes it."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = norm_apply(cfg, x, pc["norm"])
@@ -853,7 +852,8 @@ class Model:
                 if cfg.is_encoder_decoder:
                     pc = params["cross_layers"][i]
                     cross = (lambda x, pc=pc, c=c: self._cross_layer(
-                        pc, x, c["cross_k"], c["cross_v"]))
+                        pc, x, c["cross_k"], c["cross_v"],
+                        attn.cross_decode_attention))
                 x = self._attn_layer(
                     p, x, positions,
                     lambda q, k, v, c=c: attn.decode_attention(
@@ -1324,7 +1324,8 @@ class Model:
                     lpc, tpc = self._grid_layer(params["cross_layers"][i],
                                                 env)
                     xs = sh.cellwise(
-                        lambda p, x, ck, cv: self._cross_layer(p, x, ck, cv),
+                        lambda p, x, ck, cv: self._cross_layer(
+                            p, x, ck, cv, attn.cross_decode_attention),
                         tpc, xs, c["cross_k"], c["cross_v"])
                 h2 = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm2"]),
                                  trees, xs)

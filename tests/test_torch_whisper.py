@@ -27,6 +27,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.lm import encoder_frames, make_batch  # noqa: E402
+from repro_torch.distributed.sharding import MeshEnv  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -165,6 +166,63 @@ def test_init_cache_matches_jax_and_decodes_from_it(env):
                                     jnp.asarray(i, jnp.int32), env)
         tl, tc = tm.decode_step(tp, tc, _t(toks[:, i:i + 1]), i)
         _close(tl, jl)
+
+
+def test_bf16_decode_cross_attention_follows_jax(env):
+    """In bfloat16 the decode step's cross attention takes JAX's order
+    (``cross_step``: a float32 softmax, normalised before the cast to
+    bf16, then P·V).  The decoder's self-attention ``wo`` and FFN
+    ``w_down`` are zeroed on both sides, so the residual stream of a step
+    carries the embedding and the cross attention only, and the port
+    starts from JAX's caches: bf16 rounding elsewhere (the encoder, the
+    self-attention and FFN products, whose sum orders the port does not
+    follow bit for bit) drops out.  Both decode sites are held: the one
+    device step and the grid step (``env``, a (2, 1) grid of CPU cells, one
+    row a cell).  Measured on the CPU over 6 steps: the logits of both
+    equal JAX's (max abs err 0); normalising after P·V, as the prefill's
+    ``cross_attention`` does, gave a max abs err of 0.0039 at either site
+    reverted alone."""
+    jcfg = dataclasses.replace(JAX_ARCHS[ARCH].reduced(), dtype="bfloat16")
+    tcfg = dataclasses.replace(get_arch(ARCH).reduced(), dtype="bfloat16")
+    jm = jmodel.build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    dec = jp["stack"]["0_attn"]
+    dec["attn"]["wo"] = jnp.zeros_like(dec["attn"]["wo"])
+    dec["mlp"]["w_down"] = jnp.zeros_like(dec["mlp"]["w_down"])
+    tm = build_model(tcfg)
+    tp = tm.cast_params(params_from_jax(tcfg, jax.tree.map(np.asarray, jp)))
+    rng = np.random.default_rng(0)
+    b, s, steps = 2, 12, 6
+    toks = rng.integers(0, tcfg.vocab_size, (b, s + steps)).astype(np.int32)
+    frames = (rng.normal(size=(b, encoder_frames(tcfg), tcfg.d_model))
+              * 0.02).astype(np.float32)
+    with set_env(env):
+        _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s]),
+                                "frames": jnp.asarray(frames)}, env,
+                           cache_len=s + steps)
+
+    def bf16(a):
+        return torch.tensor(np.asarray(a, np.float32), dtype=torch.bfloat16)
+    ks, vs = jc["enc_kv"]
+    self_kv = jc["stack"]["0_attn"]
+    tc = [{"cross_k": bf16(ks[i]), "cross_v": bf16(vs[i]),
+           "k": bf16(self_kv["k"][i]), "v": bf16(self_kv["v"][i])}
+          for i in range(tcfg.n_layers)]
+    grid = MeshEnv([["cpu"], ["cpu"]])          # (2, 1): a row a cell
+    gc = tm.shard_caches(tc, grid, b)
+    err = {"one device": 0.0, "grid": 0.0}
+    for i in range(steps):
+        tok = toks[:, s + i:s + i + 1]
+        with set_env(env):
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(tok),
+                                    jnp.asarray(s + i, jnp.int32), env)
+        tl, tc = tm.decode_step(tp, tc, _t(tok), s + i)
+        gl, gc = tm.decode_step(tp, gc, _t(tok), s + i, env=grid)
+        for key, got in (("one device", tl), ("grid", gl)):
+            assert got.dtype == torch.float32
+            err[key] = max(err[key], float(np.abs(
+                got.numpy() - np.asarray(jl, np.float32)).max()))
+    assert max(err.values()) <= 1e-3, err
 
 
 def test_prefill_decode_consistency():
