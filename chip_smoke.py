@@ -240,6 +240,25 @@ Phases, each of which fails the run if anything in it fails:
    the interval they span.  ``vb_estep`` must launch in both MLego
    scripts, ``slstm_scan`` in the xlstm serve run, ``flash_attention``
    and ``decode_attention`` in the qwen3 one.
+15. dryrun — ``dryrun_phase``: ``launch/dryrun.py``'s predictions for
+   qwen3-1.7b at full width, each held against the same step run on the
+   card under the same ``launch.cost.OpCounter``: (a) phase 12's training
+   step (2 × 4,096 tokens, AdamW, remat) dry-run on the "card" grid of
+   fake cards: its argument bytes equal the bytes of that step's
+   parameters, AdamW state, batch and step counter on the card; its peak
+   within ``DRY_PEAK_TOL`` of phase 12's peak memory allocated (less what
+   the earlier phases held), and its allocations above the arguments
+   within ``DRY_PEAK_TOL`` of the same step's on the card
+   (``make_train_step`` on a (1, 1) grid of the card); its FLOPs equal to
+   the count on the card; its roofline terms printed beside phase 12's
+   seconds a step; (b) phase 6's prefill (4 × 2,048 tokens) and one decode
+   step against a 2,112-position cache: 28 shape-only flash (decode)
+   launches, as many as the kernel's counter shows for the same prefill
+   (step) on the card, their FLOPs and bytes 28 times the kernel's
+   ``cost(...)`` (the function the bound column calls), the step's FLOPs
+   equal to the count on the card; (c) qwen3-1.7b's decode_32k on the
+   "node" grid (eight fake cards): its record written under
+   ``experiments/dryrun_torch/``, its collective counts nonzero.
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
@@ -249,7 +268,8 @@ for the ``"service"`` path, phase 9 for the ``"sharded"`` path, phase
 the ``"moe"`` path, both models' counts summed, phase 12 for the
 ``"train"`` path, 0 for every kernel, phase 13 for the ``"grid"`` path,
 its runs' counts summed, phase 14 for the ``"examples"`` path, its
-scripts' counts summed),
+scripts' counts summed, phase 15 for the ``"dryrun"`` path: the real
+prefill and decode step it holds its predictions against),
 each counter set to 0 just before its path and read just after:
 ``launches_by_path`` holds each path's count and ``launches`` their sum
 (the merges run on both paths).  The batched merge is on neither path
@@ -273,12 +293,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# the card's published peaks (H100 SXM data sheet): HBM bytes/s and
-# fp32 (non-tensor-core) flop/s — the denominators of every bound below —
-# and the dense bf16 tensor-core rate, the bound of bf16 attention (f32
-# attention is bound by the fp32 rate: TF32 would not keep its tolerance)
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s and the
+# dense bf16 tensor-core rate, the denominators of the step bounds below
+# (each kernel's bound is its package's cost(...).bound_ms(), against
+# the same peaks in repro_torch.kernels.common)
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 
 MERGE_TOL = 1e-5
@@ -357,12 +376,6 @@ def tensor_core_instructions(lib_path: Path) -> dict:
         elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
     return counts
-
-
-def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_F32_FLOPS):
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / peak_flops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def service_phase(corpus, cfg, device, unit: float, card: str) -> dict:
@@ -1991,8 +2004,8 @@ def train_phase(device, card: str) -> dict:
     check(int(state.step) == TRAIN_STEPS, f"step {int(state.step)}")
     check(not any(launches.values()), f"training launched {launches}")
     out = dict(train_step_s=med, train_tok_s=tokens / med, train_ops=ops,
-               train_bound_s=bound_s, train_peak_gb=peak, losses=losses,
-               step_s=step_s, launches=launches)
+               train_bound_s=bound_s, train_peak_gb=peak, train_held_gb=held,
+               losses=losses, step_s=step_s, launches=launches)
     positions = torch.arange(TRAIN_S, device=device)
     with torch.no_grad():
         layer0 = model.cast_params(state.params)["layers"][0]
@@ -2697,6 +2710,201 @@ def examples_phase(device, card: str) -> dict:
     return dict(launches=total, runs=out,
                 captured={k: a for k, (_, a) in captured.items()})
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+DRY_PEAK_TOL = 0.10        # predicted peak against phase 12's, relative
+DRY_OUT = ROOT / "experiments" / "dryrun_torch"
+
+
+def dryrun_phase(device, card: str, train_out: dict) -> dict:
+    """Phase 15: ``launch/dryrun.py``'s predictions for qwen3-1.7b at full
+    width, each held against the same step run on the card under the same
+    ``OpCounter`` (module docstring).  Returns the numbers it printed and
+    the kernel launches of its real runs, every counter zeroed just
+    before them."""
+    import torch
+
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm import make_batch
+    from repro_torch.distributed.sharding import MeshEnv
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.cost import OpCounter, storage_bytes
+    from repro_torch.launch.mesh import make_env
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optim import build_optimizer
+    from repro_torch.train.trainer import make_train_step, shard_tree
+
+    t_phase = time.perf_counter()
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"[dryrun] {msg}")
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    fake_card = make_env("card")
+    env = MeshEnv(((device,),))          # the same (1, 1) grid, real
+    bf16 = torch.bfloat16
+    out = {}
+
+    # -- (a) phase 12's step -------------------------------------------------
+    shape = ShapeConfig("phase12_train", TRAIN_S, TRAIN_B, "train")
+    rec = dryrun.run_cell(cfg, shape, fake_card, "card")
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt_cfg = specs.pick_optimizer(params)
+    state = build_optimizer(opt_cfg)[0](params)
+    state_bytes = sum(storage_bytes((params, state)).values())
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, device)
+    args = [shard_tree(params, env), shard_tree(state, env),
+            torch.zeros((), dtype=torch.int32, device=device),
+            specs.shard_batch(batch, env)]
+    del params, state, batch
+    step_fn = make_train_step(model, opt_cfg, remat=True, env=env)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter() as c:
+        real_arg = c.track(args)[device]
+        new = step_fn(*args[:3], specs.join_batch(args.pop(), env))
+        torch.cuda.synchronize()
+    # the step's own allocations at its peak, above its arguments (held)
+    real_temp = torch.cuda.max_memory_allocated() / 1e9 - held
+    del new, args
+    torch.cuda.empty_cache()
+    pred, meas = rec["bytes_per_device"], train_out
+    meas_peak = meas["train_peak_gb"] - meas["train_held_gb"]
+    roof, step_s = rec["roofline"], meas["train_step_s"]
+    log(f"[dryrun] (a) {cfg.name} train step B={TRAIN_B} S={TRAIN_S} on "
+        f"'card' (dry run {rec['trace_s']:.1f} s): argument "
+        f"{pred['argument'] / 1e9:.4f} GB predicted, {real_arg / 1e9:.4f} "
+        f"GB on the card (parameters and AdamW state {state_bytes / 1e9:.4f}"
+        f" GB, the batch and the step); peak {pred['peak'] / 1e9:.2f} GB "
+        f"predicted, phase 12 {meas_peak:.2f} GB ({meas['train_peak_gb']:.2f}"
+        f" less {meas['train_held_gb']:.2f} held); above the arguments "
+        f"{pred['temp'] / 1e9:.2f} GB predicted, {real_temp:.2f} GB for "
+        f"this step on the card; FLOPs {rec['op_analysis']['flops']:.6g} "
+        f"predicted, {c.devices[device].flops:.6g} counted on the card")
+    log(f"[dryrun] (a) roofline of the step: compute "
+        f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s "
+        f"(kernelized {roof['memory_kernelized_s']:.4f} s), link "
+        f"{roof['collective_s']:.4f} s, dominant {roof['dominant']}; phase "
+        f"12's step {step_s:.4f} s is {roof['compute_s'] / step_s:.1%} "
+        f"compute bound, {roof['memory_s'] / step_s:.1%} memory bound; on "
+        f"{card}")
+    check(pred["argument"] == real_arg, f"argument {pred['argument']} "
+          f"predicted, {real_arg} on the card")
+    check(real_arg == state_bytes + 2 * TRAIN_B * TRAIN_S * 4 + 4,
+          f"argument {real_arg} is not the state's {state_bytes} bytes, "
+          f"the batch and the step")
+    check(abs(pred["peak"] / 1e9 / meas_peak - 1) <= DRY_PEAK_TOL,
+          f"peak {pred['peak'] / 1e9:.2f} GB predicted, {meas_peak:.2f} GB "
+          f"measured by phase 12 (tolerance {DRY_PEAK_TOL:.0%})")
+    check(abs(pred["temp"] / 1e9 / real_temp - 1) <= DRY_PEAK_TOL,
+          f"{pred['temp'] / 1e9:.2f} GB above the arguments predicted, "
+          f"{real_temp:.2f} GB on the card (tolerance {DRY_PEAK_TOL:.0%})")
+    check(rec["op_analysis"]["flops"] == c.devices[device].flops,
+          f"FLOPs {rec['op_analysis']['flops']} predicted, "
+          f"{c.devices[device].flops} counted on the card")
+    out["train"] = dict(pred_peak_gb=pred["peak"] / 1e9,
+                        meas_peak_gb=meas_peak,
+                        pred_temp_gb=pred["temp"] / 1e9,
+                        step_temp_gb=real_temp,
+                        argument=real_arg,
+                        flops=rec["op_analysis"]["flops"], roofline=roof,
+                        step_s=step_s)
+
+    # -- (b) phase 6's prefill and one decode step ---------------------------
+    p_shape = ShapeConfig("phase6_prefill", SERVE_PROMPT, SERVE_B, "prefill")
+    d_shape = ShapeConfig("phase6_decode", SERVE_CACHE, SERVE_B, "decode")
+    recs = {"prefill": dryrun.run_cell(cfg, p_shape, fake_card, "card"),
+            "decode": dryrun.run_cell(cfg, d_shape, fake_card, "card")}
+    params = shard_tree(model.init(torch.Generator(device=device)
+                                   .manual_seed(0), cast=True), env)
+    tokens = make_batch(cfg, SERVE_B, SERVE_PROMPT, 0, 0, device)["tokens"]
+    caches = model.init_cache(SERVE_B, SERVE_CACHE, env=env)
+    counters = kernel_counters()
+    for mod, n in counters:
+        setattr(mod, n, 0)
+    counted, launched = {}, {}
+    with torch.no_grad():
+        with OpCounter() as cp:
+            model.prefill(params, {"tokens": tokens}, env=env)
+        launched["prefill"] = read_counts(GRID_KERNELS)
+        with OpCounter() as cd:
+            model.decode_step(params, caches, tokens[:, -1:],
+                              torch.tensor(SERVE_PROMPT, dtype=torch.int32,
+                                           device=device), env=env)
+        torch.cuda.synchronize()
+    counted = {"prefill": cp.devices[device], "decode": cd.devices[device]}
+    totals = read_counts(GRID_KERNELS)
+    launched["decode"] = {k: totals[k] - launched["prefill"][k]
+                          for k in totals}
+    del params, tokens, caches
+    torch.cuda.empty_cache()
+    # the grid's ring step and split-K shard return the lse (float32 out)
+    want = {"prefill": ("flash_attention", flash_ops.cost(
+                SERVE_B, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                bf16, return_lse=True)),
+            "decode": ("decode_attention", decode_ops.cost(
+                SERVE_B, SERVE_CACHE, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                bf16, SERVE_CACHE - 1, return_lse=True))}
+    for mode, r in recs.items():
+        kname, cost = want[mode]
+        op, real = r["op_analysis"], counted[mode]
+        n = op["kernel_launches"].get(kname, 0)
+        log(f"[dryrun] (b) {cfg.name} {mode} B={SERVE_B} S="
+            f"{p_shape.seq_len if mode == 'prefill' else d_shape.seq_len} on "
+            f"'card': {kname} {n} shape-only launches predicted, "
+            f"{launched[mode][kname]} launched on the card; the kernel's "
+            f"FLOPs {op['kernel_flops'].get(kname, 0):.6g} and bytes "
+            f"{op['kernel_bytes'].get(kname, 0):.6g} = {n} x cost(...) "
+            f"({cost.flops:.6g}, {cost.n_bytes:.6g}); step FLOPs "
+            f"{op['flops']:.6g} predicted, {real.flops:.6g} counted on the "
+            f"card; peak {r['bytes_per_device']['peak'] / 1e9:.3f} GB, "
+            f"roofline {r['roofline']['dominant']} "
+            f"(compute {r['roofline']['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['roofline']['memory_s'] * 1e3:.3f} ms)")
+        check(n == cfg.n_layers == launched[mode][kname],
+              f"{mode}: {n} shape-only {kname} launches, "
+              f"{launched[mode][kname]} on the card, {cfg.n_layers} layers")
+        check(op["kernel_flops"][kname] == n * cost.flops
+              and op["kernel_bytes"][kname] == n * cost.n_bytes,
+              f"{mode}: {kname} counted at {op['kernel_flops'][kname]} FLOPs"
+              f" and {op['kernel_bytes'][kname]} bytes, not {n} x its cost")
+        check(op["flops"] == real.flops, f"{mode}: FLOPs {op['flops']} "
+              f"predicted, {real.flops} counted on the card")
+        out[mode] = dict(launches=n, flops=op["flops"],
+                         peak_gb=r["bytes_per_device"]["peak"] / 1e9,
+                         roofline=r["roofline"])
+
+    # -- (c) decode_32k on the node ------------------------------------------
+    DRY_OUT.mkdir(parents=True, exist_ok=True)
+    rec = dryrun.run_cell(cfg, get_shape("decode_32k"), make_env("node"),
+                          "node")
+    path = DRY_OUT / f"{cfg.name}__decode_32k__node.json"
+    path.write_text(json.dumps(rec, indent=1))
+    coll = rec["op_analysis"]["collective_counts"]
+    log(f"[dryrun] (c) {cfg.name} decode_32k on 'node' (dry run "
+        f"{rec['trace_s']:.1f} s): peak "
+        f"{rec['bytes_per_device']['peak'] / 1e9:.2f} GB a card (fits "
+        f"{rec['fits']}), collectives {coll}, link "
+        f"{rec['op_analysis']['collective_wire_bytes'] / 1e9:.3f} GB, "
+        f"roofline {rec['roofline']['dominant']}; written to "
+        f"{path.relative_to(ROOT)}")
+    check(path.exists() and sum(coll.values()) > 0,
+          f"decode_32k on the node: collectives {coll}")
+    out["node_decode"] = dict(peak_gb=rec["bytes_per_device"]["peak"] / 1e9,
+                              collective_counts=coll, fits=rec["fits"])
+    out["launches"] = read_counts(report_counters())
+    log(f"[dryrun] phase 15 ran {time.perf_counter() - t_phase:.1f} s, the "
+        f"script {time.perf_counter() - T_START:.0f} s so far")
+    return out
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2830,7 +3038,7 @@ def main() -> int:
                 st, w, eta, eta), 20, read_flush=True)
             ms_b1_read = time_ms(lambda: merge_ops.merge_topics_batch(
                 st[None], w[None], eta, eta), 20, read_flush=True)
-            b_ms, b_by = bound_ms(4 * (n * k * v + n + k * v), 3 * n * k * v)
+            b_ms, b_by = merge_ops.cost(n, k, v).bound_ms()
             log(f"[kernels] merge_topics n=8: {ms:.4f} ms "
                 f"({4 * (n + 1) * k * v / (ms * 1e-3) / 1e12:.2f} TB/s), "
                 f"addmv {lib:.4f} ms, parts form with unit weights by value "
@@ -2893,8 +3101,7 @@ def main() -> int:
     plain = time_ms(lambda: merge_topics_segments_ref(st, w, counts, eta,
                                                       eta), 20)
     lib = time_ms(lambda: torch.addmm(c, a_mat, s2), 20)
-    b_ms, b_by = bound_ms(4 * (r * k * v + r + len(counts) + 1
-                               + len(counts) * k * v), 3 * r * k * v)
+    b_ms, b_by = merge_ops.segments_cost(counts, k, v).bound_ms()
     report["merge_topics_ragged"] = dict(
         name="merge_topics_ragged", route="cuda",
         source="src/repro_torch/kernels/csrc/merge_topics.cu",
@@ -2959,9 +3166,9 @@ def main() -> int:
         # operations this x needs: phinorm and the gamma product at the
         # nonzeros (4·K flops each, plus the division), the digamma/exp
         # update of every gamma entry (~62 ops), the final multiply by eeb
-        n_bytes = 4 * (4 * nnz + d + 1 + v + 1 + k * v + 2 * d * k + k * v)
-        n_ops = (iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        c = estep_ops.cost(d, k, v, nnz, iters)
+        n_ops = c.ops[0][0]
+        b_ms, b_by = c.bound_ms()
         estep[d] = dict(ms=ms, plain_ms=plain, dense_plain_ms=dense_plain,
                         conversion_ms=conv, nnz=nnz, bound_ms=b_ms,
                         bound_by=b_by)
@@ -3017,8 +3224,7 @@ def main() -> int:
             ms = time_ms(lambda: merge_ops.merge_topics_batch(st, w), 20)
             plain = time_ms(lambda: merge_topics_batched_ref(st, w), 20)
             lib = time_ms(lambda: torch.einsum("bn,bnkv->bkv", w, st), 20)
-            b_ms, b_by = bound_ms(4 * (b * n * k * v + b * n + b * k * v),
-                                  2 * b * n * k * v)
+            b_ms, b_by = merge_ops.batch_cost(b, n, k, v).bound_ms()
     report["merge_topics_batch"] = dict(
         name="merge_topics_batch", route="cuda",
         source="src/repro_torch/kernels/csrc/merge_topics.cu",
@@ -3108,8 +3314,7 @@ def main() -> int:
                 f"per call (doc_index alone {idx_ms:.4f} ms)")
             # bytes: the (B, T) inputs, n_kd in and out, the snapshot,
             # z out and n_kv out once; operations: ~8 per topic per token
-            n_bytes = 4 * (6 * nb * t + 2 * nb * bd * k + 2 * k * v + k)
-            b_ms, b_by = bound_ms(n_bytes, 8 * k * real)
+            b_ms, b_by = gibbs_ops.cost(nb, t, bd, k, v, real).bound_ms()
             fit_win = win
     report["gibbs_sweep"] = dict(
         name="gibbs_sweep", route="cuda",
@@ -3196,8 +3401,8 @@ def main() -> int:
                 f"fit's (V, K) layout, {ms * 1e6 / t:.0f} ns per chain step "
                 f"({t} steps); {public:.3f} ms through the (K, V) entry "
                 f"point (two transposes)")
-            n_bytes = 4 * (5 * t + 2 * part.n_docs * k + 3 * k * v + 3 * k)
-            b_ms, b_by = bound_ms(n_bytes, 10 * k * t)
+            b_ms, b_by = gibbs_ops.exact_cost(t, part.n_docs, k,
+                                              v).bound_ms()
             fit_part = part
     report["cgs_sweep_exact"] = dict(
         name="cgs_sweep_exact", route="cuda",
@@ -3262,7 +3467,6 @@ def main() -> int:
         return err, f"max abs err {err:.3g}, atol used {used:.3g} of {atol} " \
                     f"at rtol {rtol}"
 
-    peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_TC_FLOPS}
     dt_name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     errs = []
     inst = {}
@@ -3293,14 +3497,13 @@ def main() -> int:
             plain = time_ms(lambda: flash_attention_ref(q, k, v), 3)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-            # bytes: q, k, v read once, out written once; operations: the
+            # flash_ops.cost: q, k, v read once, out written once; the
             # causal pairs this call has, 4·hd flops each (QK and PV),
-            # against the bf16 tensor-core peak (bf16) or the fp32 peak
-            # (f32: TF32 would not keep the tolerance)
-            n_bytes = q.element_size() * (2 * b * s * h * hd
-                                          + 2 * b * s * kvh * hd)
-            n_ops = 4 * hd * b * h * s * (s + 1) / 2
-            b_ms, b_by = bound_ms(n_bytes, n_ops, peak[dt])
+            # at the bf16 tensor-core peak (bf16) or the fp32 peak (f32:
+            # TF32 would not keep the tolerance)
+            c = flash_ops.cost(b, s, h, kvh, hd, dt)
+            n_bytes, n_ops = c.n_bytes, c.flops
+            b_ms, b_by = c.bound_ms()
             inst[dt] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib)
             log(f"[kernels] flash_attention {dt}: {ms:.4f} ms, "
@@ -3363,12 +3566,11 @@ def main() -> int:
         ms = time_ms(lambda: decode_ops.decode_attention(q, kc, vc, p), 20)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=True), 20)
-        # bytes: the pos + 1 live cache rows of k and v, q, out;
-        # operations: 4·hd flops per (head, live key)
-        n_bytes = q.element_size() * (2 * b * (pos + 1) * kvh * hd
-                                      + 2 * b * h * hd)
-        n_ops = 4 * hd * b * h * (pos + 1)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, peak[dt])
+        # decode_ops.cost: the pos + 1 live cache rows of k and v, q,
+        # out; 4·hd flops per (head, live key)
+        c = decode_ops.cost(b, s, h, kvh, hd, dt, pos)
+        n_bytes, n_ops = c.n_bytes, c.flops
+        b_ms, b_by = c.bound_ms()
         rate = (f"{n_bytes / 1e6:.1f} MB, "
                 f"{n_bytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
                 f"{n_ops / (ms * 1e-3) / 1e12:.3f} TFLOP/s; bound {b_ms:.4f} "
@@ -3461,22 +3663,12 @@ def main() -> int:
             f"(tol {h_tol:.3g}), final state {err_st:.3g} (tol {tol})")
         del want, want_st
 
-    def slstm_bound(b, s, h, hd, x_el, r_el):
-        # bytes: xpre and R read once, h_out written once, the state read
-        # and written once; operations: the h·R products (2·hd·4hd per
-        # row, step and head) and ~20 f32 operations per unit for the
-        # gates.  With bf16 R the f32 product is exact as three bf16
-        # products on the tensor cores (h = hi + mid + lo), so it is
-        # bounded at a third of their peak; with f32 R at the f32 peak
-        n_bytes = (b * s * 4 * h * hd * x_el + h * hd * 4 * hd * r_el
-                   + b * s * h * hd * x_el + 8 * 4 * b * h * hd)
-        prod = 2 * b * s * h * hd * 4 * hd
-        t_prod = (3 * prod / PEAK_BF16_TC_FLOPS if r_el == 2
-                  else prod / PEAK_F32_FLOPS)
-        t_ops = (t_prod + 20 * b * s * h * hd / PEAK_F32_FLOPS) * 1e3
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
+    def slstm_bound(b, s, h, hd, x_dt, r_dt):
+        # slstm_ops.cost: xpre and R read once, h_out written once, the
+        # state read and written once; the h·R products (at a third of
+        # the tensor-core peak with bf16 R, three exact bf16 pieces; at
+        # the fp32 peak with f32 R) and ~20 f32 operations per unit
+        return slstm_ops.cost(b, s, h, hd, x_dt, r_dt).bound_ms()
 
     # the timed calls, one a route: the served prefill call in the model's
     # dtypes (cluster), a decode step (step) and the prefill call with an
@@ -3499,8 +3691,7 @@ def main() -> int:
                                      f"gave different bits")
         ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), reps)
         plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), plain_reps)
-        b_ms, b_by = slstm_bound(XL_B, s, XL_H, XL_HD, xpre.element_size(),
-                                 r.element_size())
+        b_ms, b_by = slstm_bound(XL_B, s, XL_H, XL_HD, xpre.dtype, r.dtype)
         inst[route] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
         log(f"[kernels] slstm_scan {route} route, B={XL_B} S={s} H={XL_H} "
@@ -4092,7 +4283,7 @@ def main() -> int:
 
     # -- 12. LM training: no kernel on its path ------------------------------
     # every counter zeroed inside, just before Trainer.fit
-    train_phase(dev, card)
+    train_out = train_phase(dev, card)
     for kname in report:
         report[kname].setdefault("launches_by_path", {})["train"] = 0
 
@@ -4174,9 +4365,10 @@ def main() -> int:
             q, k, v, causal=causal, window=window), 3)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
-        n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-        n_ops = 4 * hd * b * h * pairs
-        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        c = flash_ops.cost(b, s, h, kvh, hd, torch.bfloat16, causal=causal,
+                           window=window)
+        n_ops = c.flops
+        b_ms, b_by = c.bound_ms()
         shapes["flash_attention"][label] = dict(
             shape=f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
                   f"window={window} bf16", max_abs_err=err, ms=ms,
@@ -4213,10 +4405,9 @@ def main() -> int:
         plain = time_ms(lambda: decode_attention_ref(q, kc, vc, pos), 20)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=True), 20)
-        n_bytes = q.element_size() * (2 * b * (pos + 1) * kvh * hd
-                                      + 2 * b * h * hd)
-        n_ops = 4 * hd * b * h * (pos + 1)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        c = decode_ops.cost(b, s, h, kvh, hd, torch.bfloat16, pos)
+        n_bytes = c.n_bytes
+        b_ms, b_by = c.bound_ms()
         n_split, chunk = decode_ops.split_plan(s, b * kvh)
         shapes["decode_attention"][label] = dict(
             shape=f"B={b} S={s} pos={pos} H={h} KVH={kvh} hd={hd} bf16",
@@ -4287,10 +4478,9 @@ def main() -> int:
             return_lse=True), 3)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
-        n_bytes = 2 * (b * s * h * hd + 2 * b * s * kvh * hd) \
-            + 4 * (b * s * h * hd + b * s * h)
-        n_ops = 4 * hd * b * h * pairs
-        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        b_ms, b_by = flash_ops.cost(
+            b, s, h, kvh, hd, torch.bfloat16, window=window, q_offset=off,
+            return_lse=True).bound_ms()
         shapes["flash_attention"][label] = dict(
             shape=f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal=True "
                   f"window={window} q_offset={off} lse, bf16 in, f32 out",
@@ -4345,10 +4535,8 @@ def main() -> int:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True), 20)
             del qt, kt, vt
-        n_bytes = 2 * (2 * b * live * kvh * hd + (b * h * hd if live else 0)) \
-            + 4 * (b * h * hd + b * h)
-        n_ops = 4 * hd * b * h * live
-        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_TC_FLOPS)
+        b_ms, b_by = decode_ops.cost(b, s, h, kvh, hd, torch.bfloat16, pos,
+                                     return_lse=True).bound_ms()
         shapes["decode_attention"][label] = dict(
             shape=f"B={b} S={s} pos={pos} H={h} KVH={kvh} hd={hd} lse, bf16 "
                   f"in, f32 out", max_abs_err=err, ms=ms, plain_ms=plain,
@@ -4376,7 +4564,8 @@ def main() -> int:
                                  "bits on a repeat call")
     ms = time_ms(lambda: slstm_ops.slstm_scan(xpre, r, *st), 10)
     plain = time_ms(lambda: slstm_scan_ref(xpre, r, *st), 1)
-    b_ms, b_by = slstm_bound(GRID_B, GRID_PROMPT // 4, XL_H, XL_HD, 2, 2)
+    b_ms, b_by = slstm_bound(GRID_B, GRID_PROMPT // 4, XL_H, XL_HD, bf16,
+                             bf16)
     shapes["slstm_scan"] = {"grid chain cell": dict(
         shape=f"B={GRID_B} S={GRID_PROMPT // 4} H={XL_H} hd={XL_HD} bf16 "
               f"xpre and R, from a carried state ("
@@ -4415,9 +4604,7 @@ def main() -> int:
             got, want = run(), plain_fn()
             err = max(close(x, y, ESTEP_TOL) for x, y in zip(got, want))
             msg = f"max abs err {err:.3g} (tol {ESTEP_TOL})"
-            b_ms, b_by = bound_ms(
-                4 * (4 * nnz + d + 1 + v + 1 + k * v + 2 * d * k + k * v),
-                (iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v)
+            b_ms, b_by = estep_ops.cost(d, k, v, nnz, iters).bound_ms()
             shape = f"D={d} K={k} V={v} n_iters={iters} nnz={nnz}"
         elif kname == "slstm_scan":
             xpre, r = a["xpre"], a["r_mat"]
@@ -4435,8 +4622,7 @@ def main() -> int:
             err = max([close(got.float(), want.float(), h_tol)]
                       + [close(g, w, tol) for g, w in zip(got_st, want_st)])
             msg = f"max abs err {err:.3g} (tol h {h_tol:.3g}, state {tol})"
-            b_ms, b_by = slstm_bound(b, s, h, hd, xpre.element_size(),
-                                     r.element_size())
+            b_ms, b_by = slstm_bound(b, s, h, hd, xpre.dtype, r.dtype)
             shape = (f"B={b} S={s} H={h} hd={hd} xpre {dt_name[xpre.dtype]}"
                      f" R {dt_name[r.dtype]} "
                      f"({slstm_plan(b, s, h, hd, r.dtype)})")
@@ -4445,7 +4631,7 @@ def main() -> int:
                                         "flash_attention" else
                                         ("q", "k_cache", "v_cache")))
             b, s, h, hd = (q.shape[0], kc.shape[1], q.shape[2], q.shape[3])
-            kvh, el, window = kc.shape[2], q.element_size(), a["window"]
+            kvh, window = kc.shape[2], a["window"]
             qt = q.transpose(1, 2)
             if kname == "flash_attention":
                 kw = {n: a[n] for n in ("causal", "window", "q_offset",
@@ -4463,7 +4649,7 @@ def main() -> int:
                     mask = (dd >= 0) & ((dd < window) if window else True)
                 pairs = int(mask.sum()) if mask is not None else s * s
                 kt, vt = (x.transpose(1, 2) for x in (kc, vc))
-                n_bytes = el * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+                c = flash_ops.cost(b, s, h, kvh, hd, q.dtype, **kw)
                 shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal="
                          f"{kw['causal']} window={window} q_offset="
                          f"{kw['q_offset']} {dt_name[q.dtype]}")
@@ -4483,7 +4669,7 @@ def main() -> int:
                 pairs = live
                 kt, vt = (x[:, lo:lo + live].transpose(1, 2)
                           for x in (kc, vc))
-                n_bytes = el * (2 * b * live * kvh * hd + 2 * b * h * hd)
+                c = decode_ops.cost(b, s, h, kvh, hd, q.dtype, p, **kw)
                 shape = (f"B={b} S={s} pos={p} H={h} KVH={kvh} hd={hd} "
                          f"window={window} {dt_name[q.dtype]}")
             got, want = outs(run()), outs(plain_fn())
@@ -4491,8 +4677,7 @@ def main() -> int:
             if len(got) > 1:
                 seen = torch.isfinite(want[1])
                 close(got[1][seen], want[1][seen], 1e-3, 1e-4)
-            b_ms, b_by = bound_ms(n_bytes, 4 * hd * b * h * pairs,
-                                  peak[q.dtype])
+            b_ms, b_by = c.bound_ms()
             if pairs:
                 def lib_fn():
                     return F.scaled_dot_product_attention(
@@ -4515,6 +4700,14 @@ def main() -> int:
             + [r["max_abs_err"] for r in rows.values()])
     del flush
     torch.cuda.empty_cache()
+
+    # -- 15. the dry run held against the card --------------------------------
+    # every counter zeroed inside, just before its real prefill and decode
+    dry_out = dryrun_phase(dev, card, train_out)
+    for kname in report:
+        by_path = report[kname].setdefault("launches_by_path", {})
+        by_path["dryrun"] = dry_out["launches"][kname]
+        report[kname]["launches"] = sum(by_path.values())
     log(f"[done] chip_smoke ran {time.perf_counter() - T_START:.0f} s")
 
     log(card)

@@ -26,6 +26,12 @@ runs once per *distinct* device: cells whose inputs are the same tensors
 share one result (:func:`cellwise`), and a gather onto a device that
 already holds the whole tensor returns it (:func:`unshard`).
 
+Each collective (and the weight gather of :func:`gather_for_compute`,
+JAX's all-gather) reports itself to a dry run's counter
+(``launch.cost.report_collective``): its kind, group size and each
+cell's bytes, charged to the cell's device by the ring formula; without
+a counter the report does nothing.
+
 The LM rules are JAX's, rule for rule: :func:`infer_param_specs`
 (``_spec_for``), :func:`batch_specs`, :func:`cache_specs`, read only a
 leaf's path and shape.  The port keeps per-layer lists where JAX stacks
@@ -49,6 +55,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.cost import report_collective
 
 DeviceLike = Union[str, torch.device]
 Cells = List[Any]          # one value per grid cell, in rank order
@@ -462,6 +469,7 @@ def all_reduce(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     then copied to each cell's device (a copy onto the same device is
     no copy): the same bits on every run, where a ``psum`` may add in
     any order.  Returns one tensor per input, in input order."""
+    report_collective("all-reduce", len(tensors), tensors)
     total = tensors[0]
     for t in tensors[1:]:
         total = total + t.to(total.device)
@@ -487,6 +495,7 @@ def psum(cells: Cells, env: MeshEnv, axis) -> Cells:
     axes = _axes(axis)
     out: List[Any] = [None] * len(cells)
     for grp in _groups(env, axes):
+        report_collective("all-reduce", len(grp), [cells[c] for c in grp])
         total = cells[grp[0]]
         for c in grp[1:]:
             total = total + cells[c].to(total.device)
@@ -520,6 +529,7 @@ def ppermute(cells: Cells, env: MeshEnv, axis: str, shift: int = 1, *,
         if key not in moved:
             moved[key] = cells[src].to(dev)
         out.append(moved[key])
+        report_collective("collective-permute", len(grp), [out[-1]])
     return out
 
 
@@ -536,6 +546,7 @@ def all_gather(cells: Cells, env: MeshEnv, axis, dim: int) -> Cells:
             if dev not in made:
                 made[dev] = torch.cat([cells[g].to(dev) for g in grp], dim)
             out[c] = made[dev]
+        report_collective("all-gather", len(grp), [out[c] for c in grp])
     return out
 
 
@@ -547,6 +558,7 @@ def all_to_all(cells: Cells, env: MeshEnv, axis: str, split_dim: int,
     out: List[Any] = [None] * len(cells)
     for grp in _groups(env, (axis,)):
         n = len(grp)
+        report_collective("all-to-all", n, [cells[c] for c in grp])
         blocks = [cells[c].chunk(n, dim=split_dim) for c in grp]
         for j, c in enumerate(grp):
             dev = env.cells[c]
@@ -646,6 +658,9 @@ def gather_whole(cells: Cells, spec, env: MeshEnv,
     :class:`_Fanout`, so each piece's gradient is added in device order."""
     devices = tuple(devices or env.distinct_devices)
     spec = _full_spec(cells.spec if spec is None else spec, cells[0].dim())
+    parts = 1
+    for e in spec:
+        parts *= env.size(_axes(e))
     if _needs_fanout(cells, devices):
         uniq = list({id(t): t for t in cells}.values())
         copies = {id(t): dict(zip(devices, _Fanout.apply(t, devices)))
@@ -654,7 +669,10 @@ def gather_whole(cells: Cells, spec, env: MeshEnv,
                  for d in devices}
     else:
         whole = {d: unshard(cells, spec, env, d) for d in devices}
-    return [whole[d] for d in env.cells]
+    out = [whole[d] for d in env.cells]
+    if parts > 1:
+        report_collective("all-gather", parts, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ being replayed quietly on the host backend.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -28,6 +29,7 @@ from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.errors import PermanentExecutionError
 
@@ -82,6 +84,39 @@ _SIGNATURES = {
     # units, 4 strides of xpre (b, s, gate, head), stream
     "mlego_slstm_coop": (_P,) * 13 + (_I,) * 7 + (_LL,) * 4 + (_P,),
 }
+
+
+# one H100 SXM's published peaks (data sheet, 700 W): HBM bytes/s, fp32
+# (CUDA-core) flop/s and dense bf16 tensor-core flop/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
+
+
+@dataclasses.dataclass(frozen=True)
+class Cost:
+    """What one call of a kernel must do: ``n_bytes`` (each input read
+    once, each output written once), ``ops`` ((operations, peak rate)
+    pairs: the work at the rate it can run) and ``flops`` (its products'
+    FLOPs, 2 a multiply-add: what a dry run's counter adds, as it counts
+    the plain ops' products).  Each kernel package's ``cost(...)`` gives
+    it for one call's shapes; ``chip_smoke.py``'s bound column and the
+    shape-only routes read the same function."""
+
+    n_bytes: float
+    ops: Tuple[Tuple[float, float], ...]
+    flops: float = 0.0
+
+    def bound_ms(self) -> Tuple[float, str]:
+        """The least time the card could take, in ms, and what bounds it:
+        the bytes at the HBM rate or the operations at their peaks."""
+        t_bytes = self.n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = 0.0
+        for n, rate in self.ops:
+            t_ops += n / rate
+        t_ops *= 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
 
 
 class KernelError(PermanentExecutionError):
@@ -222,7 +257,10 @@ def check_launch(status: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of the current PyTorch stream on ``t``'s device."""
+    """Handle of the current PyTorch stream on ``t``'s device (0 for a
+    fake tensor, which ``launch`` refuses)."""
+    if is_fake(t):
+        return 0
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -230,14 +268,27 @@ def launch(what: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with ``device`` made current and
     raise ``KernelError`` if it returns a nonzero status.
 
+    A tensor among ``args`` is passed as its data pointer, taken here: a
+    fake tensor (``FakeTensorMode``: shapes, no storage, a null pointer)
+    raises ``KernelError`` before anything is loaded or launched.
+
     Every entry point launches onto the stream it is handed
     (``stream_of``: the current stream of a tensor's device), and CUDA
     refuses a launch onto a stream of a device that is not current; so a
     tensor on any card of a host launches where it lies, whichever card
     the calling thread had current."""
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if is_fake(a):
+                raise KernelError(
+                    f"{what}: a fake tensor {tuple(a.shape)} on {a.device} "
+                    f"has no storage to launch on")
+            a = a.data_ptr()
+        ptrs.append(a)
     fn = getattr(load_library(), entry)
     with torch.cuda.device(device):
-        status = fn(*args)
+        status = fn(*ptrs)
     check_launch(status, what)
 
 
@@ -252,15 +303,27 @@ def count_launch(counters: dict, name: str, n: int = 1) -> None:
 
 
 def same_device(**tensors: torch.Tensor) -> torch.device:
-    """The one device (CPU or CUDA) all the named tensors lie on."""
+    """The one device (CPU or CUDA) all the named tensors lie on; fake
+    tensors (a dry run's cards) may lie on any."""
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: "
                          f"{ {n: str(t.device) for n, t in tensors.items()} }")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda") and not all(
+            is_fake(t) for t in tensors.values()):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` (on a device other than the CPU) takes
+    its shape-only route: ``t`` is a fake tensor, which holds shapes and
+    no storage.  The route runs the wrapper's checks and returns empty
+    outputs of the kernel's shapes and dtypes (its launch, like a real
+    one, is reported to an active ``launch.cost.OpCounter``); it computes
+    nothing, and no real tensor takes it."""
+    return is_fake(t)
 
 
 def require_cuda(name: str, t: torch.Tensor, device: torch.device,
@@ -296,8 +359,12 @@ def require_aligned16(name: str, t: torch.Tensor) -> None:
     the data pointer 16-byte aligned and every stride but the last (which
     must be 1) a whole number of 16-byte pieces."""
     piece = 16 // t.element_size()
-    if t.data_ptr() % 16 != 0 or any(st % piece for st in t.stride()[:-1]):
+    # a fake tensor has no pointer: its offset into its storage stands in
+    # (an allocation starts on a 512-byte boundary)
+    ptr = (t.storage_offset() * t.element_size() if is_fake(t)
+           else t.data_ptr())
+    if ptr % 16 != 0 or any(st % piece for st in t.stride()[:-1]):
         raise ValueError(
             f"{name} must start on a 16-byte boundary with strides that are "
             f"multiples of {piece} elements; got data_ptr % 16 = "
-            f"{t.data_ptr() % 16}, strides {tuple(t.stride())}")
+            f"{ptr % 16}, strides {tuple(t.stride())}")

@@ -33,7 +33,11 @@ shards are combined before one final cast.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to the kernel of its dtype or raises (bf16 caches must be
-16-byte aligned with strides that are multiples of 8 elements).
+16-byte aligned with strides that are multiples of 8 elements); a fake
+tensor on any other device (a dry run's card) takes the shape-only route
+(``common.shape_only``).  Each launch, real or shape-only, reports
+:func:`cost` to an active ``launch.cost.OpCounter``, over the whole cache
+when ``pos`` is a tensor (the count never reads the device).
 ``decode_attention_launches`` counts calls that launched the kernel
 (each is two CUDA launches: partials and combine).
 """
@@ -45,6 +49,7 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.launch.cost import report_kernel
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
@@ -65,6 +70,25 @@ def split_plan(s: int, n_pairs: int) -> Tuple[int, int]:
     want = min(MAX_SPLITS, -(-WAVE_CTAS // n_pairs))
     chunk = TILE * -(-n_tiles // want)
     return -(-s // chunk), chunk
+
+
+def cost(b: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype,
+         pos: int, *, window: int = 0, return_lse: bool = False
+         ) -> common.Cost:
+    """One call's work at position ``pos``: the live cache rows of k and
+    v (positions <= pos, and > pos - window) and q read once (q only when
+    a key is live), the output (float32 with the lse) and the lse written
+    once; 4 · hd flops per (head, live key)."""
+    el = dtype.itemsize
+    out_el = 4 if return_lse else el
+    lo = max(0, pos - window + 1) if window else 0
+    live = max(0, min(pos, s - 1) + 1 - lo)
+    n_bytes = el * (2 * b * live * kvh * hd + (b * h * hd if live else 0)) \
+        + out_el * b * h * hd + (4 * b * h if return_lse else 0)
+    flops = 4 * hd * b * h * live
+    peak = common.PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 \
+        else common.PEAK_F32_FLOPS
+    return common.Cost(n_bytes, ((flops, peak),), flops)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -108,24 +132,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"pos must be one int32 on {dev}, got "
                              f"{pos.dtype} {tuple(pos.shape)} on "
                              f"{pos.device}")
-    else:
-        pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
-    n_split, chunk = split_plan(s, b * kvh)
     out = torch.empty((b, 1, h, hd), dtype=torch.float32 if return_lse
                       else q.dtype, device=dev)
     lse = (torch.empty((b, 1, h), dtype=torch.float32, device=dev)
            if return_lse else None)
+    at = s - 1 if isinstance(pos, torch.Tensor) else int(pos)
+    report_kernel("decode_attention", dev, lambda: cost(
+        b, s, h, kvh, hd, q.dtype, at, window=window, return_lse=return_lse))
+    if common.shape_only(q):
+        return (out, lse) if return_lse else out
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
+    n_split, chunk = split_plan(s, b * kvh)
     part_acc = torch.empty((b, kvh, n_split, g * hd), dtype=torch.float32,
                            device=dev)
     part_ml = torch.empty((b, kvh, n_split, 2 * g), dtype=torch.float32,
                           device=dev)
     common.launch(
         "decode_attention", "mlego_decode_attention", dev,
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), 0 if q.dtype == torch.float32 else 1, b, s, h,
+        q, k_cache, v_cache, pos, out, part_acc, part_ml,
+        0 if q.dtype == torch.float32 else 1, b, s, h,
         kvh, hd, q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], int(window), float(hd ** -0.5), n_split,
-        chunk, None if lse is None else lse.data_ptr(), common.stream_of(q))
+        chunk, lse, common.stream_of(q))
     common.count_launch(globals(), "decode_attention_launches")
     return (out, lse) if return_lse else out

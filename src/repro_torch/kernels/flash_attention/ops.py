@@ -34,21 +34,52 @@ output is 0), so the steps are combined before one final cast.  With
 q_offset = 0 and no lse the launch is the one it always was.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to one of the two kernels or raises.
+tensor goes to one of the two kernels or raises; a fake tensor on any
+other device (a dry run's card) takes the shape-only route
+(``common.shape_only``).  Each launch, real or shape-only, reports
+:func:`cost` to an active ``launch.cost.OpCounter``.
 ``flash_attention_launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.launch.cost import report_kernel
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
 MAX_GROUP = 64                       # query heads per KV head in one CTA
 
 flash_attention_launches = 0
+
+
+def pairs(s: int, causal: bool, window: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs one (batch, head) attends: query i at
+    position q_offset + i, keys j in [0, s), under the kernel's masks."""
+    p = q_offset + np.arange(s, dtype=np.int64)
+    hi = np.minimum(s - 1, p) if causal else np.full(s, s - 1)
+    lo = np.maximum(0, p - window + 1) if window else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(b: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, *,
+         causal: bool = True, window: int = 0, q_offset: int = 0,
+         return_lse: bool = False) -> common.Cost:
+    """One call's work: q, k and v read once, the output (float32 with
+    the lse) and the lse written once; 4 · hd flops a (query, key) pair
+    the masks keep, per head (QK and PV, on the tensor cores in bf16, at
+    the fp32 peak in float32)."""
+    el = dtype.itemsize
+    out_el = 4 if return_lse else el
+    n_bytes = el * (b * s * h * hd + 2 * b * s * kvh * hd) \
+        + out_el * b * s * h * hd + (4 * b * s * h if return_lse else 0)
+    flops = 4 * hd * b * h * pairs(s, causal, window, q_offset)
+    peak = common.PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 \
+        else common.PEAK_F32_FLOPS
+    return common.Cost(n_bytes, ((flops, peak),), flops)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -94,12 +125,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       else q.dtype, device=dev)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
            if return_lse else None)
+    report_kernel("flash_attention", dev, lambda: cost(
+        b, s, h, kvh, hd, q.dtype, causal=causal, window=window,
+        q_offset=q_offset, return_lse=return_lse))
+    if common.shape_only(q):
+        return (out, lse) if return_lse else out
     common.launch(
         "flash_attention", "mlego_flash_attention", dev,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        0 if q.dtype == torch.float32 else 1, b, s, h, kvh, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), int(window), float(hd ** -0.5), q_offset,
-        None if lse is None else lse.data_ptr(), common.stream_of(q))
+        q, k, v, out, 0 if q.dtype == torch.float32 else 1, b, s, h, kvh,
+        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(bool(causal)), int(window), float(hd ** -0.5), q_offset, lse,
+        common.stream_of(q))
     common.count_launch(globals(), "flash_attention_launches")
     return (out, lse) if return_lse else out

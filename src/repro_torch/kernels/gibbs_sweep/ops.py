@@ -54,6 +54,26 @@ cgs_sweep_exact_launches = 0
 DocIndex = Tuple[torch.Tensor, torch.Tensor]
 
 
+def cost(n_blocks: int, t_max: int, bd: int, k: int, v: int,
+         n_tokens: int) -> common.Cost:
+    """One blocked sweep (``gibbs_sweep``) of ``n_blocks`` (B, T_max)
+    token blocks of ``bd`` documents with ``n_tokens`` real tokens: the
+    block inputs, n_kd in and out, the n_kv snapshot, z out and n_kv out
+    once; ~8 operations per topic per real token (no products)."""
+    return common.Cost(
+        4 * (6 * n_blocks * t_max + 2 * n_blocks * bd * k + 2 * k * v + k),
+        ((8 * k * n_tokens, common.PEAK_F32_FLOPS),))
+
+
+def exact_cost(t: int, n_docs: int, k: int, v: int) -> common.Cost:
+    """One exact sweep (``cgs_sweep_exact``) of a chain of ``t`` tokens
+    over ``n_docs`` documents: the tokens, documents, uniforms and z in
+    and out, n_kd, the (V, K) n_kv and prior and the topic totals once;
+    ~10 operations per topic per token (no products)."""
+    return common.Cost(4 * (5 * t + 2 * n_docs * k + 3 * k * v + 3 * k),
+                       ((10 * k * t, common.PEAK_F32_FLOPS),))
+
+
 def doc_index(ldoc: torch.Tensor, mask: torch.Tensor,
               block_docs: int) -> DocIndex:
     """The real slots of a blocked layout, grouped by document.
@@ -132,10 +152,8 @@ def gibbs_sweep(words: torch.Tensor, ldoc: torch.Tensor, mask: torch.Tensor,
     nkv = torch.zeros((k, v), dtype=torch.float32, device=dev)
     common.launch(
         "gibbs_sweep", "mlego_gibbs_sweep_blocked", dev,
-        words.data_ptr(), mask.data_ptr(), u.data_ptr(), z.data_ptr(),
-        doc_ptr.data_ptr(), slots.data_ptr(), nkd.data_ptr(),
-        prior_t.data_ptr(), prior_k.data_ptr(), z_out.data_ptr(),
-        nkd_out.data_ptr(), nkv.data_ptr(), b * bd, k, v, float(alpha),
+        words, mask, u, z, doc_ptr, slots, nkd, prior_t, prior_k, z_out,
+        nkd_out, nkv, b * bd, k, v, float(alpha),
         common.stream_of(words))
     common.count_launch(globals(), "gibbs_sweep_launches")
     return z_out, nkd_out, nkv
@@ -187,10 +205,8 @@ def cgs_sweep_exact_t(tokens: torch.Tensor, doc_ids: torch.Tensor,
     vbeta = float(np.float32(v) * np.float32(beta))
     common.launch(
         "cgs_sweep_exact", "mlego_gibbs_sweep_exact", dev,
-        tokens.data_ptr(), doc_ids.data_ptr(), u.data_ptr(), z_out.data_ptr(),
-        nkd_out.data_ptr(), nkv_out.data_ptr(), nk_out.data_ptr(),
-        g_t.data_ptr(), gk.data_ptr(), t, k, float(alpha), float(beta),
-        vbeta, common.stream_of(tokens))
+        tokens, doc_ids, u, z_out, nkd_out, nkv_out, nk_out, g_t, gk, t, k,
+        float(alpha), float(beta), vbeta, common.stream_of(tokens))
     common.count_launch(globals(), "cgs_sweep_exact_launches")
     return z_out, nkd_out, nkv_out, nk_out
 

@@ -58,6 +58,36 @@ merge_topics_batch_launches = 0
 merge_topics_ragged_launches = 0
 
 
+def cost(n: int, k: int, v: int) -> common.Cost:
+    """One merge of n (K, V) statistics (``merge_topics``, the parts
+    form): the statistics and the weights read once, the (K, V) result
+    written once; 3 operations per input element (the weighted sum, 2 of
+    them a product's, and the bias) at the fp32 peak."""
+    return common.Cost(4 * (n * k * v + n + k * v),
+                       ((3 * n * k * v, common.PEAK_F32_FLOPS),),
+                       2 * n * k * v)
+
+
+def segments_cost(counts: Sequence[int], k: int, v: int) -> common.Cost:
+    """One ragged merge (``merge_topics_segments``) of segments of
+    ``counts`` statistics: the statistics, weights and offsets read once,
+    one (K, V) result per segment written once; 3 operations per input
+    element."""
+    r, n = sum(counts), len(counts)
+    return common.Cost(4 * (r * k * v + r + n + 1 + n * k * v),
+                       ((3 * r * k * v, common.PEAK_F32_FLOPS),),
+                       2 * r * k * v)
+
+
+def batch_cost(b: int, n: int, k: int, v: int) -> common.Cost:
+    """One batched merge (``merge_topics_batch``) of b merges of n: the
+    statistics and weights read once, b results written once; 2
+    operations per input element (the gs merge: bias = base = 0)."""
+    return common.Cost(4 * (b * n * k * v + b * n + b * k * v),
+                       ((2 * b * n * k * v, common.PEAK_F32_FLOPS),),
+                       2 * b * n * k * v)
+
+
 def _check(stats: torch.Tensor, weights: torch.Tensor) -> None:
     if stats.dim() != 3:
         raise ValueError(f"stats must be (n, K, V), got {tuple(stats.shape)}")
@@ -129,8 +159,8 @@ def merge_topics_parts(parts: Sequence[torch.Tensor],
     common.launch(
         "merge_topics", "mlego_merge_topics_parts", dev,
         ptrs.ctypes.data, None if host_w is None else host_w.ctypes.data,
-        None if table is None else table.data_ptr(), dev_w, n, k * v,
-        float(bias), float(base), out.data_ptr(), common.stream_of(out))
+        table, dev_w, n, k * v,
+        float(bias), float(base), out, common.stream_of(out))
     common.count_launch(globals(), "merge_topics_launches")
     return out
 
@@ -156,7 +186,7 @@ def merge_topics_batch(stats: torch.Tensor, weights: torch.Tensor,
     out = torch.empty((b, k, v), dtype=torch.float32, device=dev)
     common.launch(
         "merge_topics_batch", "mlego_merge_topics_batched", dev,
-        stats.data_ptr(), weights.data_ptr(), out.data_ptr(), b, n, k * v,
+        stats, weights, out, b, n, k * v,
         float(bias), float(base), common.stream_of(stats))
     common.count_launch(globals(), "merge_topics_batch_launches")
     return out
@@ -186,9 +216,8 @@ def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
     out = torch.empty((len(counts), k, v), dtype=torch.float32, device=dev)
     common.launch(
         "merge_topics_ragged", "mlego_merge_topics_ragged", dev,
-        stats.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), len(counts), k * v, float(bias), float(base),
-        common.stream_of(stats))
+        stats, weights, offsets, out, len(counts), k * v, float(bias),
+        float(base), common.stream_of(stats))
     common.count_launch(globals(), "merge_topics_ragged_launches")
     return out
 

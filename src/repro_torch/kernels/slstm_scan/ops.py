@@ -31,7 +31,10 @@ xpre is read through its strides in the model's batch-major
 its ``transpose(0, 1)`` view, with no copy.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
-tensor goes to a kernel or raises.  ``slstm_scan_launches`` counts every
+tensor goes to a kernel or raises; a fake tensor on any other device (a
+dry run's card) takes the shape-only route (``common.shape_only``).
+Each launch, real or shape-only, reports :func:`cost` to an active
+``launch.cost.OpCounter``.  ``slstm_scan_launches`` counts every
 kernel launch, and ``slstm_step_launches``, ``slstm_cluster_launches``
 and ``slstm_coop_launches`` each route's.  ``cluster_occupancy`` holds
 ``cudaOccupancyMaxActiveClusters`` for each cluster configuration
@@ -49,6 +52,7 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.slstm_scan.ref import State, slstm_scan_ref
+from repro_torch.launch.cost import report_kernel
 
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("step", "cluster", "coop")
@@ -198,6 +202,26 @@ def max_active_clusters(plan: ScanPlan, x_dtype: torch.dtype, b: int,
     return n
 
 
+def cost(b: int, s: int, h: int, hd: int, x_dtype: torch.dtype,
+         r_dtype: torch.dtype) -> common.Cost:
+    """One call's work: xpre and R read once, h_out written once, the
+    state read and written once; the h·R products (2 · hd · 4hd flops per
+    row, step and head) and ~20 f32 operations per unit for the gates.
+    With bf16 R the f32 product is exact as three bf16 products on the
+    tensor cores (h = hi + mid + lo), so it runs at a third of their peak;
+    with f32 R at the fp32 peak."""
+    x_el, r_el = x_dtype.itemsize, r_dtype.itemsize
+    n_bytes = (b * s * 4 * h * hd * x_el + h * hd * 4 * hd * r_el
+               + b * s * h * hd * x_el + 8 * 4 * b * h * hd)
+    prod = 2 * b * s * h * hd * 4 * hd
+    gates = (20 * b * s * h * hd, common.PEAK_F32_FLOPS)
+    if r_el == 2:
+        return common.Cost(n_bytes, ((3 * prod, common.PEAK_BF16_TC_FLOPS),
+                                     gates), prod)
+    return common.Cost(n_bytes, ((prod, common.PEAK_F32_FLOPS), gates),
+                       prod)
+
+
 def slstm_scan(xpre: torch.Tensor, r_mat: torch.Tensor, c0: torch.Tensor,
                n0: torch.Tensor, h0: torch.Tensor, m0: torch.Tensor
                ) -> Tuple[torch.Tensor, State]:
@@ -235,10 +259,13 @@ def slstm_scan(xpre: torch.Tensor, r_mat: torch.Tensor, c0: torch.Tensor,
     out = torch.empty((b, s, h, hd), dtype=xpre.dtype, device=dev)
     c1, n1, h1, m1 = (torch.empty((b, h, hd), dtype=torch.float32,
                                   device=dev) for _ in range(4))
+    report_kernel("slstm_scan", dev, lambda: cost(b, s, h, hd, xpre.dtype,
+                                                  r_mat.dtype))
+    if common.shape_only(xpre):
+        return out, (c1, n1, h1, m1)
     xc, rc = _CODE[xpre.dtype], _CODE[r_mat.dtype]
     xs_b, xs_s, xs_g, xs_h = xpre.stride()[:4]
-    ptrs = [t.data_ptr() for t in (xpre, r_mat, c0, n0, h0, m0, out, c1,
-                                   n1, h1, m1)]
+    ptrs = (xpre, r_mat, c0, n0, h0, m0, out, c1, n1, h1, m1)
     stream = common.stream_of(xpre)
     what = f"slstm_scan ({plan.route} route)"
     if plan.route == "step":
@@ -252,8 +279,8 @@ def slstm_scan(xpre: torch.Tensor, r_mat: torch.Tensor, c0: torch.Tensor,
     else:
         hbuf = torch.empty((2, b, h, hd), dtype=torch.float32, device=dev)
         arrive = torch.zeros(h, dtype=torch.int32, device=dev)
-        common.launch(what, "mlego_slstm_coop", dev, *ptrs, hbuf.data_ptr(),
-                      arrive.data_ptr(), xc, rc, b, s, h, hd, plan.units,
+        common.launch(what, "mlego_slstm_coop", dev, *ptrs, hbuf, arrive,
+                      xc, rc, b, s, h, hd, plan.units,
                       xs_b, xs_s, xs_g, xs_h, stream)
     common.count_launch(globals(), "slstm_scan_launches")
     common.count_launch(globals(), f"slstm_{plan.route}_launches")

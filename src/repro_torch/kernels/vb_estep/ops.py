@@ -73,6 +73,19 @@ def estep_plan(k: int, max_row: int) -> Tuple[int, int]:
     return r, 4 * (2 * k4 + _round4(threads) + _round4(r) + r * stride)
 
 
+def cost(d: int, k: int, v: int, nnz: int, n_iters: int) -> common.Cost:
+    """One call on a (D, V) CSR of ``nnz`` nonzeros: the CSR (indptr,
+    indices, values, rows, col_ptr, perm), eeβ and γ0 read once, γ and
+    the sstats written once; the operations this x needs: per iteration
+    phinorm and the γ product at the nonzeros (4 · K flops each, products,
+    plus the division) and the digamma/exp update of every γ entry (~62),
+    then the final multiply by eeβ."""
+    n_bytes = 4 * (4 * nnz + d + 1 + v + 1 + k * v + 2 * d * k + k * v)
+    n_ops = (n_iters + 1) * (4 * k * nnz + nnz + 62 * d * k) + k * v
+    return common.Cost(n_bytes, ((n_ops, common.PEAK_F32_FLOPS),),
+                       (n_iters + 1) * 4 * k * nnz)
+
+
 def vb_estep_csr(csr: DocTermCSR, exp_elog_beta: torch.Tensor,
                  gamma0: torch.Tensor, alpha: float, n_iters: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,16 +123,13 @@ def vb_estep_csr(csr: DocTermCSR, exp_elog_beta: torch.Tensor,
     sstats = torch.empty((k, v), dtype=torch.float32, device=dev)
     common.launch(
         "vb_estep (iterations)", "mlego_vb_estep_csr_iters", dev,
-        csr.indptr.data_ptr(), csr.indices.data_ptr(), csr.values.data_ptr(),
-        eeb_t.data_ptr(), gamma0.data_ptr(), gamma.data_ptr(),
-        ee_theta.data_ptr(), ratio.data_ptr(),
-        ratio.data_ptr() + 4 * csr.nnz, d, k, r, float(alpha), int(n_iters),
+        csr.indptr, csr.indices, csr.values, eeb_t, gamma0, gamma, ee_theta,
+        ratio, ratio[csr.nnz:], d, k, r, float(alpha), int(n_iters),
         stream)
     common.launch(
         "vb_estep (sstats)", "mlego_vb_estep_csr_sstats", dev,
-        csr.col_ptr.data_ptr(), csr.perm.data_ptr(), csr.rows.data_ptr(),
-        ratio.data_ptr(), ee_theta.data_ptr(), eeb_t.data_ptr(),
-        sstats.data_ptr(), k, v, stream)
+        csr.col_ptr, csr.perm, csr.rows, ratio, ee_theta, eeb_t, sstats, k,
+        v, stream)
     common.count_launch(globals(), "launches", 2)
     return gamma, sstats
 

@@ -4,6 +4,8 @@
         --steps 20 --device cpu
     python -m repro_torch.launch.train --arch qwen3-1.7b --batch 2 \\
         --seq 4096 --steps 6
+    python -m repro_torch.launch.train --arch qwen3-1.7b --shape train_4k \\
+        --dry
 
 The port of ``src/repro/launch/train.py``: ``Trainer.fit`` over
 ``batch_stream`` for any architecture of ``ARCHS`` (the full config, or
@@ -12,8 +14,10 @@ resume from (``--ckpt-dir``).  It runs on the CUDA card unless
 ``--device cpu`` is given, and raises ``DeviceUnavailableError`` when a
 card is asked for and there is none.  Weights are random, drawn by
 ``Model.init`` from ``torch.Generator(0)`` on the device.  ``--dry``
-(lower and compile the full cell for the TPU mesh) is not ported: it
-runs ``launch/dryrun.py``, an XLA compile for a 512-device TPU mesh.
+costs one step of the full cell (``--shape``, ``train_4k`` by default)
+on both grids of ``launch/mesh.py`` without running it: the same path
+as ``launch/dryrun.py`` for one cell, in this process (no device count
+has to be forced), records under ``--out``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.train.trainer import Trainer
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -38,16 +43,19 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="run the smoke-scale config")
     ap.add_argument("--dry", action="store_true",
-                    help="not ported: the XLA dry run for a TPU mesh")
+                    help="cost the full cell on fake cards instead of "
+                         "running it")
+    ap.add_argument("--out", default="experiments/dryrun_torch",
+                    help="where --dry writes its records")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     if args.dry:
-        raise SystemExit("--dry is not ported: it lowers and compiles the "
-                         "cell for a 512-device TPU mesh through XLA "
-                         "(src/repro/launch/dryrun.py), which the port "
-                         "does not have; run src/repro/launch/train.py")
+        from repro_torch.launch import dryrun
+        raise SystemExit(dryrun.main(
+            ["--arch", args.arch, "--shape", args.shape, "--mesh",
+             "card,node", "--out", args.out]))
 
     cfg = get_arch(args.arch)
     if args.reduced:

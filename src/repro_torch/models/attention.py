@@ -69,6 +69,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch.cost import kernel_interior
 
 NEG_INF = -1e30
 
@@ -216,9 +217,10 @@ KV_CHUNK = 512
 class _MatmulF32(torch.autograd.Function):
     """``torch.bmm`` of two bfloat16 batches, summed and returned in
     float32: JAX's ``einsum(..., preferred_element_type=float32)``, whose
-    result is never rounded to bfloat16.  On the card the product runs on
-    the tensor cores (``torch.bmm(..., out_dtype=torch.float32)``); on the
-    CPU, which has no such product, the operands are widened first (each
+    result is never rounded to bfloat16.  On the card (and a dry run's
+    fake card) the product runs on the tensor cores (``torch.bmm(...,
+    out_dtype=torch.float32)``); on the CPU, which has no such product,
+    the operands are widened first (each
     bf16 product is exact in float32, so only the order of the sums
     differs).  The backward rounds the float32 cotangent to bfloat16 and
     runs both products on the tensor cores, as FlashAttention's backward
@@ -228,7 +230,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(a, b)
-        if a.is_cuda:
+        if a.device.type != "cpu":
             return torch.bmm(a, b, out_dtype=torch.float32)
         return torch.bmm(a.float(), b.float())
 
@@ -297,22 +299,25 @@ class _FlashChunk(torch.autograd.Function):
     m) of every layer would stay resident until the backward (15 GB at
     qwen3-1.7b's 28 layers and 2 × 4,096 tokens).  Here the inputs are
     saved through ``save_for_backward``, which the outer remat drops and
-    recomputes like any other saved tensor."""
+    recomputes like any other saved tensor.  Both passes are JAX's
+    ``kernel_interior`` scope (``attention.py:98``): a fused kernel keeps
+    their scores on chip."""
 
     @staticmethod
     def forward(ctx, acc, l, m, q, k_c, v_c, masked):
         ctx.save_for_backward(acc, l, m, q, k_c, v_c, masked)
-        return _flash_block(acc, l, m, q, k_c, v_c, masked)
+        with kernel_interior():
+            return _flash_block(acc, l, m, q, k_c, v_c, masked)
 
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
         ins = [t.detach().requires_grad_(need) for t, need in
                zip(saved[:6], ctx.needs_input_grad[:6])]
-        with torch.enable_grad():
+        with torch.enable_grad(), kernel_interior():
             outs = _flash_block(*ins, saved[6])
-        wanted = [t for t in ins if t.requires_grad]
-        got = iter(torch.autograd.grad(outs, wanted, grads))
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(outs, wanted, grads))
         return (*[next(got) if t.requires_grad else None for t in ins],
                 None)
 

@@ -299,7 +299,7 @@ def _window_cache(k: torch.Tensor, v: torch.Tensor, window: int,
 def _conv_tail(xin: torch.Tensor) -> torch.Tensor:
     """The last 3 rows of the recurrent branch's input (B, S, dr) in
     float32, zero-padded on the left when S < 3."""
-    tail = xin[:, -3:].float()
+    tail = xin[:, -3:].to(torch.float32, copy=True)   # no view of xin
     if tail.shape[1] < 3:
         tail = torch.cat([tail.new_zeros((tail.shape[0], 3 - tail.shape[1],
                                           tail.shape[2])), tail], dim=1)
@@ -764,7 +764,7 @@ class Model:
                                    p["b_ig"], p["conv_w"], p["conv_b"],
                                    p["lam"])
                 x = self._rec_out(p, x, gate, hr)
-                caches.append({"h": hr[:, -1].float(),
+                caches.append({"h": hr[:, -1].to(torch.float32, copy=True),
                                "tail": _conv_tail(xin)})
             elif kind == "m":
                 o, (c, n) = rec.mlstm_with_state(*self._mlstm_inputs(p, x))
@@ -892,10 +892,12 @@ class Model:
     # argument tuple: work JAX replicates runs once per device).
 
     def shard_caches(self, caches: Cache, env: MeshEnv, batch: int) -> Cache:
-        """Whole caches cut into ``Sharded`` pieces by ``cache_specs``."""
+        """Whole caches cut into ``Sharded`` pieces by ``cache_specs``, each
+        piece a tensor of its own: a piece that stayed a view would keep
+        the whole cache alive on the first cell's device."""
         specs = sh.cache_specs(caches, env, batch)
-        return [{k: sh.shard(t, specs[i][k], env) for k, t in c.items()}
-                for i, c in enumerate(caches)]
+        return [{k: _own_pieces(sh.shard(t, specs[i][k], env))
+                 for k, t in c.items()} for i, c in enumerate(caches)]
 
     @staticmethod
     def gather_caches(caches: Cache, env: MeshEnv) -> Cache:
@@ -1046,7 +1048,8 @@ class Model:
             else:
                 tail = sh.cellwise(_conv_tail,
                                    sh.all_gather(xin, env, "model", 1))
-            h_last = sh.cellwise(lambda h: h[:, -1].float(), hr)
+            h_last = sh.cellwise(
+                lambda h: h[:, -1].to(torch.float32, copy=True), hr)
             return xs, {"h": self._row_last(h_last, env),
                         "tail": self._row_last(tail, env)}
         if kind == "m":
@@ -1383,12 +1386,24 @@ class Model:
             whole = [t[j] for t in out]
             if split:
                 w_loc = c[name][0].shape[1]
-                whole = sh.cellwise(
-                    lambda t, m: t[:, m * w_loc:(m + 1) * w_loc], whole,
+                whole = sh.cellwise(   # a copy: a view keeps the window
+                    lambda t, m: t[:, m * w_loc:(m + 1) * w_loc].clone(),
+                    whole,
                     [env.axis_index(cc, "model") for cc in range(env.n_cells)])
             c[name] = sh.Sharded(whole, kspec)
         c["kpos"] = sh.Sharded([t[3] for t in out], c["kpos"].spec)
         return o
+
+
+def _own_pieces(cells: sh.Sharded) -> sh.Sharded:
+    """``cells`` with each piece that is a view of a larger tensor copied
+    (once per distinct piece), so the larger tensor can be freed."""
+    made: Dict[int, torch.Tensor] = {}
+    for t in cells:
+        if id(t) not in made:
+            view = t.untyped_storage().nbytes() > t.numel() * t.element_size()
+            made[id(t)] = t.clone() if view else t
+    return sh.Sharded([made[id(t)] for t in cells], cells.spec)
 
 
 def _vocab_nll_chunk_sum(step: int, hs: List[torch.Tensor],

@@ -42,6 +42,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan.ref import State, logsig, zero_state
+from repro_torch.launch.cost import kernel_interior
 
 MLSTM_CHUNK = 256
 
@@ -59,37 +60,39 @@ def _mlstm_chunk_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v: (B, S, H, hd) float32; logi, logf: (B, S, H) float32 (log
     gates, <= 0); c0: (B, H, hd, hd); n0: (B, H, hd).  Returns h
-    (B, S, H, hd) and the final (C, n)."""
+    (B, S, H, hd) and the final (C, n).  Each chunk is JAX's
+    ``kernel_interior`` scope (``recurrent.py:75``)."""
     b, s, h, hd = q.shape
     L = chunk
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
     C, nv = c0, n0
     outs = []
     for c in range(s // L):
-        sl = slice(c * L, (c + 1) * L)
-        qc, kc, vc, li, lf = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], \
-            logf[:, sl]
-        cum = torch.cumsum(lf, dim=1)                       # (B, L, H)
-        dec = torch.exp(cum)[..., None]                     # (B, L, H, 1)
-        qdec = qc * dec
-        h_inter = torch.einsum("blhd,bhdv->blhv", qdec, C)
-        qn_inter = torch.einsum("blhd,bhd->blh", qdec, nv)
-        # intra-chunk decay-weighted scores
-        diff = cum[:, :, None, :] - cum[:, None, :, :] + li[:, None, :, :]
-        w = torch.exp(torch.where(tri[None, :, :, None], diff,
-                                  torch.full_like(diff, -torch.inf)))
-        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * w
-        h_intra = torch.einsum("btsh,bshv->bthv", scores, vc)
-        qn = qn_inter + scores.sum(dim=2)
-        outs.append((h_inter + h_intra)
-                    / torch.clamp(qn.abs(), min=1.0)[..., None])
-        # carry update
-        dend = torch.exp(cum[:, -1])                        # (B, H)
-        wend = torch.exp(cum[:, -1:, :] - cum + li)         # (B, L, H)
-        kw = kc * wend[..., None]
-        C = dend[..., None, None] * C + torch.einsum("blhd,blhv->bhdv", kw,
-                                                     vc)
-        nv = dend[..., None] * nv + kw.sum(dim=1)
+        with kernel_interior():
+            sl = slice(c * L, (c + 1) * L)
+            qc, kc, vc, li, lf = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], \
+                logf[:, sl]
+            cum = torch.cumsum(lf, dim=1)                       # (B, L, H)
+            dec = torch.exp(cum)[..., None]                     # (B, L, H, 1)
+            qdec = qc * dec
+            h_inter = torch.einsum("blhd,bhdv->blhv", qdec, C)
+            qn_inter = torch.einsum("blhd,bhd->blh", qdec, nv)
+            # intra-chunk decay-weighted scores
+            diff = cum[:, :, None, :] - cum[:, None, :, :] + li[:, None, :, :]
+            w = torch.exp(torch.where(tri[None, :, :, None], diff,
+                                      torch.full_like(diff, -torch.inf)))
+            scores = torch.einsum("bthd,bshd->btsh", qc, kc) * w
+            h_intra = torch.einsum("btsh,bshv->bthv", scores, vc)
+            qn = qn_inter + scores.sum(dim=2)
+            outs.append((h_inter + h_intra)
+                        / torch.clamp(qn.abs(), min=1.0)[..., None])
+            # carry update
+            dend = torch.exp(cum[:, -1])                        # (B, H)
+            wend = torch.exp(cum[:, -1:, :] - cum + li)         # (B, L, H)
+            kw = kc * wend[..., None]
+            C = dend[..., None, None] * C + torch.einsum("blhd,blhv->bhdv", kw,
+                                                         vc)
+            nv = dend[..., None] * nv + kw.sum(dim=1)
     return torch.cat(outs, dim=1), (C, nv)
 
 
@@ -304,26 +307,28 @@ def _slstm_local_scan(xpre: torch.Tensor, r_mat: torch.Tensor,
     """JAX's ``_slstm_local_scan`` (``recurrent.py:177``): the float32
     step loop, differentiable.  xpre: (B, S, 4, H, hd) float32; r_mat
     (H, hd, 4 hd), used in float32; state (c, n, h, m) (B, H, hd).
-    Returns h (B, S, H, hd) float32 and the final state."""
+    Returns h (B, S, H, hd) float32 and the final state.  Each step is
+    JAX's ``kernel_interior`` scope (``recurrent.py:184``)."""
     b, s, _, h, hd = xpre.shape
     r = r_mat.float()
     c, nrm, hprev, m = state
     out = []
     for t in range(s):
-        rec = torch.einsum("bhd,hde->bhe", hprev, r).reshape(b, h, 4, hd)
-        tot = xpre[:, t] + rec.transpose(1, 2)              # (B, 4, H, hd)
-        z = torch.tanh(tot[:, 0])
-        logi = tot[:, 1]
-        logf = logsig(tot[:, 2])
-        o = torch.sigmoid(tot[:, 3])
-        m_new = torch.maximum(logf + m, logi)
-        i_s = torch.exp(logi - m_new)
-        f_s = torch.exp(logf + m - m_new)
-        c = f_s * c + i_s * z
-        nrm = f_s * nrm + i_s
-        hprev = o * c / torch.clamp(nrm, min=1e-6)
-        m = m_new
-        out.append(hprev)
+        with kernel_interior():
+            rec = torch.einsum("bhd,hde->bhe", hprev, r).reshape(b, h, 4, hd)
+            tot = xpre[:, t] + rec.transpose(1, 2)              # (B, 4, H, hd)
+            z = torch.tanh(tot[:, 0])
+            logi = tot[:, 1]
+            logf = logsig(tot[:, 2])
+            o = torch.sigmoid(tot[:, 3])
+            m_new = torch.maximum(logf + m, logi)
+            i_s = torch.exp(logi - m_new)
+            f_s = torch.exp(logf + m - m_new)
+            c = f_s * c + i_s * z
+            nrm = f_s * nrm + i_s
+            hprev = o * c / torch.clamp(nrm, min=1e-6)
+            m = m_new
+            out.append(hprev)
     return torch.stack(out, dim=1), (c, nrm, hprev, m)
 
 

@@ -40,6 +40,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "import repro_torch.distributed.checkpoint\n"
         "import repro_torch.distributed.compression\n"
         "import repro_torch.distributed.pipeline\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.cost\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'triton')\n"
