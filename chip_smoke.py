@@ -210,7 +210,11 @@ Phases, each of which fails the run if anything in it fails:
    all_to_all of capacity blocks; (f) after phase 12 frees its state,
    training at qwen3-1.7b's widths and 8 of its layers on a (2, 2) grid
    (data 2 × sequence 2), 3 steps, against the one-device ``Trainer`` on
-   the same weights and batch (``grid_train``).  In bf16 each prints the
+   the same weights and batch (``grid_train``), the update's share of a
+   step printed; then the update on the pieces alone, float32 at 2
+   layers, 3 steps of AdamW and of Adafactor on the same gradients as one
+   device's update: the joined masters and state within ``GRID_TOL`` of
+   one device's (``grid_update_f32``).  In bf16 each prints the
    prefill logits' largest difference and the share of greedy tokens that
    agree (random weights leave near-ties); the hard checks are float32 at
    the same widths and 2 layers (xlstm one "m" and one "s", recurrentgemma
@@ -258,7 +262,11 @@ Phases, each of which fails the run if anything in it fails:
    ``cost(...)`` (the function the bound column calls), the step's FLOPs
    equal to the count on the card; (c) qwen3-1.7b's decode_32k on the
    "node" grid (eight fake cards): its record written under
-   ``experiments/dryrun_torch/``, its collective counts nonzero.
+   ``experiments/dryrun_torch/``, its collective counts nonzero; (d) phase
+   13 (f)'s training step (8 layers, 2 × 4,096 tokens) on "node": each
+   card's argument, output and peak bytes printed, card 0's output bytes
+   each other card's plus the 20 of the step counter and the 4 metrics
+   (the update runs on the pieces: no card holds a whole leaf).
 
 The launch counts reported for a kernel are those of the paths that run
 it (phases 3–4 for the ``"vb"`` path, phase 5 for the ``"gs"`` path,
@@ -285,6 +293,7 @@ prints no result line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -2377,14 +2386,16 @@ def grid_train(device, card: str) -> dict:
     difference printed; the grid's peak at most ``GRID_PEAK_RATIO`` x one
     device's and at most ``TRAIN_PEAK_GB``.  Hard check: float32 at 2
     layers, ``Model.loss`` and every gradient on the grid within
-    ``GRID_TOL`` of one device's (each leaf against its largest)."""
+    ``GRID_TOL`` of one device's (each leaf against its largest); and the
+    update on the pieces (``grid_update_f32``).  Prints each run's
+    seconds a step and the update's share of it."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.data.lm import make_batch
     from repro_torch.models.model import build_model
     from repro_torch.train import OptimizerConfig, Trainer
-    from repro_torch.train.optim import leaves, unflatten
+    from repro_torch.train.optim import build_optimizer, leaves, unflatten
     from repro_torch.train.trainer import join_tree
 
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
@@ -2395,6 +2406,11 @@ def grid_train(device, card: str) -> dict:
     env = grid_env(device, (2, 2))
     runs = {}
     for name, e in (("one device", None), ("grid (2, 2)", env)):
+        # the first checkpointed step of a process leaves its frames, and
+        # the state they hold, in a reference cycle (torch._dynamo's lazy
+        # import keeps them) that only the collector frees: without this
+        # the grid's peak would count the one-device run's state
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(model, opt, seed=0, device=device, env=e)
@@ -2409,9 +2425,18 @@ def grid_train(device, card: str) -> dict:
             losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         secs = (time.perf_counter() - t0) / GRID_TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the update alone, on the masters' tree in the gradients' place
+        # (the same layout and dtype; the time does not read the values)
+        update = build_optimizer(opt, model.jax_stacks(state.params),
+                                 env=e)[1]
+        t0 = time.perf_counter()
+        update(state.params, state.opt_state, state.params, state.step)
+        torch.cuda.synchronize()
+        upd_s = time.perf_counter() - t0
         whole = state.params if e is None else join_tree(state.params, e)
-        runs[name] = dict(losses=losses, s_step=secs,
-                          peak=torch.cuda.max_memory_allocated() / 1e9,
+        runs[name] = dict(losses=losses, s_step=secs, update_s=upd_s,
+                          peak=peak,
                           params=[t.detach().clone() for t in leaves(whole)])
         del tr, state, params, opt_state, whole
         torch.cuda.empty_cache()
@@ -2421,7 +2446,8 @@ def grid_train(device, card: str) -> dict:
     for name, r in runs.items():
         log(f"[grid] train {cfg.name} at {cfg.n_layers} layers, {name}: "
             f"B={TRAIN_B} S={TRAIN_S}, {GRID_TRAIN_STEPS} steps, "
-            f"{r['s_step']:.3f} s a step, losses "
+            f"{r['s_step']:.3f} s a step (the update {r['update_s']:.4f} s, "
+            f"{r['update_s'] / r['s_step']:.1%} of it), losses "
             f"{[round(x, 4) for x in r['losses']]}, peak memory allocated "
             f"{r['peak']:.2f} GB; on {card}")
     log(f"[grid] train bf16: after {GRID_TRAIN_STEPS} steps the grid's "
@@ -2434,6 +2460,8 @@ def grid_train(device, card: str) -> dict:
                              f"{grid['peak']:.2f} GB is over "
                              f"{GRID_PEAK_RATIO} x one device's "
                              f"{one['peak']:.2f} GB or {TRAIN_PEAK_GB} GB")
+    summary = {k: {f: r[f] for f in ("s_step", "update_s", "peak")}
+               for k, r in runs.items()}
     del runs, one, grid
     torch.cuda.empty_cache()
 
@@ -2459,7 +2487,88 @@ def grid_train(device, card: str) -> dict:
                              f"loss {lerr:.3g}, gradients {gerr:.3g}")
     del m32, p32, got, g1, g2
     torch.cuda.empty_cache()
-    return dict(pdiff=pdiff, gerr=gerr, lerr=lerr)
+    upd = grid_update_f32(c32, env, device, card)
+    return dict(pdiff=pdiff, gerr=gerr, lerr=lerr, update_f32=upd,
+                runs=summary)
+
+
+def grid_update_f32(c32, env, device, card: str) -> dict:
+    """Phase 13 (f)'s hard check of the update on pieces, float32 at
+    ``GRID_CHECK_LAYERS`` layers of qwen3-1.7b's widths: ``GRID_TRAIN_STEPS``
+    steps of AdamW and of Adafactor (lr 1e-3, warmup 2) from the same
+    masters, each step's gradient taken on one device (B=2,
+    S=``GRID_CHECK_S``) and given to both the one-device update on whole
+    leaves and the grid's update on the (2, 2) grid's pieces
+    (``build_optimizer(..., env=)``): the joined masters and optimizer
+    state within ``GRID_TOL`` of one device's, each leaf against its
+    largest, and the gradient norms too.  (The same gradients keep the
+    grid's reordered forward out of it: that is the gradient check's.)"""
+    import torch
+
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train import OptimizerConfig, build_optimizer
+    from repro_torch.train.optim import leaves, tree_map, unflatten
+    from repro_torch.train.trainer import join_tree, shard_tree
+
+    m32 = build_model(c32)
+    full = make_batch(c32, 2, GRID_CHECK_S, 0, 0, device=device)
+    out = {}
+    for name in ("adamw", "adafactor"):
+        opt = OptimizerConfig(name=name, lr=1e-3, warmup_steps=2)
+        init = build_optimizer(opt)[0]
+        p1 = m32.init(torch.Generator(device=device).manual_seed(0))
+        s1 = init(p1)
+        p2 = shard_tree(tree_map(torch.clone, p1), env)
+        s2 = shard_tree(init(p1), env)
+        stacks = m32.jax_stacks(p1)
+        one = build_optimizer(opt, stacks)[1]
+        grid = build_optimizer(opt, stacks, env=env)[1]
+        secs = {"one": 0.0, "grid": 0.0}
+        gns = []
+        for i in range(GRID_TRAIN_STEPS):
+            ps = [t.clone().requires_grad_() for t in leaves(p1)]
+            loss, _ = m32.loss(unflatten(p1, ps), full)
+            g = unflatten(p1, list(torch.autograd.grad(loss, ps)))
+            del loss, ps
+            gp = shard_tree(tree_map(torch.clone, g), env)
+            step = torch.tensor(i, dtype=torch.int32, device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p1, s1, gn1 = one(g, s1, p1, step)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p2, s2, gn2 = grid(gp, s2, p2, step)
+            torch.cuda.synchronize()
+            secs["one"] += t1 - t0
+            secs["grid"] += time.perf_counter() - t1
+            gns.append((float(gn1), float(gn2)))
+            del g, gp
+        got = leaves(join_tree(p2, env)) + leaves(join_tree(s2, env))
+        want = leaves(p1) + leaves(s1)
+        if len(got) != len(want) or any(a.shape != b.shape
+                                         for a, b in zip(want, got)):
+            raise AssertionError(f"[grid] {name}: the joined state's leaves "
+                                 f"differ from one device's")
+        err = max(rel_diff(b, a) for a, b in zip(want, got))
+        gerr = max(abs(b - a) / a for a, b in gns)
+        log(f"[grid] update on pieces, float32, {c32.n_layers} layers, "
+            f"{name}, {GRID_TRAIN_STEPS} steps on the same gradients: "
+            f"masters and state within {err:.3g} of one device's, each leaf "
+            f"of its largest; grad_norm within {gerr:.3g} (tol {GRID_TOL}); "
+            f"the update {secs['one'] / GRID_TRAIN_STEPS:.4f} s on one "
+            f"device, {secs['grid'] / GRID_TRAIN_STEPS:.4f} s on the "
+            f"(2, 2) grid's pieces; on {card}")
+        if not (err <= GRID_TOL and gerr <= GRID_TOL):
+            raise AssertionError(f"[grid] the {name} update on pieces "
+                                 f"differs: state {err:.3g}, grad_norm "
+                                 f"{gerr:.3g} (tol {GRID_TOL})")
+        out[name] = dict(err=err, gerr=gerr,
+                         one_s=secs["one"] / GRID_TRAIN_STEPS,
+                         grid_s=secs["grid"] / GRID_TRAIN_STEPS)
+        del p1, s1, p2, s2, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2718,6 +2827,42 @@ DRY_PEAK_TOL = 0.10        # predicted peak against phase 12's, relative
 DRY_OUT = ROOT / "experiments" / "dryrun_torch"
 
 
+def node_train_bytes(cfg) -> dict:
+    """Phase 15 (d): phase 13 (f)'s training step (``cfg`` at
+    ``GRID_TRAIN_LAYERS`` layers, ``TRAIN_B`` x ``TRAIN_S`` tokens) dry-run
+    on the "node" grid: each card's argument, output and peak bytes
+    printed; fails unless card 0's output bytes are each other card's plus
+    the step counter's and the 4 metrics' 20."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_env
+
+    gcfg = dataclasses.replace(cfg, n_layers=GRID_TRAIN_LAYERS)
+    rec = dryrun.run_cell(gcfg, ShapeConfig("grid_train", TRAIN_S, TRAIN_B,
+                                            "train"), make_env("node"),
+                          "node")
+    by = rec["bytes_per_device"]
+    arg, res, peak = (by["argument_by_device"], by["output_by_device"],
+                      by["peak_by_device"])
+
+    def gb(xs):
+        return [round(x / 1e9, 4) for x in xs]
+
+    log(f"[dryrun] (d) {cfg.name} at {gcfg.n_layers} layers, train B="
+        f"{TRAIN_B} S={TRAIN_S}, {rec['optimizer']}, on 'node' (dry run "
+        f"{rec['trace_s']:.1f} s): card 0 against cards 1-7, GB: argument "
+        f"{gb(arg[:1])} / {gb(arg[1:])}; output {gb(res[:1])} / "
+        f"{gb(res[1:])} (card 0 {res[0] - max(res[1:])} bytes more); peak "
+        f"{gb(peak[:1])} / {gb(peak[1:])} ({peak[0] / max(peak[1:]):.4f} x "
+        f"the busiest other)")
+    if not all(res[0] == r + 20 for r in res[1:]):
+        raise AssertionError(
+            f"[dryrun] grid training on the node: card 0's output bytes "
+            f"{res[0]} are not each other card's {res[1:]} plus the step and "
+            f"4 metrics (20)")
+    return dict(argument=arg, output=res, peak=peak, trace_s=rec["trace_s"])
+
+
 def dryrun_phase(device, card: str, train_out: dict) -> dict:
     """Phase 15: ``launch/dryrun.py``'s predictions for qwen3-1.7b at full
     width, each held against the same step run on the card under the same
@@ -2900,6 +3045,9 @@ def dryrun_phase(device, card: str, train_out: dict) -> dict:
           f"decode_32k on the node: collectives {coll}")
     out["node_decode"] = dict(peak_gb=rec["bytes_per_device"]["peak"] / 1e9,
                               collective_counts=coll, fits=rec["fits"])
+
+    # -- (d) phase 13 (f)'s training step on the node ------------------------
+    out["node_train"] = node_train_bytes(cfg)
     out["launches"] = read_counts(report_counters())
     log(f"[dryrun] phase 15 ran {time.perf_counter() - t_phase:.1f} s, the "
         f"script {time.perf_counter() - T_START:.0f} s so far")

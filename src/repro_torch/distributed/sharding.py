@@ -42,7 +42,12 @@ pieces and join them back (the port's ``param_shardings`` and
 ``shardings_of`` give :class:`NamedSharding`s that do both);
 :func:`gather_for_compute` all-gathers one layer's weights once per
 distinct device; :func:`constrain` lays an activation out by JAX's
-logical names.
+logical names.  For an update on the pieces (``train/optim.py``):
+:func:`relayout` lays a cut tensor out by another spec without joining
+it, :func:`sum_replicas` adds a part's copies on distinct devices (a
+replicated weight's gradients), :func:`zeros` makes a cut tensor piece by
+piece, and :func:`own_pieces` copies the pieces that are views, so no
+whole tensor stays alive behind them.
 """
 from __future__ import annotations
 
@@ -412,6 +417,133 @@ def unshard(cells: Cells, spec=None, env: MeshEnv = None,
 def replicate(t: torch.Tensor, env: MeshEnv) -> Cells:
     """``t`` whole on every cell (one tensor per distinct device)."""
     return shard(t, (), env)
+
+
+def whole_shape(cells: Sharded, env: MeshEnv) -> Tuple[int, ...]:
+    """The shape of the tensor a ``Sharded``'s pieces cut."""
+    spec = _full_spec(cells.spec, cells[0].dim())
+    return tuple(n * env.size(_axes(e)) for n, e in zip(cells[0].shape,
+                                                          spec))
+
+
+def distinct_pieces(cells: Sharded, env: MeshEnv) -> List[torch.Tensor]:
+    """One tensor per part of a ``Sharded`` (the first cell's that holds
+    it), in the order of the parts' indices: a replicated part counts
+    once, not once per cell or device."""
+    spec = _full_spec(cells.spec, cells[0].dim())
+    first: Dict[Tuple[int, ...], torch.Tensor] = {}
+    for c in range(env.n_cells):
+        first.setdefault(_piece_index(env, c, spec), cells[c])
+    return [first[k] for k in sorted(first)]
+
+
+def own_pieces(cells: Sharded) -> Sharded:
+    """``cells`` with each piece that is a view of a larger tensor copied
+    (once per distinct piece), so the larger tensor can be freed."""
+    made: Dict[int, torch.Tensor] = {}
+    for t in cells:
+        if id(t) not in made:
+            view = t.untyped_storage().nbytes() > t.numel() * t.element_size()
+            made[id(t)] = t.clone() if view else t
+    return Sharded([made[id(t)] for t in cells], cells.spec)
+
+
+def zeros(shape: Sequence[int], spec, env: MeshEnv,
+          dtype: torch.dtype = torch.float32) -> Sharded:
+    """Zeros of ``shape`` laid out by ``spec``, made piece by piece on
+    each cell's device (no whole tensor anywhere)."""
+    spec = _full_spec(spec, len(shape))
+    piece = []
+    for dim, (n, e) in enumerate(zip(shape, spec)):
+        if n % env.size(_axes(e)):
+            raise ValueError(f"dim {dim} of {tuple(shape)} is not "
+                             f"divisible by {_axes(e)} of the mesh")
+        piece.append(n // env.size(_axes(e)))
+    made: Dict[Tuple, torch.Tensor] = {}
+    out = []
+    for c, dev in enumerate(env.cells):
+        key = (_piece_index(env, c, spec), dev)
+        if key not in made:
+            made[key] = torch.zeros(piece, dtype=dtype, device=dev)
+        out.append(made[key])
+    return Sharded(out, P(*spec))
+
+
+def relayout(cells: Sharded, spec, env: MeshEnv) -> Sharded:
+    """The tensor of ``cells`` laid out by ``spec`` instead of its own
+    spec: each cell's new piece joined from the parts of the old pieces
+    that overlap it (an old piece on the cell's own device where there is
+    one), once per distinct (part, device).  No whole tensor is built
+    unless ``spec`` replicates it.  A new piece that one old piece covers
+    is a view of it."""
+    ndim = cells[0].dim()
+    src, dst = _full_spec(cells.spec, ndim), _full_spec(spec, ndim)
+    if src == dst:
+        return cells
+    shape = whole_shape(cells, env)
+    n_src = [env.size(_axes(e)) for e in src]
+    n_dst = [env.size(_axes(e)) for e in dst]
+    held: Dict[Tuple[int, ...], Dict[torch.device, torch.Tensor]] = {}
+    for c, t in enumerate(cells):
+        held.setdefault(_piece_index(env, c, src), {}).setdefault(t.device,
+                                                                  t)
+    made: Dict[Tuple, torch.Tensor] = {}
+    out = []
+    for c, dev in enumerate(env.cells):
+        idx = _piece_index(env, c, dst)
+        if (idx, dev) not in made:
+            # per dim: (old part, start in it, length) of each overlap
+            spans = []
+            for dim in range(ndim):
+                bs, bd = shape[dim] // n_src[dim], shape[dim] // n_dst[dim]
+                lo, hi = idx[dim] * bd, (idx[dim] + 1) * bd
+                spans.append([(j, max(lo, j * bs) - j * bs,
+                               min(hi, (j + 1) * bs) - max(lo, j * bs))
+                              for j in range(lo // bs, (hi - 1) // bs + 1)])
+
+            def build(dim: int, picked: List[Tuple[int, int, int]]):
+                if dim == ndim:
+                    have = held[tuple(j for j, _, _ in picked)]
+                    t = have.get(dev, next(iter(have.values())))
+                    for d, (_, start, n) in enumerate(picked):
+                        if n != t.shape[d]:
+                            t = t.narrow(d, start, n)
+                    return t.to(dev)
+                parts = [build(dim + 1, picked + [s]) for s in spans[dim]]
+                return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+            made[(idx, dev)] = build(0, [])
+        out.append(made[(idx, dev)])
+    return Sharded(out, P(*dst))
+
+
+def sum_replicas(cells: Sharded, env: MeshEnv) -> Sharded:
+    """Where cells on distinct devices hold one part of a ``Sharded`` in
+    tensors of their own (a replicated weight's gradients, one per device
+    that used it), those tensors added in cell order on the first one's
+    device and the sum sent to each: JAX's sum over the replicas.  A grid
+    that repeats one device holds each part in one tensor and gets
+    ``cells`` back as they are."""
+    spec = _full_spec(cells.spec, cells[0].dim())
+    holders: Dict[Tuple[int, ...], List[int]] = {}
+    for c in range(env.n_cells):
+        holders.setdefault(_piece_index(env, c, spec), []).append(c)
+    out = list(cells)
+    for group in holders.values():
+        uniq = list({id(cells[c]): cells[c] for c in group}.values())
+        if len(uniq) == 1:
+            continue
+        report_collective("all-reduce", len(uniq), uniq)
+        total = uniq[0]
+        for t in uniq[1:]:
+            total = total + t.to(total.device)
+        sent: Dict[torch.device, torch.Tensor] = {}
+        for c in group:
+            dev = cells[c].device
+            if dev not in sent:
+                sent[dev] = total.to(dev)
+            out[c] = sent[dev]
+    return Sharded(out, cells.spec)
 
 
 def cellwise(fn: Callable, *cell_lists: Cells) -> Cells:

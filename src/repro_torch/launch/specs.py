@@ -24,8 +24,9 @@ serving steps take the weights already in the compute dtype
 (``Model.init(gen, cast=True)``, what the port's serving path holds on
 the card), where JAX's take the float32 masters and cast them inside the
 step; and each step joins its batch (tokens, the VLM's patch embeddings,
-the encoder's frames, a decode step's token) whole on the first cell
-before it calls the model, whose single-controller embedding runs there.
+the encoder's frames, a decode step's token) whole on the host before it
+calls the model, which takes whole inputs and cuts each cell's piece from
+them (as a data loader's batch on the host would be cut).
 """
 from __future__ import annotations
 
@@ -100,9 +101,10 @@ def shard_batch(batch: Dict[str, torch.Tensor], env: MeshEnv,
 
 
 def join_batch(batch: Dict[str, Any], env: MeshEnv) -> Dict[str, Any]:
-    """The inverse of :func:`shard_batch`: each input whole on the first
-    cell, where the model's embedding runs."""
-    return {k: sh.unshard(v, None, env) for k, v in batch.items()}
+    """The inverse of :func:`shard_batch`: each input whole on the host,
+    from which the model cuts each cell's piece."""
+    return {k: sh.unshard(v, None, env, device="cpu")
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -896,7 +896,7 @@ class Model:
         piece a tensor of its own: a piece that stayed a view would keep
         the whole cache alive on the first cell's device."""
         specs = sh.cache_specs(caches, env, batch)
-        return [{k: _own_pieces(sh.shard(t, specs[i][k], env))
+        return [{k: sh.own_pieces(sh.shard(t, specs[i][k], env))
                  for k, t in c.items()} for i, c in enumerate(caches)]
 
     @staticmethod
@@ -934,18 +934,34 @@ class Model:
     def _grid_embed(self, params: Params, tokens: torch.Tensor,
                     batch: Dict[str, torch.Tensor], env: MeshEnv,
                     seq: bool) -> sh.Cells:
-        """The embedding on the first cell (the VLM's patch embeddings
-        spliced over the first positions), laid out (dp, sp, None) — or
-        (dp, None, None) for a decode step's token.  ``params`` as
-        ``_grid_tables`` gives them."""
+        """The embedding laid out (dp, sp, None) — or (dp, None, None) for
+        a decode step's token — each cell embedding its own tokens, cut
+        from wherever the caller holds them (no whole (B, S, d) on the
+        first cell), the VLM's patch embeddings spliced over the first
+        positions.  ``params`` as ``_grid_tables`` gives them."""
         cfg = self.cfg
-        p = dict(params)
-        p["embed"] = params["embed"][0]
-        x = self._embed(p, tokens.to(env.first))
+        spec = sh.logical_spec((*tokens.shape, cfg.d_model),
+                               ("dp", "sp" if seq else None, None), env)
+        toks = sh.shard(tokens, spec[:2], env)
+        xs = sh.cellwise(lambda w, t: self._embed({"embed": w}, t),
+                         params["embed"], toks)
         if cfg.family == "vlm" and "patch_embeds" in batch:
-            pe = batch["patch_embeds"].to(env.first, x.dtype)
-            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
-        return sh.constrain(x, "dp", "sp" if seq else None, None, env=env)
+            n, s_loc = batch["patch_embeds"].shape[1], xs[0].shape[1]
+            pes = sh.shard(batch["patch_embeds"], P(spec[0], None, None),
+                           env)
+
+            def splice(x, pe, m):
+                lo = m * s_loc
+                k = min(max(n - lo, 0), s_loc)
+                if k == 0:
+                    return x
+                return torch.cat([pe[:, lo:lo + k].to(x.dtype), x[:, k:]],
+                                 dim=1)
+
+            xs = sh.cellwise(splice, xs, pes,
+                             [env.axis_index(c, spec[1])
+                              for c in range(env.n_cells)])
+        return sh.Sharded(xs, spec)
 
     def _positions(self, xs: sh.Cells, env: MeshEnv) -> sh.Cells:
         """Each cell's global positions m·S_loc + arange(S_loc)."""
@@ -1077,15 +1093,21 @@ class Model:
                     enumerate(("c", "n", "h", "m"))}
 
     def _grid_encoder(self, params: Params, frames: torch.Tensor,
-                      env: MeshEnv, remat: bool) -> sh.Cells:
-        """Whisper's encoder on the grid: the frames (with their sinusoidal
-        positions) laid out (dp, sp, None), bidirectional ring attention
-        layers, ``enc_norm``."""
+                      env: MeshEnv, remat: bool, dtype: torch.dtype
+                      ) -> sh.Cells:
+        """Whisper's encoder on the grid: the frames (cut from wherever the
+        caller holds them, each piece cast to ``dtype`` and given its
+        sinusoidal positions) laid out (dp, sp, None), bidirectional ring
+        attention layers, ``enc_norm``."""
         cfg = self.cfg
-        x = frames.to(env.first)
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                     x.device).to(x.dtype)
-        xs = sh.constrain(x, "dp", "sp", None, env=env)
+        f = frames.shape[1]
+        spec = sh.logical_spec(frames.shape, ("dp", "sp", None), env)
+        fs = sh.shard(frames, spec, env)
+        s_loc = fs[0].shape[1]
+        xs = sh.cellwise(
+            lambda x, m: x.to(dtype) + sinusoidal_positions(
+                f, cfg.d_model, x.device)[m * s_loc:(m + 1) * s_loc].to(dtype),
+            fs, [env.axis_index(c, spec[1]) for c in range(env.n_cells)])
 
         def layer(xs, p):
             lp, trees = self._grid_layer(p, env)
@@ -1216,8 +1238,8 @@ class Model:
         xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
         enc = None
         if cfg.is_encoder_decoder:
-            enc = self._grid_encoder(params, batch["frames"].to(
-                env.first, xs[0].dtype), env, remat=False)
+            enc = self._grid_encoder(params, batch["frames"], env,
+                                     remat=False, dtype=xs[0].dtype)
         b = batch["tokens"].shape[0]
         xs, _, cells = self._grid_stack(params, xs, env, cache_len,
                                         train=False, remat=False, batch=b,
@@ -1241,18 +1263,19 @@ class Model:
         xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
         enc = None
         if cfg.is_encoder_decoder:
-            enc = self._grid_encoder(params, batch["frames"].to(
-                env.first, xs[0].dtype), env, remat=True)
+            enc = self._grid_encoder(params, batch["frames"], env,
+                                     remat=True, dtype=xs[0].dtype)
         xs, aux, _ = self._grid_stack(params, xs, env, None, train=True,
                                       remat=remat,
                                       batch=batch["tokens"].shape[0],
                                       enc=enc)
         if aux is None or cfg.is_encoder_decoder:
             aux = torch.zeros((), dtype=torch.float32, device=env.first)
-        labels = batch["labels"].to(env.first)
+        labels = batch["labels"]     # cut from where the caller holds it
         ls = sh.constrain(labels, "dp", "sp", env=env)
         nll = self._grid_nll(params, xs, ls, env)
-        loss = nll / torch.clamp((labels >= 0).sum().float(), min=1.0)
+        loss = nll / torch.clamp((labels >= 0).sum().float().to(env.first),
+                                 min=1.0)
         return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
     def _grid_nll(self, params: Params, xs: sh.Cells, ls: sh.Cells,
@@ -1393,17 +1416,6 @@ class Model:
             c[name] = sh.Sharded(whole, kspec)
         c["kpos"] = sh.Sharded([t[3] for t in out], c["kpos"].spec)
         return o
-
-
-def _own_pieces(cells: sh.Sharded) -> sh.Sharded:
-    """``cells`` with each piece that is a view of a larger tensor copied
-    (once per distinct piece), so the larger tensor can be freed."""
-    made: Dict[int, torch.Tensor] = {}
-    for t in cells:
-        if id(t) not in made:
-            view = t.untyped_storage().nbytes() > t.numel() * t.element_size()
-            made[id(t)] = t.clone() if view else t
-    return sh.Sharded([made[id(t)] for t in cells], cells.spec)
 
 
 def _vocab_nll_chunk_sum(step: int, hs: List[torch.Tensor],

@@ -19,17 +19,18 @@ the CPU form as nondeterministic).
 
 On a grid (``env``; JAX's ``trainer.py:64-75``): the float32 masters and
 the optimizer state rest as ``Sharded`` pieces by ``infer_param_specs``
-(the train profile's 2-D FSDP over ("data", "model")), the step casts
-the pieces and takes the gradients with respect to them, so they come
-back in the masters' layout: where several devices use a leaf, its
-pieces' gradients are added in device order (``gather_for_compute``), so
-the data-parallel sum has a fixed order.  The optimizer's rules read
-whole leaves (the global norm, JAX's stacks, Adafactor's factored
-moments), so the update joins each leaf whole on the first cell, runs
-the one-device update and cuts the results again; on a grid that repeats
-one device the joins and cuts of the masters and the state are views,
-no copies.  A checkpoint holds whole tensors, the same files as on one
-device.
+(the train profile's 2-D FSDP over ("data", "model")), each piece a
+tensor of its own.  The step casts the pieces and takes the gradients
+with respect to them, so they come back in the masters' layout: where
+several devices use a leaf, its pieces' gradients are added in device
+order (``gather_for_compute``), and a replicated leaf's copies on
+distinct devices are added in cell order (``sharding.sum_replicas``), so
+the data-parallel sum has a fixed order.  The update then runs on the
+pieces (``build_optimizer(..., env=)``): each card updates only the
+pieces it holds, as XLA does with JAX's gradients pinned to the masters'
+sharding, and no card builds a whole master, moment or gradient.  A
+checkpoint holds whole tensors, the same files as on one device, joined
+leaf by leaf on the host.
 """
 from __future__ import annotations
 
@@ -57,22 +58,42 @@ class TrainState:
     data_cursor: int = 0         # host-side; checkpointed
 
 
-def shard_tree(tree: Any, env: MeshEnv) -> Any:
+def shard_tree(tree: Any, env: MeshEnv, like: Any = None) -> Any:
     """Every tensor of ``tree`` cut into ``Sharded`` pieces by
     ``infer_param_specs`` (the optimizer state takes its parameters'
-    rules: ``"m/layers/3/attn/wq"`` reads as its parameter)."""
-    return sh.device_put(tree, sh.param_shardings(tree, env))
+    rules: ``"m/layers/3/attn/wq"`` reads as its parameter), each piece a
+    tensor of its own.  Each leaf is replaced in its dict or list by its
+    pieces as it is cut, so no whole leaf outlives its cut once the caller
+    holds no other reference to it.  ``like``: a tree of the same leaves'
+    shapes whose containers ``tree`` takes (a checkpoint gives lists where
+    the Adafactor state has tuples)."""
+    if like is not None:
+        tree = unflatten(like, leaves(tree))
+    specs = sh.infer_param_specs(tree, env)
+
+    def go(node, spec):
+        if isinstance(node, (dict, list)):
+            for k in (sorted(node) if isinstance(node, dict)
+                      else range(len(node))):
+                node[k] = go(node[k], spec[k])
+            return node
+        if isinstance(node, tuple):
+            return tuple(go(v, sp) for v, sp in zip(node, spec))
+        return sh.own_pieces(sh.shard(node, spec, env))
+
+    return go(tree, specs)
 
 
-def join_tree(tree: Any, env: MeshEnv) -> Any:
+def join_tree(tree: Any, env: MeshEnv, device=None) -> Any:
     """The inverse of :func:`shard_tree`: every ``Sharded`` leaf whole on
-    the first cell's device."""
+    ``device`` (the first cell's by default), joined one leaf at a
+    time."""
     if isinstance(tree, sh.Sharded):
-        return sh.unshard(tree, None, env)
+        return sh.unshard(tree, None, env, device)
     if isinstance(tree, dict):
-        return {k: join_tree(v, env) for k, v in tree.items()}
+        return {k: join_tree(v, env, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(join_tree(v, env) for v in tree)
+        return type(tree)(join_tree(v, env, device) for v in tree)
     return tree
 
 
@@ -112,8 +133,9 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
     rule of JAX's ``cast_params``), cast to float32 and applied to the
     masters by the optimizer, built with ``model.jax_stacks`` for its
     rules that read JAX's stacked layout.  With ``env``: params and
-    opt_state are trees of ``Sharded`` pieces (:func:`shard_tree`), and
-    the step returns them so."""
+    opt_state are trees of ``Sharded`` pieces (:func:`shard_tree`), the
+    update runs on the pieces, and the step returns new pieces on the
+    same cells under the same specs."""
 
     def grid_step(params, opt_state, step, batch):
         with torch.no_grad():
@@ -128,16 +150,13 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
                  for t, g in zip(flat, got)}
         grads = _map_pieces(lambda t: by_id[id(t)], p_compute)
         del loss, metrics, p_compute, flat, got, by_id
-        # on one device a leaf's gradient pieces are views of its gathered
-        # weight's gradient, so the join is that tensor itself, no copy
-        grads = join_tree(grads, env)
-        grads = unflatten(grads, [g.float() for g in leaves(grads)])
-        whole = join_tree(params, env)
-        update = build_optimizer(opt_cfg, model.jax_stacks(whole))[1]
-        new_params, new_opt, out["grad_norm"] = update(
-            grads, join_tree(opt_state, env), whole, step)
-        return (shard_tree(new_params, env), shard_tree(new_opt, env),
-                step + 1, out)
+        grads = _map_pieces(lambda g: g.float(), tree_map(
+            lambda g: sh.sum_replicas(g, env), grads))
+        update = build_optimizer(opt_cfg, model.jax_stacks(params),
+                                 env=env)[1]
+        new_params, new_opt, out["grad_norm"] = update(grads, opt_state,
+                                                       params, step)
+        return new_params, new_opt, step + 1, out
 
     if env is not None:
         return grid_step
@@ -188,34 +207,57 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Float32 masters drawn by ``Model.init`` from a generator on the
         device seeded with ``seed``; ``rng`` is that generator's state
-        after seeding (JAX keeps its ``PRNGKey(seed)``)."""
+        after seeding (JAX keeps its ``PRNGKey(seed)``).  On a grid the
+        masters are drawn whole on the first cell, as JAX draws them, and
+        cut leaf by leaf; the optimizer state is made on the pieces."""
         gen = torch.Generator(device=self.device).manual_seed(self._seed)
         rng = gen.get_state()
         params = self.model.init(gen)
-        return TrainState(params=self._shard(params),
-                          opt_state=self._shard(self._opt_init(params)),
+        if self.env is None:
+            opt_state = self._opt_init(params)
+        else:
+            params = shard_tree(params, self.env)
+            opt_state = self._state_on_pieces(params)
+        return TrainState(params=params, opt_state=opt_state,
                           step=torch.zeros((), dtype=torch.int32,
                                            device=self.device),
                           rng=rng, data_cursor=0)
 
-    def _shard(self, tree):
-        return tree if self.env is None else shard_tree(tree, self.env)
+    def _state_like(self, params: Any) -> Any:
+        """The optimizer state of ``params``' whole shapes, on the ``meta``
+        device (shapes only)."""
+        def meta(t):
+            if isinstance(t, sh.Sharded):
+                return torch.empty(sh.whole_shape(t, self.env),
+                                   dtype=t[0].dtype, device="meta")
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return self._opt_init(tree_map(meta, params))
 
-    def _join(self, tree):
-        return tree if self.env is None else join_tree(tree, self.env)
+    def _state_on_pieces(self, params: Any) -> Any:
+        """The optimizer's initial state as ``Sharded`` zeros by
+        ``infer_param_specs``, made on each cell (no whole leaf)."""
+        like = self._state_like(params)
+        shs = leaves(sh.param_shardings(like, self.env))
+        return unflatten(like, [sh.zeros(t.shape, s.spec, self.env, t.dtype)
+                                for t, s in zip(leaves(like), shs)])
 
     def restore_or_init(self) -> TrainState:
         if self.ckpt is not None:
             loaded = self.ckpt.restore_latest()
             if loaded is not None:
                 tree, meta = loaded
-
-                def dev(t):
-                    return t.to(self.device)
-
+                if self.env is None:
+                    params = tree_map(lambda t: t.to(self.device),
+                                      tree["params"])
+                    opt_state = tree_map(lambda t: t.to(self.device),
+                                         tree["opt_state"])
+                else:   # each host leaf cut straight to its cells
+                    like = self._state_like(tree["params"])
+                    params = shard_tree(tree.pop("params"), self.env)
+                    opt_state = shard_tree(tree.pop("opt_state"),
+                                           self.env, like=like)
                 return TrainState(
-                    params=self._shard(tree_map(dev, tree["params"])),
-                    opt_state=self._shard(tree_map(dev, tree["opt_state"])),
+                    params=params, opt_state=opt_state,
                     step=torch.tensor(meta["step"], dtype=torch.int32,
                                       device=self.device),
                     rng=tree["rng"], data_cursor=int(meta["data_cursor"]))
@@ -225,11 +267,13 @@ class Trainer:
         if self.ckpt is None:
             return
         step = int(state.step)
-        self.ckpt.save(
-            {"params": self._join(state.params),
-             "opt_state": self._join(state.opt_state), "rng": state.rng},
-            meta={"step": step, "data_cursor": int(state.data_cursor)},
-            step=step)
+        tree = {"params": state.params, "opt_state": state.opt_state}
+        if self.env is not None:    # each leaf joined on the host in turn
+            tree = join_tree(tree, self.env, device="cpu")
+        self.ckpt.save({**tree, "rng": state.rng},
+                       meta={"step": step,
+                             "data_cursor": int(state.data_cursor)},
+                       step=step)
 
     def fit(self, state: TrainState, batches: Iterator[Dict[str, Any]],
             n_steps: int, log_every: int = 10,

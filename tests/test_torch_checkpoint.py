@@ -3,7 +3,8 @@ across the two packages.
 
 Mirrors ``tests/test_checkpoint.py`` (round trip, keep-N pruning,
 corruption detected, a trainer restarted from its checkpoint continuing
-bit for bit), then crosses the packages: a checkpoint JAX's ``Trainer``
+bit for bit, on one device and on a (2, 2) grid), then crosses the
+packages: a checkpoint JAX's ``Trainer``
 wrote (reduced smollm-360m) resumes in the port through
 ``params_from_jax`` and ``opt_state_from_jax``, and the next step's loss
 and parameters match JAX's next step at 1e-4 (the JAX tests' float32
@@ -29,11 +30,13 @@ from repro.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.lm import batch_stream  # noqa: E402
 from repro_torch.distributed.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.distributed.sharding import MeshEnv  # noqa: E402
 from repro_torch.models.convert import (opt_state_from_jax,  # noqa: E402
                                         params_from_jax)
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train import OptimizerConfig, Trainer, make_train_step  # noqa: E402
 from repro_torch.train.optim import leaves  # noqa: E402
+from repro_torch.train.trainer import join_tree  # noqa: E402
 
 TOL = 1e-4
 
@@ -112,6 +115,47 @@ def test_trainer_restart_bit_identical(tmp_path, name):
                 log_every=0)
     for a, b in zip(leaves(s.params) + leaves(s.opt_state),
                     leaves(s2.params) + leaves(s2.opt_state)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_grid_trainer_restarts_bit_identical(tmp_path, name):
+    """The same restart on a (2, 2) grid: the checkpoint holds whole
+    leaves (joined on the host, the same files as on one device), the
+    restore cuts them back into pieces of their own (Adafactor's lists
+    back into tuples), and 4 + 2 steps give the 6 steps' bits."""
+    cfg = get_arch("smollm-360m").reduced()
+    model = build_model(cfg)
+    env = MeshEnv([["cpu"] * 2] * 2)
+    opt = OptimizerConfig(name=name, lr=1e-3, warmup_steps=2,
+                          factored_min_dim=16)
+    t0 = Trainer(model, opt, remat=False, env=env)
+    s = t0.fit(t0.init_state(), batch_stream(cfg, 2, 16, seed=0), 6,
+               log_every=0)
+    t1 = Trainer(model, opt, ckpt_dir=str(tmp_path), save_every=4,
+                 remat=False, env=env)
+    s1 = t1.fit(t1.init_state(), batch_stream(cfg, 2, 16, seed=0), 4,
+                log_every=0)
+    saved = CheckpointManager(str(tmp_path)).restore(4)[0]
+    assert [tuple(t.shape) for t in leaves(saved["params"])] == [
+        tuple(t.shape) for t in leaves(model.init(
+            torch.Generator().manual_seed(0)))]
+    t2 = Trainer(model, opt, ckpt_dir=str(tmp_path), save_every=100,
+                 remat=False, env=env)
+    s2 = t2.restore_or_init()
+    assert int(s2.step) == 4 and s2.data_cursor == 4
+    wq = s2.params["layers"][0]["attn"]["wq"]
+    assert wq.spec == s1.params["layers"][0]["attn"]["wq"].spec
+    assert wq[0].untyped_storage().nbytes() == wq[0].numel() * 4
+    s2 = t2.fit(s2, batch_stream(cfg, 2, 16, seed=0,
+                                 start_cursor=s2.data_cursor), 2,
+                log_every=0)
+    want = leaves(join_tree(s.params, env)) + leaves(
+        join_tree(s.opt_state, env))
+    got = leaves(join_tree(s2.params, env)) + leaves(
+        join_tree(s2.opt_state, env))
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
 
 

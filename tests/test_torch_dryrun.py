@@ -26,11 +26,13 @@ Bytes, exactly, with every difference named:
   * output — XLA's ``output_size`` adds an 8-byte pointer per output leaf
     (the output tuple's table).  The port joins the logits whole on the
     first cell (JAX leaves them (dp, None, tp)-sharded): its last card
-    holds no logits, its first all of them.  In training the first cell
-    also holds the step counter and the 4 metrics, and its pieces of the
-    updated masters and optimizer state are views of the whole leaves the
-    one-device update made there (``train/trainer.py``: the update joins
-    each leaf whole on the first cell), so that card holds them whole.
+    holds no logits, its first all of them.  In training the update runs
+    on the pieces (``train/trainer.py``), so every card holds only its
+    pieces of the updated masters and optimizer state, as JAX's do; the
+    first cell also holds the step counter and the 4 metrics (20 bytes),
+    which JAX replicates: card 0 holds JAX's bytes, the others 20 fewer.
+    Card 0's peak lies within 10% of the busiest other card's.  The
+    record's ``argument`` is the busiest card's, which need not be card 0.
 
 FLOPs, within per-mode bounds (both count dots only):
 
@@ -220,15 +222,6 @@ def _logits_bytes(arch: str, mode: str):
     return whole, whole // 8
 
 
-def _state_bytes(arch: str) -> int:
-    """Whole float32 masters and AdamW's (m, v): 3 x 4 bytes a
-    parameter."""
-    with FakeTensorMode():
-        n = Model.param_count(specs.init_params(build_model(
-            ARCHS[arch].reduced())))
-    return 12 * n
-
-
 @pytest.mark.parametrize("arch, mode", CELLS)
 def test_argument_bytes_match_jax(runs, arch, mode):
     _check_ran(runs, "jax", "port0", "port1")
@@ -239,8 +232,11 @@ def test_argument_bytes_match_jax(runs, arch, mode):
     assert j["argument"] == j["argument_leaves"] - j["dropped"]
     assert by[0] == j["argument_leaves"]
     assert by[-1] + scalar == j["argument_leaves"]
-    assert runs["port"][f"{arch}/{mode}"]["bytes_per_device"][
-        "argument"] == max(by) == by[0]
+    # the record's own figure is the busiest card's (the highest peak)
+    rec = runs["port"][f"{arch}/{mode}"]["bytes_per_device"]
+    peak = rec["peak_by_device"]
+    assert max(by) == by[0]
+    assert rec["argument"] == by[peak.index(max(peak))]
 
 
 @pytest.mark.parametrize("arch, mode", CELLS)
@@ -253,11 +249,21 @@ def test_output_bytes_match_jax(runs, arch, mode):
     if mode == "train":
         first_only = 4 + 4 * 4                   # step, 4 metrics
         assert by[-1] + first_only == j["output_leaves"]
-        assert by[0] == _state_bytes(arch) + first_only
+        assert by[0] == by[-1] + first_only
     else:
         whole, piece = _logits_bytes(arch, mode)
         assert by[-1] + piece == j["output_leaves"]
         assert by[0] - whole + piece == j["output_leaves"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_first_card_peak_stays_near_the_others_in_training(runs, arch):
+    """The first cell builds no whole leaf, activation or batch input: its
+    peak lies within 10% of the busiest other card's."""
+    _check_ran(runs, "port0", "port1")
+    peak = runs["port"][f"{arch}/train"]["bytes_per_device"][
+        "peak_by_device"]
+    assert peak[0] <= 1.1 * max(peak[1:])
 
 
 def _slstm_products(arch: str, mode: str) -> float:

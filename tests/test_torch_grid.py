@@ -12,7 +12,8 @@ on a (2, 2) grid (data 2 x sequence 2) against the port's one-device
 model, which ``test_torch_lm.py`` and its siblings hold to JAX: logits,
 the caches after the prefill and after 4 decode steps, the loss and its
 gradients, at 1e-4 of the largest magnitude; the grid ``Trainer`` over 3
-steps; ``generate``.
+steps of AdamW and of Adafactor (its update on the pieces), masters and
+optimizer state; ``generate``.
 """
 import dataclasses
 import json
@@ -323,22 +324,35 @@ def test_family_on_a_grid_matches_one_device(arch):
         assert _rel(b, a) < TOL
 
 
-def test_grid_trainer_follows_the_one_device_trainer():
-    """3 AdamW steps: the masters and the state rest as pieces by
-    ``infer_param_specs``, and the joined masters follow one device."""
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_grid_trainer_follows_the_one_device_trainer(name):
+    """3 steps (Adafactor factoring the 64-wide matrices): the masters and
+    the state rest as pieces by ``infer_param_specs``, each piece a tensor
+    of its own, and the joined masters and state follow one device (the
+    masters within TOL: an update's direction amplifies the reordered
+    sums of gradients near 0)."""
     cfg = _f32("qwen3-1.7b")
     model = build_model(cfg)
     full = _batch(cfg)
-    one = Trainer(model, OptimizerConfig(), device="cpu", seed=0)
-    grid = Trainer(model, OptimizerConfig(), env=GRID22, seed=0)
+    opt = OptimizerConfig(name=name, factored_min_dim=32)
+    one = Trainer(model, opt, device="cpu", seed=0)
+    grid = Trainer(model, opt, env=GRID22, seed=0)
     s1, s2 = one.init_state(), grid.init_state()
     wq = s2.params["layers"][0]["attn"]["wq"]
     assert isinstance(wq, sh.Sharded) and wq.spec == ("data", "model")
     assert wq[3].shape == (cfg.d_model // 2, cfg.q_dim // 2)
+    assert wq[3].untyped_storage().nbytes() == wq[3].numel() * 4
     s1 = one.fit(s1, iter([full] * 3), 3, log_every=0)
     s2 = grid.fit(s2, iter([full] * 3), 3, log_every=0)
     for a, b in zip(leaves(s1.params), leaves(join_tree(s2.params, GRID22))):
         assert float((a - b).abs().max()) < TOL
+    # the moments accumulate the gradients: each leaf within TOL of its
+    # largest
+    got = leaves(join_tree(s2.opt_state, GRID22))
+    assert len(got) == len(leaves(s1.opt_state))
+    for a, b in zip(leaves(s1.opt_state), got):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= TOL * float(a.abs().max())
 
 
 def test_generate_on_a_grid_gives_the_one_device_tokens():
