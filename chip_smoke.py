@@ -200,13 +200,15 @@ Phases, each of which fails the run if anything in it fails:
    r + 1 steps with q_offset = (r − blk)·S_loc and the lse), 64 greedy
    steps through the split-K decode over the cache shards (4 decode
    launches a layer a step), against one device at the same batch
-   (``grid_serve``); (e) there too, its 28 layers as 4 stages of 7 on a
-   ("stage",) × 4 grid, 4 microbatches, against the layers in order
-   (``grid_pipeline``); (b) in phase 7, xlstm-1.3b: the mLSTM prefix and
-   the sLSTM carry chain (4 scan launches a prefill, one a decode step);
-   (c) in phase 10, recurrentgemma-9b: the ``"local"`` window ring (3 of 4
-   steps, flash at G = 16, hd = 256) and the RG-LRU prefix; (d) in phase
-   11, qwen3-moe-235b-a22b at 8 layers: 32 experts a cell and the
+   (``grid_serve``; the decode step is weight-stationary: each cell
+   multiplies by its own pieces of the weights, and its ms a step are
+   printed beside one device's); (e) there too, its 28 layers as 4 stages
+   of 7 on a ("stage",) × 4 grid, 4 microbatches, against the layers in
+   order (``grid_pipeline``); (b) in phase 7, xlstm-1.3b: the mLSTM prefix
+   and the sLSTM carry chain (4 scan launches a prefill, one a decode
+   step); (c) in phase 10, recurrentgemma-9b: the ``"local"`` window ring
+   (3 of 4 steps, flash at G = 16, hd = 256) and the RG-LRU prefix; (d)
+   in phase 11, qwen3-moe-235b-a22b at 8 layers: 32 experts a cell and the
    all_to_all of capacity blocks; (f) after phase 12 frees its state,
    training at qwen3-1.7b's widths and 8 of its layers on a (2, 2) grid
    (data 2 × sequence 2), 3 steps, against the one-device ``Trainer`` on
@@ -219,8 +221,10 @@ Phases, each of which fails the run if anything in it fails:
    agree (random weights leave near-ties); the hard checks are float32 at
    the same widths and 2 layers (xlstm one "m" and one "s", recurrentgemma
    one "rec" and one "local"): the grid's logits (prefill and 4 decode
-   steps), the loss and every gradient within ``GRID_TOL`` of one
-   device's, relative to the largest magnitude.  Every grid run's peak
+   steps, on (1, 4) grids of the train and of the serve profile, whose
+   row-parallel products add partial sums over ``model``), the loss and
+   every gradient within ``GRID_TOL`` of one device's, relative to the
+   largest magnitude, and the grid's greedy tokens one device's.  Every grid run's peak
    memory allocated is at most ``GRID_PEAK_RATIO`` × one device's (and
    within the phase's own limit).  The grid path's launches are summed
    over (a)–(f), each run's counters zeroed just before it and read just
@@ -262,7 +266,10 @@ Phases, each of which fails the run if anything in it fails:
    ``cost(...)`` (the function the bound column calls), the step's FLOPs
    equal to the count on the card; (c) qwen3-1.7b's decode_32k on the
    "node" grid (eight fake cards): its record written under
-   ``experiments/dryrun_torch/``, its collective counts nonzero; (d) phase
+   ``experiments/dryrun_torch/``, its collective counts nonzero, a card's
+   link bytes and FLOPs printed, and no weight leaf all-gathered but the
+   head's feature dim (``dryrun.stray_decode_gathers``: the step is
+   weight-stationary); (d) phase
    13 (f)'s training step (8 layers, 2 × 4,096 tokens) on "node": each
    card's argument, output and peak bytes printed, card 0's output bytes
    each other card's plus the 20 of the step counter and the 4 metrics
@@ -2243,6 +2250,12 @@ def grid_serve(tag: str, model, params, batch, device, card: str,
     log(f"[grid] {tag} bf16: prefill logits max abs diff {diff:.4g} over "
         f"logits up to {scale:.4g}; greedy tokens agree {agree:.1%}; grid "
         f"launches {grid['got']}")
+    one_ms, grid_ms = (r["stats"]["decode_s"] / GRID_STEPS * 1e3
+                       for r in (one, grid))
+    log(f"[grid] {tag}: the weight-stationary grid decode step (each of the "
+        f"4 cells multiplies by its own pieces of the weights) "
+        f"{grid_ms:.3f} ms against one device's {one_ms:.3f} ms "
+        f"({grid_ms / one_ms:.2f}x); on {card}")
     if grid["got"] != want:
         raise AssertionError(f"[grid] {tag}: launches {grid['got']}, "
                              f"expected {want}")
@@ -2263,45 +2276,64 @@ def grid_serve(tag: str, model, params, batch, device, card: str,
                 grid_peak=grid["peak"],
                 one_prefill_s=one["stats"]["prefill_s"],
                 grid_prefill_s=grid["stats"]["prefill_s"],
-                one_decode_ms=one["stats"]["decode_s"] / GRID_STEPS * 1e3,
-                grid_decode_ms=grid["stats"]["decode_s"] / GRID_STEPS * 1e3)
+                one_decode_ms=one_ms, grid_decode_ms=grid_ms)
 
 
 def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S) -> float:
     """Phase 13's hard check of a serving path: ``cfg32`` (float32, the
     same widths at 2 layers) drawn from seed 0, 2 prompts of ``s`` tokens
     prefilled and 4 greedy steps decoded on one device and on a (1, 4)
-    grid of the card; every logit within ``GRID_TOL`` of one device's,
-    relative to the largest magnitude.  Returns the largest."""
+    grid of the card, in the train profile (each weight cut on its output
+    dim: column-parallel products) and in the serve profile (``wo``,
+    ``w_down`` and ``proj_in`` cut on their contraction dim: row-parallel
+    products, partials added over ``model``), the weights cut into their
+    pieces once before the prefill; every logit within ``GRID_TOL`` of one
+    device's, relative to the largest magnitude, and the grid's greedy
+    token of every step one device's.  Returns the largest."""
     import torch
 
     from repro_torch.data.lm import make_batch
+    from repro_torch.distributed import sharding as sh
     from repro_torch.models.model import build_model
 
     model = build_model(cfg32)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    env = grid_env(device, (1, 4))
     batch = make_batch(cfg32, 2, s, 0, 0, device=device)
     batch.pop("labels")
-    errs = []
-    with torch.inference_mode():
-        l1, c1 = model.prefill(params, batch, cache_len=s + 8)
-        l2, c2 = model.prefill(params, batch, cache_len=s + 8, env=env)
-        errs.append(rel_diff(l2, l1))
-        for step in range(4):
-            tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
-            l1, c1 = model.decode_step(params, c1, tok, s + step)
-            l2, c2 = model.decode_step(params, c2, tok, s + step, env=env)
+    worst = 0.0
+    for profile in ("train", "serve"):
+        env = sh.MeshEnv([[device] * 4], profile=profile)
+        cut = sh.pieces(params, env)
+        errs, same = [], True
+        with torch.inference_mode():
+            l1, c1 = model.prefill(params, batch, cache_len=s + 8)
+            l2, c2 = model.prefill(cut, batch, cache_len=s + 8, env=env)
             errs.append(rel_diff(l2, l1))
-    worst = max(errs)
-    log(f"[grid] {tag} float32, {cfg32.n_layers} layers "
-        f"{list(cfg32.layer_kinds())} at full width, B=2 prompt={s}: the "
-        f"(1, 4) grid's prefill and 4 decode steps' logits within "
-        f"{worst:.3g} of one device's, of the largest (tol {GRID_TOL})")
-    if not worst <= GRID_TOL:
-        raise AssertionError(f"[grid] {tag}: float32 grid logits differ by "
-                             f"{worst:.3g} of the largest (tol {GRID_TOL})")
-    del model, params, c1, c2, l1, l2, batch
+            for step in range(5):
+                tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
+                same = same and torch.equal(
+                    tok, l2[:, -1].argmax(-1)[:, None].to(torch.int32))
+                if step == 4:
+                    break
+                l1, c1 = model.decode_step(params, c1, tok, s + step)
+                l2, c2 = model.decode_step(cut, c2, tok, s + step, env=env)
+                errs.append(rel_diff(l2, l1))
+        if not same:
+            raise AssertionError(f"[grid] {tag}: float32 {profile}-profile "
+                                 f"grid greedy tokens differ from one "
+                                 f"device's")
+        log(f"[grid] {tag} float32, {cfg32.n_layers} layers "
+            f"{list(cfg32.layer_kinds())} at full width, B=2 prompt={s}: "
+            f"the (1, 4) {profile}-profile grid's prefill and 4 decode "
+            f"steps' logits within {max(errs):.3g} of one device's, of the "
+            f"largest (tol {GRID_TOL}); greedy tokens equal")
+        if not max(errs) <= GRID_TOL:
+            raise AssertionError(f"[grid] {tag}: float32 {profile}-profile "
+                                 f"grid logits differ by {max(errs):.3g} of "
+                                 f"the largest (tol {GRID_TOL})")
+        worst = max(worst, max(errs))
+        del cut, c1, c2, l1, l2
+    del model, params, batch
     torch.cuda.empty_cache()
     return worst
 
@@ -3033,18 +3065,30 @@ def dryrun_phase(device, card: str, train_out: dict) -> dict:
                           "node")
     path = DRY_OUT / f"{cfg.name}__decode_32k__node.json"
     path.write_text(json.dumps(rec, indent=1))
-    coll = rec["op_analysis"]["collective_counts"]
+    op = rec["op_analysis"]
+    coll = op["collective_counts"]
+    stray = dryrun.stray_decode_gathers(rec)
     log(f"[dryrun] (c) {cfg.name} decode_32k on 'node' (dry run "
         f"{rec['trace_s']:.1f} s): peak "
         f"{rec['bytes_per_device']['peak'] / 1e9:.2f} GB a card (fits "
         f"{rec['fits']}), collectives {coll}, link "
-        f"{rec['op_analysis']['collective_wire_bytes'] / 1e9:.3f} GB, "
-        f"roofline {rec['roofline']['dominant']}; written to "
+        f"{op['collective_wire_bytes']:.6g} bytes a card "
+        f"({op['collective_wire_bytes'] / 1e9:.4f} GB), FLOPs "
+        f"{op['flops']:.6g} a card, roofline {rec['roofline']['dominant']} "
+        f"(compute {rec['roofline']['compute_s'] * 1e3:.4f} ms, memory "
+        f"{rec['roofline']['memory_s'] * 1e3:.4f} ms, link "
+        f"{rec['roofline']['collective_s'] * 1e3:.4f} ms); weight leaves "
+        f"gathered {rec['weight_gathers']}; written to "
         f"{path.relative_to(ROOT)}")
     check(path.exists() and sum(coll.values()) > 0,
           f"decode_32k on the node: collectives {coll}")
+    check(not stray, f"decode_32k on the node: the decode step all-gathers "
+          f"weight leaves {stray} (weight-stationary: none but the head's "
+          f"feature dim)")
     out["node_decode"] = dict(peak_gb=rec["bytes_per_device"]["peak"] / 1e9,
-                              collective_counts=coll, fits=rec["fits"])
+                              collective_counts=coll, fits=rec["fits"],
+                              wire_bytes=op["collective_wire_bytes"],
+                              flops=op["flops"])
 
     # -- (d) phase 13 (f)'s training step on the node ------------------------
     out["node_train"] = node_train_bytes(cfg)

@@ -41,13 +41,17 @@ dropped.  :func:`shard` and :func:`unshard` split a tensor into its cells'
 pieces and join them back (the port's ``param_shardings`` and
 ``shardings_of`` give :class:`NamedSharding`s that do both);
 :func:`gather_for_compute` all-gathers one layer's weights once per
-distinct device; :func:`constrain` lays an activation out by JAX's
-logical names.  For an update on the pieces (``train/optim.py``):
-:func:`relayout` lays a cut tensor out by another spec without joining
-it, :func:`sum_replicas` adds a part's copies on distinct devices (a
-replicated weight's gradients), :func:`zeros` makes a cut tensor piece by
-piece, and :func:`own_pieces` copies the pieces that are views, so no
-whole tensor stays alive behind them.
+distinct device (the prefill and the loss); :func:`pieces`,
+:func:`sharded_dot` and :func:`sharded_take` multiply by a weight and
+look rows up in a table that stay in their pieces, moving activations
+only (a decode step, weight-stationary as JAX's); :func:`constrain`
+lays an activation out by JAX's logical names.  For an update on the
+pieces (``train/optim.py``): :func:`relayout` lays a cut tensor out by
+another spec without joining it, :func:`sum_replicas` adds a part's
+copies on distinct devices (a replicated weight's gradients),
+:func:`zeros` makes a cut tensor piece by piece, and :func:`own_pieces`
+copies the pieces that are views, so no whole tensor stays alive behind
+them.
 """
 from __future__ import annotations
 
@@ -678,7 +682,8 @@ def all_gather(cells: Cells, env: MeshEnv, axis, dim: int) -> Cells:
             if dev not in made:
                 made[dev] = torch.cat([cells[g].to(dev) for g in grp], dim)
             out[c] = made[dev]
-        report_collective("all-gather", len(grp), [out[c] for c in grp])
+        report_collective("all-gather", len(grp), [out[c] for c in grp],
+                          reads=[cells[c] for c in grp], axes=axes)
     return out
 
 
@@ -803,8 +808,152 @@ def gather_whole(cells: Cells, spec, env: MeshEnv,
         whole = {d: unshard(cells, spec, env, d) for d in devices}
     out = [whole[d] for d in env.cells]
     if parts > 1:
-        report_collective("all-gather", parts, out)
+        report_collective("all-gather", parts, out, reads=cells,
+                          axes=tuple(a for e in spec for a in _axes(e)))
     return out
+
+
+def pieces(param_tree: Any, env: MeshEnv) -> Any:
+    """Every leaf of ``param_tree`` (a model's parameters, one layer's
+    weights, or any subtree with its paths) as :class:`Sharded` pieces by
+    its :func:`infer_param_specs` layout, nothing gathered: a ``Sharded``
+    leaf passes as it is, a whole tensor is cut (:func:`shard`: views
+    where it lies on a cell's device, a copy of its piece on any other
+    device).  What a weight-stationary step multiplies by
+    (:func:`sharded_dot`); cut once, before a decode loop, so no step
+    copies a weight."""
+    return _map_with_path(
+        lambda path, leaf: leaf if isinstance(leaf, Sharded) else shard(
+            leaf, _spec_for(path, tuple(leaf.shape), env), env),
+        param_tree)
+
+
+def _row_axes(env: MeshEnv, rows_split: bool, axes: Tuple[str, ...]
+              ) -> Tuple[str, ...]:
+    """The axes of ``axes`` (of size > 1) that the token rows are cut over
+    too (the DP axes, when ``rows_split``)."""
+    return tuple(a for a in (env.dp_axes if rows_split else ())
+                 if a in axes and env.size(a) > 1)
+
+
+def _keep_rows(cells: Cells, env: MeshEnv, axes: Tuple[str, ...]) -> Cells:
+    """Each cell's own block of rows (dim 0) of cells that hold the rows
+    of its group over ``axes``, in rank order."""
+    n = env.size(axes)
+    b = cells[0].shape[0] // n
+    return cellwise(lambda t, i: t[i * b:(i + 1) * b], cells,
+                    [env.axis_index(c, axes) for c in range(env.n_cells)])
+
+
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (..., k) @ (k, n) summed and returned in float32, never
+    rounded to x's dtype: on the card (and a dry run's fake card) the
+    product runs in x's dtype with a float32 result (``torch.mm(...,
+    out_dtype=torch.float32)``); on the CPU, which has no such product,
+    the operands are widened first (each product of two bf16 is exact in
+    float32, so only the order of the sums differs)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = x2.float() @ w.float()
+    else:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def sharded_dot(xs: Cells, w: Any, env: MeshEnv, *, rows_split: bool,
+                spec=None) -> Cells:
+    """``x @ w`` on every cell with the weight ``w`` (in, out) staying in
+    its pieces: JAX's product of an activation by a weight sharded by
+    ``infer_param_specs``, which moves activations only.  ``xs`` holds one
+    activation (..., in) per cell, its rows (dim 0) cut over the DP axes
+    when ``rows_split``, whole over the other axes; ``w`` is a
+    :class:`Sharded` (or a whole tensor cut by ``spec``).  Returns one
+    (..., out) per cell, laid out as ``xs``, equal to ``x @ whole(w)``:
+
+      * the output dim cut over some axes: each cell multiplies by its
+        block of columns, and the blocks are all-gathered over those axes
+        (column-parallel);
+      * the contraction dim cut over some axes: each cell takes its block
+        of x's columns, and the partial products, in float32, are added
+        over those axes in rank order (:func:`psum`; row-parallel) and
+        cast to x's dtype once, so a bf16 grid rounds each output once,
+        as one device does.  Where the rows
+        are cut over one of those axes too (the train profile: rows and
+        ``in`` both over ``data``), the rows are all-gathered over it
+        first and each cell keeps its own after the sum;
+      * both: both; replicated: the whole weight, no copy.
+
+    Each cell multiplies by its own piece, also where the grid names one
+    device several times (cells that share a piece and an activation
+    share one product, :func:`cellwise`)."""
+    if not isinstance(w, Sharded):
+        w = shard(w, spec, env)
+    k_axes, n_axes = (_axes(e) for e in _full_spec(w.spec, 2))
+    rows = _row_axes(env, rows_split, k_axes)
+    if rows:
+        xs = all_gather(xs, env, rows, 0)
+    nk = env.size(k_axes)
+
+    def part(x, piece, i):
+        if nk == 1:
+            return x @ piece
+        k = piece.shape[0]
+        return _dot_f32(x[..., i * k:(i + 1) * k], piece)
+
+    ys = cellwise(part, xs, w, [env.axis_index(c, k_axes)
+                                for c in range(env.n_cells)])
+    if nk > 1:
+        dt = xs[0].dtype
+        ys = cellwise(lambda y: y.to(dt), psum(ys, env, k_axes))
+    if rows:
+        ys = _keep_rows(ys, env, rows)
+    if env.size(n_axes) > 1:
+        ys = all_gather(ys, env, n_axes, -1)
+    return ys
+
+
+def sharded_take(ids: Cells, table: Any, env: MeshEnv, *, rows_split: bool,
+                 spec=None) -> Cells:
+    """``table[ids]`` on every cell with the table (V, D) staying in its
+    pieces: JAX's vocabulary-parallel embedding.  ``ids`` holds one
+    integer tensor per cell, cut over the DP axes when ``rows_split``;
+    ``table`` a :class:`Sharded` (or a whole tensor cut by ``spec``).
+    Each cell looks up the ids that fall in its block of the vocabulary
+    (the others give zeros), and the rows are added over the vocabulary's
+    axes in rank order: adding zeros is exact, so each row has the
+    table's bits.  A feature dim cut over some axes is all-gathered as
+    activation columns; where the ids are cut over one of those axes too,
+    they are all-gathered over it first and each cell keeps its own rows.
+    Returns one (..., D) per cell."""
+    if not isinstance(table, Sharded):
+        table = shard(table, spec, env)
+    v_axes, d_axes = (_axes(e) for e in _full_spec(table.spec, 2))
+    rows = _row_axes(env, rows_split, d_axes)
+    if rows:
+        ids = all_gather(ids, env, rows, 0)
+    nv = env.size(v_axes)
+
+    def look(t, piece, i):
+        t = t.long()
+        if nv == 1:
+            return piece[t]
+        n = piece.shape[0]
+        local = t - i * n
+        got = piece[local.clamp(0, n - 1)]
+        mine = ((local >= 0) & (local < n))[..., None]
+        return torch.where(mine, got, torch.zeros_like(got))
+
+    xs = cellwise(look, ids, table, [env.axis_index(c, v_axes)
+                                     for c in range(env.n_cells)])
+    if nv > 1:
+        xs = psum(xs, env, v_axes)
+    if env.size(d_axes) > 1:
+        xs = all_gather(xs, env, d_axes, -1)
+    if rows:
+        xs = _keep_rows(xs, env, rows)
+    return xs
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ Per device (the device a tensor lies on):
   * ``flops`` — the product ops only, as ``hlo_analyzer.py``'s
     ``_dot_flops`` counts dots only: ``mm``, ``bmm``, ``addmm`` and
     ``baddbmm`` (``matmul``, ``einsum`` and ``linear`` reach the counter
-    as these), 2 · numel(out) · K each, charged to the output's device;
+    as these; under ``torch.inference_mode``, which hands the counter a
+    composite op whole, the counter decomposes it itself), 2 · numel(out)
+    · K each, charged to the output's device;
     and each kernel's products, reported by its wrapper
     (:func:`report_kernel`);
   * ``hbm_bytes`` — every eager op is a kernel boundary, as a fusion is
@@ -39,6 +41,9 @@ Per device (the device a tensor lies on):
     a single-controller copy is not the ring's traffic.  The bytes those
     copies move are kept apart, as ``copy_bytes_in`` (bytes a device
     receives from another device);
+  * the all-gathers' reads: the storages of the pieces each all-gather
+    read and the mesh axes it gathered over (``OpCounter.gathered``), from
+    which ``launch/dryrun.py`` names the weight leaves a step gathers;
   * memory — the bytes of the live storages on each device: those the
     caller registers (:meth:`OpCounter.track`, the step's arguments) and
     every storage an op creates, until the last tensor on it dies; the
@@ -62,7 +67,7 @@ import contextlib
 import dataclasses
 import threading
 import weakref
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -152,12 +157,16 @@ def report_kernel(name: str, device: torch.device, cost: Callable) -> None:
         c.add_kernel(name, cost(), device)
 
 
-def report_collective(kind: str, n: int,
-                      cells: Iterable[torch.Tensor]) -> None:
+def report_collective(kind: str, n: int, cells: Iterable[torch.Tensor],
+                      *, reads: Iterable[torch.Tensor] = (),
+                      axes: Tuple[str, ...] = ()) -> None:
     """One collective over a group of ``n`` cells; ``cells`` the tensor
     each cell's term reads (its own block, or for an all-gather the
     gathered result), charged to that tensor's device by the ring formula
-    of ``kind``.  Nothing without an active counter."""
+    of ``kind``.  An all-gather also names the pieces it ``reads`` and the
+    mesh ``axes`` it gathers over: the counter notes their storages
+    (``OpCounter.gathered``), so a dry run can tell which weight leaves a
+    step gathers.  Nothing without an active counter."""
     c = active()
     if c is None:
         return
@@ -168,6 +177,8 @@ def report_collective(kind: str, n: int,
                 else float(size) if kind == "collective-permute"
                 else size * frac)
         c.add_collective(kind, wire, t.device)
+    if kind == "all-gather":
+        c.add_gathered(reads, tuple(axes))
 
 
 class OpCounter(TorchDispatchMode):
@@ -179,6 +190,8 @@ class OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.devices: Dict[torch.device, DeviceCost] = {}
+        # each all-gather's (storages of the pieces it read, mesh axes)
+        self.gathered: List[Tuple[frozenset, Tuple[str, ...]]] = []
         self._storages: Dict[int, tuple] = {}
         self._interior = 0
         self._lock = threading.Lock()
@@ -248,6 +261,14 @@ class OpCounter(TorchDispatchMode):
         d.collective_bytes_by_kind[kind] = (
             d.collective_bytes_by_kind.get(kind, 0.0) + wire)
 
+    def add_gathered(self, reads: Iterable[torch.Tensor],
+                     axes: Tuple[str, ...]) -> None:
+        """One all-gather over ``axes`` that read ``reads``."""
+        keys = frozenset(t.untyped_storage()._cdata
+                         for t in _tensors(list(reads)))
+        with self._lock:
+            self.gathered.append((keys, axes))
+
     # --- the dispatch -------------------------------------------------------
     def __enter__(self):
         with _active_lock:
@@ -261,6 +282,13 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        # under ``torch.inference_mode`` a composite op (``matmul``, ``to``)
+        # arrives whole: count the ops it is made of, as outside it
+        if func.namespace == "aten" and torch.is_inference_mode_enabled():
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         out = func(*args, **kwargs)
         packet = func.overloadpacket
         outs = list(_tensors(out))

@@ -32,7 +32,12 @@ on every fake card.  For each cell it:
        ``memory_kernelized_s`` (without the kernel-interior bytes), and
        the ``dominant`` term of the first three;
      * ``fits`` — whether the peak fits ``HBM_BYTES``; ``trace_s``, the
-       seconds the dry run took.
+       seconds the dry run took;
+     * ``weight_gathers`` — for each weight leaf whose pieces an
+       all-gather read, "path over axes" (a layer's index as ``*``) and
+       how many all-gathers read it (:func:`weight_gathers`).  A serving
+       step reads the weights it is given; a training step of a bf16
+       model gathers the copies it casts, which name no leaf.
 
 The card is one H100 SXM at its published peaks (700 W): 989 TFLOP/s of
 dense bf16, 3.35 TB/s of HBM, and 450 GB/s each way of NVLink 4 (the
@@ -64,6 +69,7 @@ from repro_torch.kernels.common import PEAK_BF16_TC_FLOPS, PEAK_BYTES_S
 from repro_torch.launch.cost import OpCounter, storage_bytes
 from repro_torch.launch.mesh import make_env
 from repro_torch.launch.specs import make_spec
+from repro_torch.models.model import Model
 
 # one H100 SXM's published peaks at 700 W, per card: dense bf16 on the
 # tensor cores and HBM bytes/s (``kernels.common``), NVLink 4 bytes/s
@@ -73,6 +79,52 @@ PEAK_FLOPS = PEAK_BF16_TC_FLOPS
 HBM_BW = PEAK_BYTES_S
 LINK_BW = 450e9
 HBM_BYTES = 80e9
+
+
+def _leaf_storages(tree: Any, path: str = "") -> Dict[int, str]:
+    """Each storage of a parameter tree's tensors (whole leaves or their
+    ``Sharded`` pieces) and its leaf's path, with a layer's index as
+    ``*`` ("layers/*/attn/wq")."""
+    out: Dict[int, str] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_leaf_storages(v, f"{path}/{k}" if path else k))
+    elif isinstance(tree, list) and tree and not isinstance(tree[0],
+                                                            torch.Tensor):
+        for v in tree:
+            out.update(_leaf_storages(v, f"{path}/*"))
+    else:
+        for t in ([tree] if isinstance(tree, torch.Tensor) else tree):
+            out[t.untyped_storage()._cdata] = path
+    return out
+
+
+def weight_gathers(counter: OpCounter, params: Any) -> Dict[str, int]:
+    """The all-gathers of ``counter`` that read a piece of a leaf of
+    ``params``: for each "path over axes", how many (the layers' summed)."""
+    paths = _leaf_storages(params)
+    out: Dict[str, int] = {}
+    for keys, axes in counter.gathered:
+        for path in sorted({paths[k] for k in keys if k in paths}):
+            key = f"{path} over {'+'.join(axes)}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def stray_decode_gathers(rec: Dict[str, Any]) -> Dict[str, int]:
+    """The entries of a record's ``weight_gathers`` that a weight-stationary
+    decode step makes none of: every one but the leaves of
+    ``Model.DECODE_GATHERED`` and the head's table (``embed`` or ``unembed``)
+    gathered over axes other than its vocabulary's ``model`` (JAX's
+    ``_logits`` gathers its feature dim)."""
+    out = {}
+    for key, n in rec["weight_gathers"].items():
+        path, axes = key.split(" over ")
+        head = path in ("embed", "unembed") and "model" not in axes.split("+")
+        if not head and path.rsplit("/", 1)[-1] not in \
+                Model.DECODE_GATHERED:
+            out[key] = n
+    return out
 
 
 def run_cell(cfg: ArchConfig, shape: ShapeConfig, env: MeshEnv,
@@ -91,6 +143,7 @@ def run_cell(cfg: ArchConfig, shape: ShapeConfig, env: MeshEnv,
                     out = spec.step(*spec.args)
             outs = storage_bytes(out)
             del out
+        gathers = weight_gathers(c, spec.args[0])
         del spec
     trace_s = time.perf_counter() - t0
     busy = c.busiest()
@@ -139,6 +192,7 @@ def run_cell(cfg: ArchConfig, shape: ShapeConfig, env: MeshEnv,
         "op_analysis": op,
         "roofline": roof,
         "fits": d.peak_bytes <= HBM_BYTES,
+        "weight_gathers": gathers,
     }
 
 

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.data.lm import make_batch
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import MeshEnv
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import Model, Params, build_model
@@ -51,8 +52,12 @@ def generate(model: Model, params: Params, batch: Dict[str, torch.Tensor],
 
     With ``env`` (JAX's ``generate(model, params, batch, env, ...)``): the
     prefill and the steps run on the grid, the tokens chosen on its first
-    cell; the CLI stays on one device, as JAX's does.
+    cell; the CLI stays on one device, as JAX's does.  The weights are
+    cut into their pieces once, before the prefill
+    (``sharding.pieces``), so no decode step moves a weight.
     """
+    if env is not None:
+        params = sh.pieces(params, env)
     dev = env.first if env is not None else params["embed"].device
     batch = {k: v.to(dev) for k, v in batch.items()}
     s = batch["tokens"].shape[1]

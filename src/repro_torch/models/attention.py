@@ -46,7 +46,11 @@ On a grid (``env``, a ``distributed.sharding.MeshEnv``; JAX's
     the cell that owns ``pos`` writes the new K/V, each cell runs the
     decode kernel on its shard with ``pos - start`` (a shard past ``pos``
     has no live key: 0 and lse = -inf), and the shards' float32 outputs
-    are combined by their lse in rank order (JAX's ``pmax``/``psum``).
+    are combined by their lse in rank order (JAX's ``pmax``/``psum``);
+  * ``_window_decode_cells`` — the rolling window's slots cut over
+    ``model`` (``cache_specs``): each cell attends over its slots in plain
+    torch and the outputs are combined by their lse in rank order, as
+    JAX's XLA runs the jnp window attention on the same shards.
 
 The public functions take and return whole tensors, as JAX's do; the
 ``*_cells`` forms take one tensor per cell and are what ``Model`` runs.
@@ -150,17 +154,9 @@ def window_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
     kpos.index_copy_(0, slot, pos.reshape(1).to(kpos.dtype))
-    b, _, h, hd = q.shape
-    kvh = k_cache.shape[2]
-    qg = q.reshape(b, 1, kvh, h // kvh, hd) * (hd ** -0.5)
-    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k_cache.float())
-    valid = (kpos >= 0) & (kpos <= pos) & (kpos > pos - window)
-    s = torch.where(valid[None, None, None, None, :], s,
-                    torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return (out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache, kpos)
+    # one block normalised over the whole window is the softmax
+    out = _window_partial(q, k_cache, v_cache, kpos, pos, window)[0]
+    return out.to(q.dtype), k_cache, v_cache, kpos
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -543,6 +539,76 @@ def _decode_cells(qs: sh.Cells, kcs: sh.Cells, vcs: sh.Cells,
         _write_at(vcs[c], vns[c], local)
         parts.append(decode_ops.decode_attention(
             qs[c], kcs[c], vcs[c], local, window=window, return_lse=True))
+    out: List[Any] = [None] * env.n_cells
+    for grp in sh._groups(env, ("model",)):
+        dev0 = env.cells[grp[0]]
+        acc = None
+        for c in grp:
+            o, l = parts[c]
+            acc = _combine_lse(acc, o.to(dev0), l.to(dev0))
+        whole = acc[0].to(qs[grp[0]].dtype)
+        sent = {}
+        for c in grp:
+            dev = env.cells[c]
+            if dev not in sent:
+                sent[dev] = whole.to(dev)
+            out[c] = sent[dev]
+    return out
+
+
+def _window_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kpos: torch.Tensor, pos: torch.Tensor, window: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``window_decode_attention``'s attention over a block of the window's
+    slots (no write): (out (B, 1, H, hd) float32 normalised over the
+    block, lse (B, 1, H)); a block with no live slot gives 0 and -inf."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd) * (hd ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float())
+    valid = ((kpos >= 0) & (kpos <= pos) & (kpos > pos - window))[
+        None, None, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    total = p.sum(-1, keepdim=True)
+    p = p / torch.clamp(total, min=1e-30)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    lse = torch.where(total > 0, m + torch.log(total),
+                      torch.full_like(m, float("-inf")))
+    return out.reshape(b, 1, h, hd), lse.reshape(b, 1, h)
+
+
+def _window_decode_cells(qs: sh.Cells, kcs: sh.Cells, vcs: sh.Cells,
+                         kposs: sh.Cells, kns: sh.Cells, vns: sh.Cells,
+                         pos: torch.Tensor, env: MeshEnv, *, window: int
+                         ) -> sh.Cells:
+    """``window_decode_attention`` on one tensor per cell, the rolling
+    window's slots cut over ``model`` (``cache_specs``): cell (d, m) holds
+    slots [m·W_loc, (m+1)·W_loc) of its batch rows and ``kpos`` whole (W,).
+    Each distinct ``kpos`` takes the new position at slot ``pos % W`` in
+    place; each cell writes the new K/V where it owns that slot (in place),
+    attends over its slots (``_window_partial``), and the ``model``
+    group's float32 outputs are combined by their lse in rank order on the
+    group's first device, then cast and sent to its cells (once per
+    distinct device), as the split-K decode combines the cache shards
+    (``_decode_cells``).  JAX's XLA runs the jnp window attention on the
+    same shards: no cell gathers the window."""
+    w_loc = kcs[0].shape[1]
+    w = kposs[0].shape[0]
+    for t in {id(t): t for t in kposs}.values():
+        p = pos.to(t.device)
+        t.index_copy_(0, (p % w).reshape(1).long(), p.reshape(1).to(t.dtype))
+    parts: List[Any] = [None] * env.n_cells
+    for c in range(env.n_cells):
+        dev = env.cells[c]
+        p = pos.to(dev)
+        lo = env.axis_index(c, "model") * w_loc
+        local = p % w - lo
+        _write_at(kcs[c], kns[c], local)
+        _write_at(vcs[c], vns[c], local)
+        parts[c] = _window_partial(qs[c], kcs[c], vcs[c],
+                                   kposs[c][lo:lo + w_loc], p, window)
     out: List[Any] = [None] * env.n_cells
     for grp in sh._groups(env, ("model",)):
         dev0 = env.cells[grp[0]]

@@ -124,6 +124,10 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, d: int, d_ff: int
 def mlp_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
               ) -> torch.Tensor:
     """Weights must already be in x's dtype (see ``Model.cast_params``)."""
-    act = act_fn(cfg.act)
-    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return glu(cfg, x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+
+
+def glu(cfg: ArchConfig, gate: torch.Tensor, up: torch.Tensor
+        ) -> torch.Tensor:
+    """The gated MLP's middle, act(gate)·up, from its two products."""
+    return act_fn(cfg.act)(gate) * up

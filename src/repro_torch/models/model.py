@@ -34,18 +34,23 @@ On a grid (``env``, a ``distributed.sharding.MeshEnv``): ``prefill``,
 JAX constrains them (``model.py:485, 566, 605``): after the embedding,
 one piece per cell, the batch over ``data`` and the sequence over
 ``model``; a decode step's token rows over ``data``, whole over
-``model``.  Each layer's weights come through ``gather_for_compute``
-(whole on each distinct device, no copy where a device holds them whole
-already; the expert tensors stay in their pieces), attention runs the
-ring (prefill, training) and the split-K decode over the cache shards,
-the recurrent layers their prefix or carry chain, MoE its expert-parallel
+``model``.  In the prefill and the loss each layer's weights come
+through ``gather_for_compute`` (whole on each distinct device, no copy
+where a device holds them whole already; the expert tensors stay in
+their pieces), as JAX gathers them there (``model.py:456``); a decode
+step is weight-stationary, as JAX's is (``model.py:787-791``): each cell
+multiplies by its own pieces (``sharding.sharded_dot``) and only
+activations cross the grid (``_grid_decode``).  Attention runs the ring
+(prefill, training) and the split-K decode over the cache shards, the
+recurrent layers their prefix or carry chain, MoE its expert-parallel
 dispatch.  The head follows ``_logits`` (``model.py:434-447``): the
 vocabulary over ``model``, each cell's slice of the logits from its rows
 of the unembedding, joined by rank (the loss: a log-sum-exp over the
 slices).  Caches are :class:`~repro_torch.distributed.sharding.Sharded`
 pieces by ``cache_specs`` (``gather_caches`` joins them whole); the
 parameters may be whole tensors or pieces (``Sharded``, as the grid
-``Trainer`` holds them).
+``Trainer`` holds them and ``sharding.pieces`` cuts them once before a
+decode loop).
 
 Differences from the JAX model, all of form and none of result:
   * parameters are a dict with a Python list of per-layer dicts under
@@ -97,6 +102,7 @@ from repro_torch.models.layers import (
     act_fn,
     apply_rope,
     dense_init,
+    glu,
     mlp_apply,
     mlp_init,
     norm_apply,
@@ -244,11 +250,17 @@ def _attn_qkv(cfg: ArchConfig, p: Params, h: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v of an attention layer; RoPE at ``positions`` unless None
     (the encoder's layers)."""
-    b, s, _ = h.shape
-    dt = h.dtype
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    return _qkv_heads(cfg, p, h @ p["wq"], h @ p["wk"], h @ p["wv"],
+                      positions)
+
+
+def _qkv_heads(cfg: ArchConfig, p: Params, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, positions: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_attn_qkv`` from the projections q, k, v (B, S, ·): the biases,
+    the heads, qk-norm and RoPE (``p`` needs only the 1-D leaves)."""
+    b, s, _ = q.shape
+    dt = q.dtype
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -263,6 +275,28 @@ def _attn_qkv(cfg: ArchConfig, p: Params, h: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _mlstm_heads(cfg: ArchConfig, p: Params, q: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, gates: torch.Tensor):
+    """``Model._mlstm_inputs`` from the products q, k, v (B, S, d) and
+    gates (B, S, 2H): the heads and the gates' bias (``p`` needs only
+    ``b_if``)."""
+    b, s, d = q.shape
+    hn = cfg.n_heads
+    q, k, v = (t.reshape(b, s, hn, d // hn) for t in (q, k, v))
+    i_raw, f_raw = (gates + p["b_if"].to(gates.dtype)).split(hn, dim=-1)
+    return q, k, v, i_raw, f_raw
+
+
+def _slstm_heads(cfg: ArchConfig, p: Params, pre: torch.Tensor
+                 ) -> torch.Tensor:
+    """``Model._slstm_inputs`` from the product pre (B, S, 4d): the heads
+    and the bias (``p`` needs only ``b_zifo``)."""
+    b, s, d4 = pre.shape
+    hn = cfg.n_heads
+    return (pre.reshape(b, s, 4, hn, d4 // (4 * hn))
+            + p["b_zifo"].to(pre.dtype))
 
 
 def _pad_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
@@ -421,8 +455,10 @@ class Model:
 
     # --- embedding / head ---------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return self._scale_embeds(params["embed"][tokens.long()])
+
+    def _scale_embeds(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
         if cfg.scale_embeds:
             # JAX multiplies by sqrt(d) rounded to the compute dtype
             x = x * float(torch.tensor(math.sqrt(cfg.d_model),
@@ -489,24 +525,14 @@ class Model:
     def _mlstm_inputs(self, p: Params, x: torch.Tensor):
         """q, k, v (B, S, H, hd) and the raw i/f gates (B, S, H) of an
         mLSTM block, from x (B, S, d)."""
-        cfg = self.cfg
-        b, s, d = x.shape
-        hn = cfg.n_heads
-        h = norm_apply(cfg, x, p["norm1"])
-        q, k, v = ((h @ p[w]).reshape(b, s, hn, d // hn)
-                   for w in ("wq", "wk", "wv"))
-        gates = h @ p["w_if"] + p["b_if"].to(x.dtype)
-        i_raw, f_raw = gates.split(hn, dim=-1)
-        return q, k, v, i_raw, f_raw
+        h = norm_apply(self.cfg, x, p["norm1"])
+        return _mlstm_heads(self.cfg, p, *(h @ p[w] for w in
+                                           ("wq", "wk", "wv", "w_if")))
 
     def _slstm_inputs(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         """The sLSTM pre-activations (B, S, 4, H, hd), in x's dtype."""
-        cfg = self.cfg
-        b, s, d = x.shape
-        hn = cfg.n_heads
-        h = norm_apply(cfg, x, p["norm1"])
-        pre = (h @ p["w_zifo"]).reshape(b, s, 4, hn, d // hn)
-        return pre + p["b_zifo"].to(x.dtype)
+        h = norm_apply(self.cfg, x, p["norm1"])
+        return _slstm_heads(self.cfg, p, h @ p["w_zifo"])
 
     # --- encoder–decoder ----------------------------------------------------
     def _run_encoder(self, params: Params, frames: torch.Tensor
@@ -837,7 +863,10 @@ class Model:
         attention caches in place and the new recurrent states into their
         caches' dicts; returns (logits (B, 1, padded_vocab) float32,
         caches).  With ``env``: the grid (``_grid_decode``), caches as
-        ``init_cache(env=...)`` or ``prefill(env=...)`` give them."""
+        ``init_cache(env=...)`` or ``prefill(env=...)`` give them; pass the
+        parameters cut once into their pieces (``sharding.pieces``, as
+        ``launch.serve.generate`` does): whole tensors are cut again on
+        every step, which copies each piece to its device."""
         cfg = self.cfg
         if env is not None:
             return self._grid_decode(params, caches, token, pos, env)
@@ -932,16 +961,16 @@ class Model:
         return p
 
     def _grid_embed(self, params: Params, tokens: torch.Tensor,
-                    batch: Dict[str, torch.Tensor], env: MeshEnv,
-                    seq: bool) -> sh.Cells:
-        """The embedding laid out (dp, sp, None) — or (dp, None, None) for
-        a decode step's token — each cell embedding its own tokens, cut
-        from wherever the caller holds them (no whole (B, S, d) on the
-        first cell), the VLM's patch embeddings spliced over the first
-        positions.  ``params`` as ``_grid_tables`` gives them."""
+                    batch: Dict[str, torch.Tensor], env: MeshEnv
+                    ) -> sh.Cells:
+        """The embedding of a prompt laid out (dp, sp, None), each cell
+        embedding its own tokens, cut from wherever the caller holds them
+        (no whole (B, S, d) on the first cell), the VLM's patch
+        embeddings spliced over the first positions.  ``params`` as
+        ``_grid_tables`` gives them."""
         cfg = self.cfg
         spec = sh.logical_spec((*tokens.shape, cfg.d_model),
-                               ("dp", "sp" if seq else None, None), env)
+                               ("dp", "sp", None), env)
         toks = sh.shard(tokens, spec[:2], env)
         xs = sh.cellwise(lambda w, t: self._embed({"embed": w}, t),
                          params["embed"], toks)
@@ -986,20 +1015,17 @@ class Model:
         return out
 
     def _grid_ffn(self, lp: Params, trees: List[Params], hs: sh.Cells,
-                  env: MeshEnv, decode: bool, batch_split: bool = True):
-        """``_ffn`` on the grid: the MLP per cell, or the expert-parallel
-        MoE (and the shared experts' MLP).  Returns (y cells, aux or
-        None)."""
+                  env: MeshEnv):
+        """``_ffn`` on the grid in sequence form: the MLP per cell, or the
+        expert-parallel MoE dispatch (and the shared experts' MLP).
+        Returns (y cells, aux or None)."""
         cfg = self.cfg
         aux = None
         if not cfg.is_moe:
             return sh.cellwise(lambda p, h: mlp_apply(cfg, p["mlp"], h),
                                trees, hs), aux
-        pc = moe._expert_cells(lp["moe"], env)
-        if decode:
-            ys = moe._decode_cells(cfg, pc, hs, env, batch_split=batch_split)
-        else:
-            ys, aux = moe._dispatch_cells(cfg, pc, hs, env)
+        ys, aux = moe._dispatch_cells(cfg, moe._expert_cells(lp["moe"], env),
+                                      hs, env)
         if cfg.n_shared_experts:
             ys = sh.cellwise(
                 lambda p, h, y: y + mlp_apply(cfg, p["shared_mlp"], h),
@@ -1029,7 +1055,7 @@ class Model:
             xs = cross(xs)
         h2 = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm2"]),
                          trees, xs)
-        ys, aux = self._grid_ffn(lp, trees, h2, env, decode=False)
+        ys, aux = self._grid_ffn(lp, trees, h2, env)
         return sh.cellwise(torch.add, xs, ys), k, v, aux
 
     def _grid_cross(self, lpc: Params, tpc: List[Params], xs: sh.Cells,
@@ -1204,22 +1230,26 @@ class Model:
         return self.shard_caches([whole], env, kw.shape[0])[0]
 
     def _grid_head(self, params: Params, xs: sh.Cells, env: MeshEnv,
-                   batch_split: bool) -> torch.Tensor:
+                   batch_split: bool, slices=None) -> torch.Tensor:
         """``final_norm`` and ``_logits`` on the grid (``model.py:434-447``):
         each cell's rows (B_loc, 1, d) against its vocabulary slice (the
         vocabulary over ``model`` when it divides, else whole), joined as
-        (dp, None, tp) into float32 logits (B, 1, V) on the first cell."""
+        (dp, None, tp) into float32 logits (B, 1, V) on the first cell.
+        ``slices``: (cells, vocab axis) as ``_head_slices`` gives them;
+        by default ``_vocab_slices`` of the tables ``_grid_tables``
+        gathered."""
         hs = self._grid_norm(params["final_norm"], xs, env)
-        w_slices, spec = self._vocab_slices(params, env)
+        w_slices, spec = slices or self._vocab_slices(params, env)
         logits = sh.cellwise(lambda h, w: (h @ w.t()).float(), hs, w_slices)
         dp = env.dp_axes if batch_split else None
         return sh.unshard(logits, P(dp, None, spec), env)
 
     def _vocab_slices(self, params: Params, env: MeshEnv):
-        """Each cell's rows of the unembedding: its ``model`` rank's slice
-        of the vocabulary (a view of the weights gathered whole on its
-        device), or the whole when V does not divide.  Returns (cells, the
-        vocab dim's axis or None)."""
+        """Each cell's rows of the unembedding for the prefill and the
+        loss: its ``model`` rank's slice of the vocabulary (a view of the
+        table ``_grid_tables`` gathered whole on its device), or the whole
+        when V does not divide.  Returns (cells, the vocab dim's axis or
+        None).  A decode step takes ``_head_slices`` instead."""
         key = "embed" if self.cfg.tie_embeddings else "unembed"
         whole = params[key]                  # as _grid_tables gives them
         n = env.tp_size
@@ -1231,11 +1261,24 @@ class Model:
                            [env.axis_index(c, "model")
                             for c in range(env.n_cells)]), env.tp_axis
 
+    def _head_slices(self, params: Params, env: MeshEnv):
+        """A decode step's unembedding as JAX's ``_logits`` lays it out
+        (``model.py:434-447``): the table's pieces with the vocabulary kept
+        over ``model`` and the feature dim all-gathered over its axes
+        (``data`` in the train profile; in the serve profile nothing
+        moves).  Returns (cells, the vocab dim's axis or None)."""
+        key = "embed" if self.cfg.tie_embeddings else "unembed"
+        w = sh.pieces({key: params[key]}, env)[key]
+        v_axes, d_axes = w.spec
+        cells = sh.all_gather(w, env, d_axes, 1) if env.size(d_axes) > 1 \
+            else w
+        return cells, (v_axes if env.size(v_axes) > 1 else None)
+
     def _grid_prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                       cache_len: int, env: MeshEnv):
         cfg = self.cfg
         params = self._grid_tables(params, env)
-        xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
+        xs = self._grid_embed(params, batch["tokens"], batch, env)
         enc = None
         if cfg.is_encoder_decoder:
             enc = self._grid_encoder(params, batch["frames"], env,
@@ -1260,7 +1303,7 @@ class Model:
         over the cells in rank order."""
         cfg = self.cfg
         params = self._grid_tables(params, env)
-        xs = self._grid_embed(params, batch["tokens"], batch, env, seq=True)
+        xs = self._grid_embed(params, batch["tokens"], batch, env)
         enc = None
         if cfg.is_encoder_decoder:
             enc = self._grid_encoder(params, batch["frames"], env,
@@ -1317,105 +1360,182 @@ class Model:
                 total = part if total is None else total + part
         return total
 
+    # the weight leaves a grid decode step still all-gathers, by their last
+    # name (``_grid_decode``'s docstring): a "rec" layer's conv taps, the
+    # MoE router; ``launch/dryrun.py`` reports any other as stray
+    DECODE_GATHERED = ("conv_w", "router")
+
     def _grid_decode(self, params: Params, caches: Cache,
                      token: torch.Tensor, pos, env: MeshEnv):
-        """``decode_step`` on the grid: the token rows over ``data`` (whole
-        over ``model``, each step once per device), the split-K decode
-        over the cache shards, the rolling window gathered over ``model``
-        and cut again, the recurrent states replicated over ``model``."""
+        """``decode_step`` on the grid, weight-stationary as JAX's
+        ``decode_step`` is (``model.py:787-791``: one token cannot amortize
+        a per-layer weight gather): each cell multiplies by its own pieces
+        of the weights and only activations cross the grid.  The token rows
+        lie over ``data``, whole over ``model``.  Every product by a layer
+        weight goes through ``sharding.sharded_dot`` (q, k, v and ``wo``;
+        the MLP's and the shared experts' gate, up and down; whisper's
+        cross ``wq`` and ``wo``; ``proj_gate``, ``proj_in``, the RG-LRU's
+        ``w_rg`` and ``w_ig`` (in float32, as one device) and ``wo`` of a
+        ``"rec"`` layer; ``wq``, ``wk``, ``wv``, ``w_if``, ``wo`` of an
+        ``"m"`` layer; ``w_zifo`` and ``wo`` of an ``"s"`` layer); the
+        embedding looks each id up in its vocabulary block
+        (``sharding.sharded_take``); the head keeps the vocabulary over
+        ``model`` (``_head_slices``).  The split-K decode runs over the
+        cache shards and the rolling window's (``_grid_window_decode``),
+        the recurrent states are replicated over ``model``, the MoE
+        experts run expert-parallel.  ``params`` are best cut once into
+        their pieces (``sharding.pieces``, as ``generate`` does): a whole
+        leaf is cut here at every step.
+
+        The weight leaves a step still all-gathers, each used other than
+        as the right operand of a product by a token's rows:
+          * a ``"rec"`` layer's conv taps ``conv_w`` (4, d), cut (data,
+            model) in the train profile and (None, model) in the serve
+            one: 32 KB a layer at recurrentgemma-9b's d = 4,096 in bf16
+            (26 layers: 0.85 MB a step);
+          * an MoE layer's ``router`` (d, E), replicated into JAX's
+            ``shard_map`` too: 1.05 MB a layer at qwen3-moe-235b-a22b's
+            d = 4,096, E = 128 in bf16;
+          * the head's table over the axes of its feature dim (``data`` in
+            the train profile), as JAX's ``_logits`` gathers it.
+        The sLSTM's ``r_mat`` (H, hd, 4·hd) is replicated by its spec
+        (xlstm-1.3b's: 4 × 512 × 2,048 in bf16, 8.4 MB a layer, on every
+        cell already), as are the 1-D leaves: nothing is gathered."""
         cfg = self.cfg
         b = token.shape[0]
-        params = self._grid_tables(params, env)
-        xs = self._grid_embed(params, token, {}, env, seq=False)
-        batch_split = bool(env.dp_axes) and b % env.dp_size == 0
+        split = bool(env.dp_axes) and b % env.dp_size == 0
+        n = env.n_cells
+
+        def dot(xs, w):
+            return sh.sharded_dot(xs, w, env, rows_split=split)
+
+        def norm(q, xs):
+            return sh.cellwise(lambda s, x: norm_apply(cfg, x, s),
+                               sh.cell_trees(q, n), xs)
+
+        def add(xs, ys):
+            return sh.cellwise(torch.add, xs, ys)
+
+        def store(c, names, out):     # each cell's new state into its cache
+            for j, name in enumerate(names):
+                c[name] = sh.Sharded([o[0][j] for o in out], c[name].spec)
+
+        def mlp(q, hs):
+            h = sh.cellwise(lambda g, u: glu(cfg, g, u), dot(hs, q["w_gate"]),
+                            dot(hs, q["w_up"]))
+            return dot(h, q["w_down"])
+
+        def small(q):     # each cell's tree of the leaves no product takes
+            return sh.cell_trees({k: t for k, t in q.items()
+                                  if not isinstance(t, dict) and
+                                  t[0].dim() != 2}, n)
+
+        spec = sh.logical_spec((b, 1, cfg.d_model), ("dp", None, None), env)
+        toks = sh.shard(token, spec[:2], env)
+        xs = sh.cellwise(self._scale_embeds, sh.sharded_take(
+            toks, sh.pieces({"embed": params["embed"]}, env)["embed"], env,
+            rows_split=split))
         pos = torch.as_tensor(pos, dtype=torch.int32, device=env.first)
         poss = sh.cellwise(lambda x: pos.to(x.device).reshape(1), xs)
         for i, (kind, p, c) in enumerate(zip(self.kinds, params["layers"],
                                              caches)):
-            lp, trees = self._grid_layer(p, env)
+            lp = sh.pieces(p, env)
             if kind in ("attn", "local"):
-                hs = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm1"]),
-                                 trees, xs)
+                a = lp["attn"]
+                hs = norm(lp["norm1"], xs)
                 q, k, v = sh.unzip(sh.cellwise(
-                    lambda p, h, ps: _attn_qkv(cfg, p["attn"], h, ps), trees,
-                    hs, poss))
+                    lambda p, q, k, v, ps: _qkv_heads(cfg, p, q, k, v, ps),
+                    small(a), dot(hs, a["wq"]), dot(hs, a["wk"]),
+                    dot(hs, a["wv"]), poss))
                 if kind == "attn":
                     o = attn._decode_cells(q, c["k"], c["v"], k, v, pos, env)
                 else:
                     o = self._grid_window_decode(c, q, k, v, pos, env)
-                xs = sh.cellwise(
-                    lambda p, x, o: x + o.reshape(x.shape[0], 1, cfg.q_dim)
-                    @ p["attn"]["wo"], trees, xs, o)
+                o = sh.cellwise(lambda o: o.reshape(o.shape[0], 1, cfg.q_dim),
+                                o)
+                xs = add(xs, dot(o, a["wo"]))
                 if cfg.is_encoder_decoder:
-                    lpc, tpc = self._grid_layer(params["cross_layers"][i],
-                                                env)
-                    xs = sh.cellwise(
-                        lambda p, x, ck, cv: self._cross_layer(
-                            p, x, ck, cv, attn.cross_decode_attention),
-                        tpc, xs, c["cross_k"], c["cross_v"])
-                h2 = sh.cellwise(lambda p, x: norm_apply(cfg, x, p["norm2"]),
-                                 trees, xs)
-                ys, _ = self._grid_ffn(lp, trees, h2, env, decode=True,
-                                       batch_split=batch_split)
-                xs = sh.cellwise(torch.add, xs, ys)
+                    lc = sh.pieces(params["cross_layers"][i], env)
+                    qc = dot(norm(lc["norm"], xs), lc["attn"]["wq"])
+                    o = sh.cellwise(
+                        lambda q, ck, cv: attn.cross_decode_attention(
+                            q.reshape(q.shape[0], 1, cfg.n_heads, cfg.hd),
+                            ck, cv).reshape(q.shape[0], 1, cfg.q_dim),
+                        qc, c["cross_k"], c["cross_v"])
+                    xs = add(xs, dot(o, lc["attn"]["wo"]))
+                h2 = norm(lp["norm2"], xs)
+                if not cfg.is_moe:
+                    xs = add(xs, mlp(lp["mlp"], h2))
+                    continue
+                ys = moe._decode_cells(cfg, moe._expert_cells(lp["moe"], env),
+                                       h2, env, batch_split=split)
+                if cfg.n_shared_experts:
+                    ys = add(ys, mlp(lp["shared_mlp"], h2))
+                xs = add(xs, ys)
                 continue
-            names = {"rec": ("h", "tail"), "m": ("c", "n"),
-                     "s": ("c", "n", "h", "m")}[kind]
-            state = sh.cellwise(lambda *t: t, *[c[k] for k in names])
-
-            def step(p, x, st, kind=kind):
-                bb, _, d = x.shape
-                if kind == "rec":
-                    gate, xin = self._rec_inputs(p, x[:, 0])
-                    new, hr = rec.rglru_decode_step(
-                        st, xin, p["w_rg"], p["b_rg"], p["w_ig"], p["b_ig"],
-                        p["conv_w"], p["conv_b"], p["lam"])
-                    return self._rec_out(p, x, gate[:, None],
-                                         hr[:, None]), new
-                if kind == "m":
-                    q, k, v, i_raw, f_raw = (
-                        t[:, 0] for t in self._mlstm_inputs(p, x))
-                    new, o = rec.mlstm_decode_step(st, q, k, v, i_raw, f_raw)
-                    return x + (o.reshape(bb, d) @ p["wo"])[:, None], new
-                new, o = rec.slstm_decode_step(
-                    st, self._slstm_inputs(p, x)[:, 0], p["r_mat"])
-                return x + (o.reshape(bb, d) @ p["wo"])[:, None], new
-
-            out = sh.cellwise(step, trees, xs, state)
-            xs = [o[0] for o in out]
-            for j, k in enumerate(names):
-                c[k] = sh.Sharded([o[1][j] for o in out], c[k].spec)
-        return self._grid_head(params, xs, env, batch_split), caches
+            hs = norm(lp["norm1"], xs)
+            if kind == "rec":
+                hs = sh.cellwise(lambda h: h[:, 0], hs)
+                gate = sh.cellwise(act_fn("gelu"), dot(hs, lp["proj_gate"]))
+                xin = dot(hs, lp["proj_in"])
+                conv_w = lp["conv_w"]        # its taps are read whole
+                if env.size(tuple(conv_w.spec)) > 1:
+                    conv_w = sh.gather_whole(conv_w, None, env)
+                y = sh.cellwise(rec.rglru_decode_conv, c["tail"], xin,
+                                conv_w, lp["conv_b"])
+                rg, ig = (dot(y, sh.Sharded(sh.cellwise(
+                    lambda t: t.float(), lp[w]), lp[w].spec))
+                    for w in ("w_rg", "w_ig"))
+                out = sh.cellwise(rec.rglru_decode_gates,
+                                  sh.cellwise(lambda *t: t, c["h"],
+                                              c["tail"]),
+                                  xin, y, rg, ig, lp["b_rg"], lp["b_ig"],
+                                  lp["lam"])
+                store(c, ("h", "tail"), out)
+                o = sh.cellwise(lambda g, o: (g * o[1])[:, None], gate, out)
+                xs = add(xs, dot(o, lp["wo"]))
+                xs = add(xs, mlp(lp["mlp"], norm(lp["norm2"], xs)))
+                continue
+            if kind == "m":
+                out = sh.cellwise(
+                    lambda c_, n_, p, *t: rec.mlstm_decode_step(
+                        (c_, n_), *(u[:, 0] for u in _mlstm_heads(cfg, p,
+                                                                  *t))),
+                    c["c"], c["n"], small(lp),
+                    *(dot(hs, lp[w]) for w in ("wq", "wk", "wv", "w_if")))
+                store(c, ("c", "n"), out)
+            else:
+                out = sh.cellwise(
+                    lambda c_, n_, h_, m_, p, t, r: rec.slstm_decode_step(
+                        (c_, n_, h_, m_), _slstm_heads(cfg, p, t)[:, 0], r),
+                    c["c"], c["n"], c["h"], c["m"], small(lp),
+                    dot(hs, lp["w_zifo"]), lp["r_mat"])
+                store(c, ("c", "n", "h", "m"), out)
+            o = sh.cellwise(lambda o: o[1].reshape(o[1].shape[0], 1,
+                                                   cfg.d_model), out)
+            xs = add(xs, dot(o, lp["wo"]))
+        return self._grid_head(params, xs, env, split,
+                               self._head_slices(params, env)), caches
 
     def _grid_window_decode(self, c: Dict[str, Any], q: sh.Cells,
                             k: sh.Cells, v: sh.Cells, pos, env: MeshEnv
                             ) -> sh.Cells:
-        """A ``"local"`` layer's decode on the grid: the rolling window
-        (cut over ``model`` by ``cache_specs`` when W divides) gathered
-        whole per row, ``window_decode_attention`` once per device, the
-        window cut again into the layer's cache."""
-        cfg = self.cfg
+        """A ``"local"`` layer's decode on the grid: the rolling window cut
+        over ``model`` by ``cache_specs`` (when W divides) attended on its
+        shards and combined by lse (``attention._window_decode_cells``), or
+        a whole window ``window_decode_attention`` once per device; the
+        new K/V and position written into the layer's cache in place."""
         kspec = c["k"].spec
-        split = len(kspec) > 1 and kspec[1] is not None
-        kc = sh.all_gather(c["k"], env, "model", 1) if split else c["k"]
-        vc = sh.all_gather(c["v"], env, "model", 1) if split else c["v"]
-        kp = sh.cellwise(lambda t: t.clone(), c["kpos"])
+        if len(kspec) > 1 and kspec[1] is not None:
+            return attn._window_decode_cells(
+                q, c["k"], c["v"], c["kpos"], k, v, pos, env,
+                window=self.cfg.window)
         out = sh.cellwise(
             lambda q, kc, vc, kp, k, v: attn.window_decode_attention(
-                q, kc, vc, kp, k, v, pos.to(q.device), window=cfg.window),
-            q, kc, vc, kp, k, v)
-        o = [t[0] for t in out]
-        for name, j in (("k", 1), ("v", 2)):
-            whole = [t[j] for t in out]
-            if split:
-                w_loc = c[name][0].shape[1]
-                whole = sh.cellwise(   # a copy: a view keeps the window
-                    lambda t, m: t[:, m * w_loc:(m + 1) * w_loc].clone(),
-                    whole,
-                    [env.axis_index(cc, "model") for cc in range(env.n_cells)])
-            c[name] = sh.Sharded(whole, kspec)
-        c["kpos"] = sh.Sharded([t[3] for t in out], c["kpos"].spec)
-        return o
+                q, kc, vc, kp, k, v, pos.to(q.device),
+                window=self.cfg.window)[0],
+            q, c["k"], c["v"], c["kpos"], k, v)
+        return out
 
 
 def _vocab_nll_chunk_sum(step: int, hs: List[torch.Tensor],

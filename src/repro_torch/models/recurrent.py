@@ -399,8 +399,17 @@ def _rglru_gates(y: torch.Tensor, w_rg: torch.Tensor, b_rg: torch.Tensor,
     """(a, sqrt(1 - a²)·i·y) of the recurrence h = a·h + that, from the
     convolved input y (float32); the weights are used in float32, as JAX
     does with ``w.astype(f32)``."""
-    r_g = torch.sigmoid(y @ w_rg.float() + b_rg.float())
-    i_g = torch.sigmoid(y @ w_ig.float() + b_ig.float())
+    return _rglru_mix(y, y @ w_rg.float(), y @ w_ig.float(), b_rg, b_ig,
+                      lam)
+
+
+def _rglru_mix(y: torch.Tensor, rg: torch.Tensor, ig: torch.Tensor,
+               b_rg: torch.Tensor, b_ig: torch.Tensor, lam: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_rglru_gates`` from the gates' products rg = y @ w_rg and
+    ig = y @ w_ig (float32)."""
+    r_g = torch.sigmoid(rg + b_rg.float())
+    i_g = torch.sigmoid(ig + b_ig.float())
     a = torch.exp(-RGLRU_C * _softplus(lam.float()) * r_g)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_g * y)
     return a, gated
@@ -486,10 +495,30 @@ def rglru_decode_step(state: Tuple[torch.Tensor, torch.Tensor],
     """One decode step.  state = (h (B, dr) float32, conv tail (B, 3, dr)
     float32); x_t: (B, dr).  Returns the new state and h (B, dr) in x_t's
     dtype."""
+    y = rglru_decode_conv(state[1], x_t, conv_w, conv_b)
+    return rglru_decode_gates(state, x_t, y, y @ w_rg.float(),
+                              y @ w_ig.float(), b_rg, b_ig, lam)
+
+
+def rglru_decode_conv(tail: torch.Tensor, x_t: torch.Tensor,
+                      conv_w: torch.Tensor, conv_b: torch.Tensor
+                      ) -> torch.Tensor:
+    """A decode step's convolved input y (B, dr) float32, from the conv
+    tail and x_t (B, dr)."""
+    return causal_conv4(x_t.float()[:, None], conv_w.float(),
+                        conv_b.float(), tail)[:, 0]
+
+
+def rglru_decode_gates(state: Tuple[torch.Tensor, torch.Tensor],
+                       x_t: torch.Tensor, y: torch.Tensor, rg: torch.Tensor,
+                       ig: torch.Tensor, b_rg: torch.Tensor,
+                       b_ig: torch.Tensor, lam: torch.Tensor
+                       ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                  torch.Tensor]:
+    """The rest of ``rglru_decode_step`` from y and its gate products
+    rg = y @ w_rg, ig = y @ w_ig (float32): the new state and h."""
     h_prev, tail = state
-    xf = x_t.float()
-    y = causal_conv4(xf[:, None], conv_w.float(), conv_b.float(), tail)[:, 0]
-    a, gated = _rglru_gates(y, w_rg, b_rg, w_ig, b_ig, lam)
+    a, gated = _rglru_mix(y, rg, ig, b_rg, b_ig, lam)
     h = a * h_prev + gated
-    new_tail = torch.cat([tail[:, 1:], xf[:, None]], dim=1)
+    new_tail = torch.cat([tail[:, 1:], x_t.float()[:, None]], dim=1)
     return (h, new_tail), h.to(x_t.dtype)

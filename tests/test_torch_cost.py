@@ -5,7 +5,8 @@ FLOPs against ``torch.utils.flop_counter.FlopCounterMode``; a Python loop
 of products counted once per product (eager code has no ``while`` body
 whose trip count could be lost); a gradient step at least twice its
 forward; each collective of ``distributed/sharding.py`` at the ring
-formula's wire bytes on a (2, 4) grid of fake cards; row-reading and
+formula's wire bytes on a (2, 4) grid of fake cards; the same counts
+under ``torch.inference_mode`` as under ``no_grad``; row-reading and
 row-writing ops at their rows; the kernel wrappers' shape-only routes;
 a fake tensor refused by ``kernels.common.launch``; and every kernel's
 ``cost(...)`` giving ``PERF.md`` §6's bound at the shapes timed there.
@@ -45,6 +46,24 @@ def test_loop_free_matches_flop_counter_mode():
     with FlopCounterMode(display=False) as f:
         torch.tanh(x @ w) @ w
     assert c.total("flops") == f.get_total_flops() == 2 * DOT
+
+
+def test_inference_mode_counts_as_no_grad():
+    """``torch.inference_mode`` hands the counter composite ops whole
+    (``matmul``, ``to``): it counts the ops they are made of, the
+    products' FLOPs and a copy's bytes received on a fake card, as under
+    ``no_grad``."""
+    env = make_env("node")
+    got = []
+    for mode in (torch.no_grad, torch.inference_mode):
+        with FakeTensorMode():
+            x, w = torch.empty(X), torch.empty(W)
+            with OpCounter() as c, mode():
+                (x @ w).to(env.cells[1])
+        got.append((c.total("flops"), c.total("hbm_bytes"),
+                    c.total("copy_bytes_in")))
+    assert got[0] == got[1]
+    assert got[0][0] == DOT and got[0][2] == 64 * 128 * 4
 
 
 def test_loop_counts_every_product():

@@ -8,7 +8,8 @@ two reduced models (qwen3-1.7b, qwen3-moe-235b-a22b with its drops) on
 the mesh: prefill logits, a decode step and the loss.  The port's rules
 must give, leaf for leaf, JAX's spec with the stacked lead entry dropped
 (the port keeps per-layer lists).  Then every family's reduced model runs
-on a (2, 2) grid (data 2 x sequence 2) against the port's one-device
+on a (2, 2) grid (data 2 x sequence 2), and its prefill and decode steps
+on a (2, 4) grid of the serve profile, against the port's one-device
 model, which ``test_torch_lm.py`` and its siblings hold to JAX: logits,
 the caches after the prefill and after 4 decode steps, the loss and its
 gradients, at 1e-4 of the largest magnitude; the grid ``Trainer`` over 3
@@ -45,6 +46,7 @@ FAMILIES = ("qwen3-1.7b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
             "recurrentgemma-9b", "llava-next-34b", "whisper-tiny")
 GRID22 = MeshEnv([["cpu"] * 2] * 2)
 GRID24 = MeshEnv([["cpu"] * 4] * 2)
+SERVE24 = MeshEnv([["cpu"] * 4] * 2, profile="serve")
 
 JAX_BODY = r'''
 import json, sys, dataclasses
@@ -322,6 +324,35 @@ def test_family_on_a_grid_matches_one_device(arch):
         float(loss1.detach()))
     for a, b in zip(g1, g2):
         assert _rel(b, a) < TOL
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_on_a_serve_grid_matches_one_device(arch):
+    """The serve profile's layout on a (2, 4) grid (Megatron: ``wo``,
+    ``w_down`` and ``proj_in`` cut over ``model`` on their contraction dim,
+    the other matrices on their output dim, the tables on the vocabulary
+    only), where the decode step's row-parallel products add their
+    partial sums over ``model``: the prefill and 4 decode steps, the logits
+    and the caches within TOL of one device's."""
+    cfg = _f32(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: v for k, v in _batch(cfg).items() if k != "labels"}
+    with torch.inference_mode():
+        l1, c1 = model.prefill(params, batch, cache_len=40)
+        l2, c2 = model.prefill(params, batch, cache_len=40, env=SERVE24)
+        assert _rel(l2, l1) < TOL
+        for step in range(4):
+            tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
+            l1, c1 = model.decode_step(params, c1, tok, 32 + step)
+            l2, c2 = model.decode_step(params, c2, tok, 32 + step,
+                                       env=SERVE24)
+            assert _rel(l2, l1) < TOL, step
+            assert torch.equal(l2[:, -1].argmax(-1), l1[:, -1].argmax(-1))
+        whole = model.gather_caches(c2, SERVE24)
+        for i, c in enumerate(c1):
+            for k in c:
+                assert _rel(whole[i][k], c[k]) < TOL, (i, k)
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])

@@ -178,10 +178,13 @@ def test_bf16_decode_cross_attention_follows_jax(env):
     self-attention and FFN products, whose sum orders the port does not
     follow bit for bit) drops out.  Both decode sites are held: the one
     device step and the grid step (``env``, a (2, 1) grid of CPU cells, one
-    row a cell).  Measured on the CPU over 6 steps: the logits of both
-    equal JAX's (max abs err 0); normalising after P·V, as the prefill's
-    ``cross_attention`` does, gave a max abs err of 0.0039 at either site
-    reverted alone."""
+    row a cell), the grid in both profiles: the train profile cuts each
+    weight's contraction dim over ``data``, so the weight-stationary step
+    adds float32 partial products and rounds once; the serve profile
+    keeps the weights whole on the one ``model`` rank.  Measured on the
+    CPU over 6 steps: the logits of all three equal JAX's (max abs err 0);
+    normalising after P·V, as the prefill's ``cross_attention`` does,
+    gave a max abs err of 0.0039 at either site reverted alone."""
     jcfg = dataclasses.replace(JAX_ARCHS[ARCH].reduced(), dtype="bfloat16")
     tcfg = dataclasses.replace(get_arch(ARCH).reduced(), dtype="bfloat16")
     jm = jmodel.build_model(jcfg)
@@ -208,17 +211,21 @@ def test_bf16_decode_cross_attention_follows_jax(env):
     tc = [{"cross_k": bf16(ks[i]), "cross_v": bf16(vs[i]),
            "k": bf16(self_kv["k"][i]), "v": bf16(self_kv["v"][i])}
           for i in range(tcfg.n_layers)]
-    grid = MeshEnv([["cpu"], ["cpu"]])          # (2, 1): a row a cell
-    gc = tm.shard_caches(tc, grid, b)
-    err = {"one device": 0.0, "grid": 0.0}
+    grids = {prof: MeshEnv([["cpu"], ["cpu"]], profile=prof)  # a row a cell
+             for prof in ("train", "serve")}
+    gcs = {prof: tm.shard_caches(tc, g, b) for prof, g in grids.items()}
+    err = {"one device": 0.0, "grid train": 0.0, "grid serve": 0.0}
     for i in range(steps):
         tok = toks[:, s + i:s + i + 1]
         with set_env(env):
             jl, jc = jm.decode_step(jp, jc, jnp.asarray(tok),
                                     jnp.asarray(s + i, jnp.int32), env)
         tl, tc = tm.decode_step(tp, tc, _t(tok), s + i)
-        gl, gc = tm.decode_step(tp, gc, _t(tok), s + i, env=grid)
-        for key, got in (("one device", tl), ("grid", gl)):
+        outs = {"one device": tl}
+        for prof, g in grids.items():
+            outs[f"grid {prof}"], gcs[prof] = tm.decode_step(
+                tp, gcs[prof], _t(tok), s + i, env=g)
+        for key, got in outs.items():
             assert got.dtype == torch.float32
             err[key] = max(err[key], float(np.abs(
                 got.numpy() - np.asarray(jl, np.float32)).max()))
