@@ -205,8 +205,8 @@ Phases, each of which fails the run if anything in it fails:
    printed beside one device's); (e) there too, its 28 layers as 4 stages
    of 7 on a ("stage",) × 4 grid, 4 microbatches, against the layers in
    order (``grid_pipeline``); (b) in phase 7, xlstm-1.3b: the mLSTM prefix
-   and the sLSTM carry chain (4 scan launches a prefill, one a decode
-   step); (c) in phase 10, recurrentgemma-9b: the ``"local"`` window ring
+   and the sLSTM carry chain (4 scan launches a prefill, 4 a decode
+   step: each ``model`` rank steps its block of the heads); (c) in phase 10, recurrentgemma-9b: the ``"local"`` window ring
    (3 of 4 steps, flash at G = 16, hd = 256) and the RG-LRU prefix; (d)
    in phase 11, qwen3-moe-235b-a22b at 8 layers: 32 experts a cell and the
    all_to_all of capacity blocks; (f) after phase 12 frees its state,
@@ -220,9 +220,11 @@ Phases, each of which fails the run if anything in it fails:
    prefill logits' largest difference and the share of greedy tokens that
    agree (random weights leave near-ties); the hard checks are float32 at
    the same widths and 2 layers (xlstm one "m" and one "s", recurrentgemma
-   one "rec" and one "local"): the grid's logits (prefill and 4 decode
-   steps, on (1, 4) grids of the train and of the serve profile, whose
-   row-parallel products add partial sums over ``model``), the loss and
+   one "rec" and one "local"; whisper-tiny whole, in phase 10, also on
+   (1, 2) grids, where its 6 heads split over ``model``): the grid's
+   logits (prefill and 4 decode steps, on (1, 4) grids of the train and
+   of the serve profile, whose row-parallel products add partial sums
+   over ``model``), the loss and
    every gradient within ``GRID_TOL`` of one device's, relative to the
    largest magnitude, and the grid's greedy tokens one device's.  Every grid run's peak
    memory allocated is at most ``GRID_PEAK_RATIO`` × one device's (and
@@ -1517,6 +1519,12 @@ def families_phase(device, card: str, grid_acc: dict, grid_out: dict
             grid_f32(cfg.name, dataclasses.replace(
                 cfg, dtype="float32", n_layers=2,
                 block_pattern=("rec", "local")), device, s=GRID_PROMPT)
+        if path == "audio":
+            # whisper-tiny whole, its 6 heads: on the (1, 4) grid every
+            # rank runs all of them; on (1, 2) each runs its 3 (the
+            # head-split cross attention of the decode step)
+            grid_f32(cfg.name, dataclasses.replace(cfg, dtype="float32"),
+                     device, s=sz["prompt"], tps=(4, 2))
         log(f"[{path}] ran {time.perf_counter() - t_model:.1f} s")
     return out
 
@@ -2279,11 +2287,13 @@ def grid_serve(tag: str, model, params, batch, device, card: str,
                 one_decode_ms=one_ms, grid_decode_ms=grid_ms)
 
 
-def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S) -> float:
+def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S,
+             tps: tuple = (4,)) -> float:
     """Phase 13's hard check of a serving path: ``cfg32`` (float32, the
     same widths at 2 layers) drawn from seed 0, 2 prompts of ``s`` tokens
-    prefilled and 4 greedy steps decoded on one device and on a (1, 4)
-    grid of the card, in the train profile (each weight cut on its output
+    prefilled and 4 greedy steps decoded on one device and on a (1, n)
+    grid of the card for each n of ``tps``, in the train profile (each
+    weight cut on its output
     dim: column-parallel products) and in the serve profile (``wo``,
     ``w_down`` and ``proj_in`` cut on their contraction dim: row-parallel
     products, partials added over ``model``), the weights cut into their
@@ -2301,8 +2311,8 @@ def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S) -> float:
     batch = make_batch(cfg32, 2, s, 0, 0, device=device)
     batch.pop("labels")
     worst = 0.0
-    for profile in ("train", "serve"):
-        env = sh.MeshEnv([[device] * 4], profile=profile)
+    for tp, profile in ((tp, pr) for tp in tps for pr in ("train", "serve")):
+        env = sh.MeshEnv([[device] * tp], profile=profile)
         cut = sh.pieces(params, env)
         errs, same = [], True
         with torch.inference_mode():
@@ -2324,7 +2334,7 @@ def grid_f32(tag: str, cfg32, device, s: int = GRID_CHECK_S) -> float:
                                  f"device's")
         log(f"[grid] {tag} float32, {cfg32.n_layers} layers "
             f"{list(cfg32.layer_kinds())} at full width, B=2 prompt={s}: "
-            f"the (1, 4) {profile}-profile grid's prefill and 4 decode "
+            f"the (1, {tp}) {profile}-profile grid's prefill and 4 decode "
             f"steps' logits within {max(errs):.3g} of one device's, of the "
             f"largest (tol {GRID_TOL}); greedy tokens equal")
         if not max(errs) <= GRID_TOL:
@@ -3799,8 +3809,9 @@ def main() -> int:
 
     # slstm_scan: the JAX kernel tests' shapes (f32 R: the cooperative
     # route, 1e-5), an odd shape in f32 and bf16 R and decode steps (S = 1,
-    # the step route, with the served bf16 xpre and R among them) from a
-    # nonzero state (1e-5), the cluster route's batch chunks and groups
+    # the step route, with the served bf16 xpre and R among them, and
+    # phase 13's grid step on one head, a "model" rank's block, in bf16
+    # and f32) from a nonzero state (1e-5), the cluster route's batch chunks and groups
     # (B = 9) and 16 heads in waves, then the served shape (xlstm-1.3b:
     # B = 4, S = 2,048, H = 4,
     # hd = 512) with the model's bf16 R (cluster route) and with an f32 R
@@ -3837,6 +3848,9 @@ def main() -> int:
             (XL_B, 1, XL_H, XL_HD, f32, bf16, True, 1e-5),
             (XL_B, 1, XL_H, XL_HD, bf16, bf16, True, 1e-5),
             (8, 1, XL_H, XL_HD, f32, f32, True, 1e-5),
+            # phase 13's grid step: each "model" rank's one head
+            (GRID_B, 1, 1, XL_HD, bf16, bf16, True, 1e-5),
+            (GRID_B, 1, 1, XL_HD, f32, f32, True, 1e-5),
             (9, 64, XL_H, XL_HD, f32, bf16, True, 1e-5),
             (1, 64, 16, XL_HD, f32, bf16, True, 1e-5),
             (XL_B, XL_S, XL_H, XL_HD, f32, bf16, False, 1e-4),
@@ -4383,11 +4397,11 @@ def main() -> int:
     gbatch = make_batch(xcfg, GRID_B, GRID_PROMPT, 0, 0)
     gbatch.pop("labels")
     # the chain: 4 scan launches a prefill (one a cell, in order); a decode
-    # step's state is the same on every cell: one launch
+    # step: 4 (each "model" rank steps its block of the heads)
     grid_out["xlstm-1.3b"] = grid_serve(
         "xlstm-1.3b", xmodel, params, gbatch, dev, card, grid_acc,
         {"flash_attention": 0, "decode_attention": 0,
-         "slstm_scan": n_s * (4 + GRID_STEPS)})
+         "slstm_scan": n_s * 4 * (1 + GRID_STEPS)})
     del params, gbatch
     torch.cuda.empty_cache()
     grid_s += time.perf_counter() - t_grid

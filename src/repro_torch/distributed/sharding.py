@@ -863,7 +863,7 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def sharded_dot(xs: Cells, w: Any, env: MeshEnv, *, rows_split: bool,
-                spec=None) -> Cells:
+                spec=None, cols=()) -> Cells:
     """``x @ w`` on every cell with the weight ``w`` (in, out) staying in
     its pieces: JAX's product of an activation by a weight sharded by
     ``infer_param_specs``, which moves activations only.  ``xs`` holds one
@@ -887,11 +887,22 @@ def sharded_dot(xs: Cells, w: Any, env: MeshEnv, *, rows_split: bool,
 
     Each cell multiplies by its own piece, also where the grid names one
     device several times (cells that share a piece and an activation
-    share one product, :func:`cellwise`)."""
+    share one product, :func:`cellwise`).
+
+    ``cols`` names the axes over which each cell holds only its rank's
+    block of x's columns (a head-split step's heads, in rank order).
+    Where the contraction dim is cut over exactly those axes, and the rows
+    over none of them, each cell multiplies its block by its own piece and
+    nothing is gathered; otherwise the blocks are all-gathered over
+    ``cols`` first."""
     if not isinstance(w, Sharded):
         w = shard(w, spec, env)
     k_axes, n_axes = (_axes(e) for e in _full_spec(w.spec, 2))
     rows = _row_axes(env, rows_split, k_axes)
+    cols = _axes(cols)
+    if cols and (cols != k_axes or rows):
+        xs = all_gather(xs, env, cols, -1)
+        cols = ()
     if rows:
         xs = all_gather(xs, env, rows, 0)
     nk = env.size(k_axes)
@@ -899,6 +910,8 @@ def sharded_dot(xs: Cells, w: Any, env: MeshEnv, *, rows_split: bool,
     def part(x, piece, i):
         if nk == 1:
             return x @ piece
+        if cols:
+            return _dot_f32(x, piece)
         k = piece.shape[0]
         return _dot_f32(x[..., i * k:(i + 1) * k], piece)
 

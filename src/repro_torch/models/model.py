@@ -299,6 +299,21 @@ def _slstm_heads(cfg: ArchConfig, p: Params, pre: torch.Tensor
             + p["b_zifo"].to(pre.dtype))
 
 
+def _refuse_ragged(env: MeshEnv, batch: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` where the grid's ``model`` axis does not divide
+    the sequence (dim 1) of ``batch``'s tokens or the encoder's frames,
+    which the grid cuts over ``model``, as JAX's ``shard_map`` over the
+    ring (``attention.py:216-222``) refuses it: its ranks would hold
+    pieces of unequal length."""
+    n = env.tp_size
+    for name in ("tokens", "frames"):
+        t = batch.get(name)
+        if n > 1 and t is not None and t.shape[1] % n:
+            raise ValueError(
+                f"{name}: a sequence of length {t.shape[1]} is not "
+                f"divisible by the grid's 'model' axis of size {n}")
+
+
 def _pad_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
     s = k.shape[1]
     if s >= cache_len:
@@ -948,16 +963,15 @@ class Model:
         return lp, sh.cell_trees(lp, env.n_cells)
 
     def _grid_tables(self, params: Params, env: MeshEnv) -> Params:
-        """``params`` with the embedding (and an untied unembedding) whole
-        on each cell's device, gathered once for the embedding and the
-        head (a cell list each; a device that holds them whole gets them
-        with no copy)."""
+        """``params`` with the embedding whole on each cell's device (a
+        cell list; a device that holds it whole gets it with no copy),
+        gathered once for the lookup and for a tied head, as JAX's compiled
+        lookup gathers it at the published shapes.  An untied unembedding
+        stays in its pieces (``_vocab_slices``)."""
         p = dict(params)
-        for key in ("embed", "unembed"):
-            if key in p:
-                p[key] = (sh.gather_whole(p[key], None, env)
-                          if isinstance(p[key], list)
-                          else sh.replicate(p[key], env))
+        p["embed"] = (sh.gather_whole(p["embed"], None, env)
+                      if isinstance(p["embed"], list)
+                      else sh.replicate(p["embed"], env))
         return p
 
     def _grid_embed(self, params: Params, tokens: torch.Tensor,
@@ -1236,8 +1250,7 @@ class Model:
         vocabulary over ``model`` when it divides, else whole), joined as
         (dp, None, tp) into float32 logits (B, 1, V) on the first cell.
         ``slices``: (cells, vocab axis) as ``_head_slices`` gives them;
-        by default ``_vocab_slices`` of the tables ``_grid_tables``
-        gathered."""
+        by default ``_vocab_slices``."""
         hs = self._grid_norm(params["final_norm"], xs, env)
         w_slices, spec = slices or self._vocab_slices(params, env)
         logits = sh.cellwise(lambda h, w: (h @ w.t()).float(), hs, w_slices)
@@ -1246,12 +1259,17 @@ class Model:
 
     def _vocab_slices(self, params: Params, env: MeshEnv):
         """Each cell's rows of the unembedding for the prefill and the
-        loss: its ``model`` rank's slice of the vocabulary (a view of the
-        table ``_grid_tables`` gathered whole on its device), or the whole
-        when V does not divide.  Returns (cells, the vocab dim's axis or
-        None).  A decode step takes ``_head_slices`` instead."""
-        key = "embed" if self.cfg.tie_embeddings else "unembed"
-        whole = params[key]                  # as _grid_tables gives them
+        loss.  Tied: its ``model`` rank's slice of the vocabulary (a view
+        of the table ``_grid_tables`` gathered whole on its device for the
+        lookup), or the whole when V does not divide.  Untied: the table's
+        own pieces as ``_head_slices`` lays them out (JAX's ``_logits``), so
+        no cell receives the other ranks' vocabulary and, in the loss, the
+        gradient reaches each piece through the feature dim's all-gather
+        alone.  Returns (cells, the vocab dim's axis or None).  A decode
+        step takes ``_head_slices`` for both."""
+        if not self.cfg.tie_embeddings:
+            return self._head_slices(params, env)
+        whole = params["embed"]              # as _grid_tables gives them
         n = env.tp_size
         v = whole[0].shape[0]
         if n == 1 or v % n:
@@ -1277,6 +1295,7 @@ class Model:
     def _grid_prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                       cache_len: int, env: MeshEnv):
         cfg = self.cfg
+        _refuse_ragged(env, batch)
         params = self._grid_tables(params, env)
         xs = self._grid_embed(params, batch["tokens"], batch, env)
         enc = None
@@ -1302,6 +1321,7 @@ class Model:
         cells, then the vocabulary-parallel NLL (``_grid_nll``), summed
         over the cells in rank order."""
         cfg = self.cfg
+        _refuse_ragged(env, batch)
         params = self._grid_tables(params, env)
         xs = self._grid_embed(params, batch["tokens"], batch, env)
         enc = None
@@ -1382,10 +1402,19 @@ class Model:
         (``sharding.sharded_take``); the head keeps the vocabulary over
         ``model`` (``_head_slices``).  The split-K decode runs over the
         cache shards and the rolling window's (``_grid_window_decode``),
-        the recurrent states are replicated over ``model``, the MoE
-        experts run expert-parallel.  ``params`` are best cut once into
-        their pieces (``sharding.pieces``, as ``generate`` does): a whole
-        leaf is cut here at every step.
+        the MoE experts run expert-parallel.  The math that reads no weight
+        is split by head over ``model`` where n divides H, as XLA splits
+        JAX's: each rank runs the sLSTM step (the step kernel), the mLSTM
+        readout (q·n, q·C) and whisper's cross attention on its H / n
+        heads, and its block of heads enters ``wo`` as its block of the
+        contraction dim (``sharded_dot``'s ``cols``: nothing gathered where
+        ``wo`` is row-parallel, the serve profile; all-gathered over
+        ``model`` first in the train profile).  The recurrent states stay
+        replicated over ``model`` (``cache_specs``): the sLSTM's new head
+        blocks are all-gathered over ``model``; the mLSTM's elementwise
+        state update runs whole on every rank.  ``params`` are best cut
+        once into their pieces (``sharding.pieces``, as ``generate`` does):
+        a whole leaf is cut here at every step.
 
         The weight leaves a step still all-gathers, each used other than
         as the right operand of a product by a token's rows:
@@ -1405,9 +1434,19 @@ class Model:
         b = token.shape[0]
         split = bool(env.dp_axes) and b % env.dp_size == 0
         n = env.n_cells
+        tp = env.tp_size
 
-        def dot(xs, w):
-            return sh.sharded_dot(xs, w, env, rows_split=split)
+        def per_rank(heads, group=1):
+            """(the heads each cell runs, each cell's block index): a
+            ``model`` rank's H / n heads where n divides H into blocks of
+            whole groups (``group`` heads share a K/V head), else all H."""
+            hb = heads // tp
+            if tp == 1 or heads % tp or (hb % group and group % hb):
+                return heads, [0] * n
+            return hb, [env.axis_index(c, "model") for c in range(n)]
+
+        def dot(xs, w, cols=()):
+            return sh.sharded_dot(xs, w, env, rows_split=split, cols=cols)
 
         def norm(q, xs):
             return sh.cellwise(lambda s, x: norm_apply(cfg, x, s),
@@ -1416,9 +1455,9 @@ class Model:
         def add(xs, ys):
             return sh.cellwise(torch.add, xs, ys)
 
-        def store(c, names, out):     # each cell's new state into its cache
+        def store(c, names, states):  # each cell's new state into its cache
             for j, name in enumerate(names):
-                c[name] = sh.Sharded([o[0][j] for o in out], c[name].spec)
+                c[name] = sh.Sharded([st[j] for st in states], c[name].spec)
 
         def mlp(q, hs):
             h = sh.cellwise(lambda g, u: glu(cfg, g, u), dot(hs, q["w_gate"]),
@@ -1457,12 +1496,12 @@ class Model:
                 if cfg.is_encoder_decoder:
                     lc = sh.pieces(params["cross_layers"][i], env)
                     qc = dot(norm(lc["norm"], xs), lc["attn"]["wq"])
-                    o = sh.cellwise(
-                        lambda q, ck, cv: attn.cross_decode_attention(
-                            q.reshape(q.shape[0], 1, cfg.n_heads, cfg.hd),
-                            ck, cv).reshape(q.shape[0], 1, cfg.q_dim),
-                        qc, c["cross_k"], c["cross_v"])
-                    xs = add(xs, dot(o, lc["attn"]["wo"]))
+                    hb, blk = per_rank(cfg.n_heads,
+                                       cfg.n_heads // cfg.n_kv_heads)
+                    o = self._grid_cross_decode(qc, c["cross_k"],
+                                                c["cross_v"], hb, blk)
+                    xs = add(xs, dot(o, lc["attn"]["wo"],
+                                     "model" if hb < cfg.n_heads else ()))
                 h2 = norm(lp["norm2"], xs)
                 if not cfg.is_moe:
                     xs = add(xs, mlp(lp["mlp"], h2))
@@ -1491,31 +1530,74 @@ class Model:
                                               c["tail"]),
                                   xin, y, rg, ig, lp["b_rg"], lp["b_ig"],
                                   lp["lam"])
-                store(c, ("h", "tail"), out)
+                store(c, ("h", "tail"), [o[0] for o in out])
                 o = sh.cellwise(lambda g, o: (g * o[1])[:, None], gate, out)
                 xs = add(xs, dot(o, lp["wo"]))
                 xs = add(xs, mlp(lp["mlp"], norm(lp["norm2"], xs)))
                 continue
+            # each cell runs its block of heads (all H where n does not
+            # divide them), and the block enters wo as its rows
+            hb, blk = per_rank(cfg.n_heads)
+            split_heads = hb < cfg.n_heads
             if kind == "m":
-                out = sh.cellwise(
-                    lambda c_, n_, p, *t: rec.mlstm_decode_step(
-                        (c_, n_), *(u[:, 0] for u in _mlstm_heads(cfg, p,
-                                                                  *t))),
-                    c["c"], c["n"], small(lp),
+                ins = sh.cellwise(
+                    lambda p, *t: tuple(u[:, 0] for u in _mlstm_heads(
+                        cfg, p, *t)), small(lp),
                     *(dot(hs, lp[w]) for w in ("wq", "wk", "wv", "w_if")))
-                store(c, ("c", "n"), out)
+                # the state update is elementwise: whole on every rank, so
+                # the state (H·hd² floats a row) never crosses the grid
+                new = sh.cellwise(lambda c_, n_, t: rec.mlstm_decode_update(
+                    (c_, n_), *t[1:]), c["c"], c["n"], ins)
+                store(c, ("c", "n"), new)
+                o = sh.cellwise(
+                    lambda t, st, m: rec.mlstm_decode_readout(
+                        *(u[:, m * hb:(m + 1) * hb] for u in (t[0], *st))),
+                    ins, new, blk)
             else:
-                out = sh.cellwise(
-                    lambda c_, n_, h_, m_, p, t, r: rec.slstm_decode_step(
-                        (c_, n_, h_, m_), _slstm_heads(cfg, p, t)[:, 0], r),
-                    c["c"], c["n"], c["h"], c["m"], small(lp),
-                    dot(hs, lp["w_zifo"]), lp["r_mat"])
-                store(c, ("c", "n", "h", "m"), out)
-            o = sh.cellwise(lambda o: o[1].reshape(o[1].shape[0], 1,
-                                                   cfg.d_model), out)
-            xs = add(xs, dot(o, lp["wo"]))
+                pre = sh.cellwise(lambda p, t: _slstm_heads(cfg, p, t)[:, 0],
+                                  small(lp), dot(hs, lp["w_zifo"]))
+                names = ("c", "n", "h", "m")
+
+                def step(c_, n_, h_, m_, t, r, m):   # the step kernel
+                    heads = slice(m * hb, (m + 1) * hb)
+                    return rec.slstm_decode_step(
+                        tuple(u[:, heads].contiguous()
+                              for u in (c_, n_, h_, m_)),
+                        t[:, :, heads], r[heads])
+
+                out = sh.cellwise(step, *(c[k] for k in names), pre,
+                                  lp["r_mat"], blk)
+                states = [u[0] for u in out]
+                if split_heads:    # back to cache_specs' replicated layout
+                    states = list(zip(*(sh.all_gather(
+                        [st[j] for st in states], env, "model", 1)
+                        for j in range(4))))
+                store(c, names, states)
+                o = [u[1] for u in out]
+            o = sh.cellwise(lambda o: o.reshape(o.shape[0], 1, -1), o)
+            xs = add(xs, dot(o, lp["wo"], "model" if split_heads else ()))
         return self._grid_head(params, xs, env, split,
                                self._head_slices(params, env)), caches
+
+    def _grid_cross_decode(self, qc: sh.Cells, ck: sh.Cells, cv: sh.Cells,
+                           hb: int, blk: List[int]) -> sh.Cells:
+        """Whisper's decode-step cross attention on the grid over the cached
+        encoder K/V (replicated over ``model``): each cell runs block
+        ``blk[c]`` of ``hb`` heads (``_grid_decode``'s ``per_rank``: a
+        ``model`` rank's own heads, as XLA splits JAX's, or all of them) on
+        views of its heads' cross K/V.  Returns o cells (B, 1, hb · hd)."""
+        cfg = self.cfg
+        g = cfg.n_heads // cfg.n_kv_heads
+        kb = max(hb // g, 1)
+
+        def block(q, k, v, m):
+            lo = m * hb // g
+            q = q.reshape(q.shape[0], 1, cfg.n_heads, cfg.hd)
+            return attn.cross_decode_attention(
+                q[:, :, m * hb:(m + 1) * hb], k[:, :, lo:lo + kb],
+                v[:, :, lo:lo + kb]).reshape(q.shape[0], 1, hb * cfg.hd)
+
+        return sh.cellwise(block, qc, ck, cv, blk)
 
     def _grid_window_decode(self, c: Dict[str, Any], q: sh.Cells,
                             k: sh.Cells, v: sh.Cells, pos, env: MeshEnv

@@ -210,9 +210,18 @@ def mlstm_decode_step(state: Tuple[torch.Tensor, torch.Tensor],
     """One decode step.  state = (C (B, H, hd, hd), n (B, H, hd));
     q, k, v: (B, H, hd); i_raw, f_raw: (B, H).  Returns the new state and
     h (B, H, hd) in q's dtype."""
+    C, nv = mlstm_decode_update(state, k, v, i_raw, f_raw)
+    return (C, nv), mlstm_decode_readout(q, C, nv)
+
+
+def mlstm_decode_update(state: Tuple[torch.Tensor, torch.Tensor],
+                        k: torch.Tensor, v: torch.Tensor,
+                        i_raw: torch.Tensor, f_raw: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's new state (C, n) (``mlstm_decode_step``'s), by
+    elementwise math alone."""
     C, nv = state
-    hd = q.shape[-1]
-    qf = q.float() * (hd ** -0.5)
+    hd = k.shape[-1]
     kf = k.float() * (hd ** -0.5)
     vf = v.float()
     i_g = torch.exp(logsig(i_raw.float()))[..., None]
@@ -220,10 +229,18 @@ def mlstm_decode_step(state: Tuple[torch.Tensor, torch.Tensor],
     C = f_g[..., None] * C + i_g[..., None] * (kf[..., :, None]
                                                * vf[..., None, :])
     nv = f_g * nv + i_g * kf
+    return C, nv
+
+
+def mlstm_decode_readout(q: torch.Tensor, C: torch.Tensor,
+                         nv: torch.Tensor) -> torch.Tensor:
+    """A decode step's h (B, H, hd) in q's dtype from the new state: the
+    products q·n and q·C, head by head (any block of heads on its own)."""
+    qf = q.float() * (q.shape[-1] ** -0.5)
     qn = torch.einsum("bhd,bhd->bh", qf, nv)
     h = torch.einsum("bhd,bhdv->bhv", qf, C) \
         / torch.clamp(qn.abs(), min=1.0)[..., None]
-    return (C, nv), h.to(q.dtype)
+    return h.to(q.dtype)
 
 
 def mlstm_with_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

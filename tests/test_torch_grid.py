@@ -9,12 +9,18 @@ the mesh: prefill logits, a decode step and the loss.  The port's rules
 must give, leaf for leaf, JAX's spec with the stacked lead entry dropped
 (the port keeps per-layer lists).  Then every family's reduced model runs
 on a (2, 2) grid (data 2 x sequence 2), and its prefill and decode steps
-on a (2, 4) grid of the serve profile, against the port's one-device
+on (2, 4) grids of the serve and of the train profile, against the port's one-device
 model, which ``test_torch_lm.py`` and its siblings hold to JAX: logits,
 the caches after the prefill and after 4 decode steps, the loss and its
 gradients, at 1e-4 of the largest magnitude; the grid ``Trainer`` over 3
 steps of AdamW and of Adafactor (its update on the pieces), masters and
-optimizer state; ``generate``.
+optimizer state; ``generate``.  On a (2, 3) grid, whose 3 ``model``
+ranks do not divide 32 tokens, the prefill, the loss and ``generate``
+raise ``ValueError`` before any layer runs, as JAX's prefill does on a
+(2, 3) mesh of 6 forced devices; with 36 tokens the grid holds one device.
+On those (2, 4) grids the decode math that reads no weight (xLSTM's
+sLSTM step and mLSTM readout, whisper's cross attention) runs on each
+rank's block of heads.
 """
 import dataclasses
 import json
@@ -45,8 +51,8 @@ JAX_MODELS = ("qwen3-1.7b", "qwen3-moe-235b-a22b")
 FAMILIES = ("qwen3-1.7b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
             "recurrentgemma-9b", "llava-next-34b", "whisper-tiny")
 GRID22 = MeshEnv([["cpu"] * 2] * 2)
+GRID23 = MeshEnv([["cpu"] * 3] * 2)
 GRID24 = MeshEnv([["cpu"] * 4] * 2)
-SERVE24 = MeshEnv([["cpu"] * 4] * 2, profile="serve")
 
 JAX_BODY = r'''
 import json, sys, dataclasses
@@ -61,6 +67,7 @@ from repro.models.model import build_model
 src, dst_json, dst_npz, batch, cache_len, models = (
     sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]),
     int(sys.argv[5]), json.loads(sys.argv[6]))
+REFUSED = models[0]
 auto = jax.sharding.AxisType.Auto
 mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(auto,) * 2)
 
@@ -109,6 +116,22 @@ for name in models:
     out[f"{name}/prefill"] = np.asarray(lg)
     out[f"{name}/decode"] = np.asarray(lg2)
     out[f"{name}/loss"] = np.asarray(loss)
+
+# a (2, 3) mesh of 6 of the devices: its 3 "model" ranks do not divide the
+# 32 tokens, and the ring's shard_map refuses them
+mesh6 = jax.sharding.Mesh(np.array(jax.devices()[:6]).reshape(2, 3),
+                          ("data", "model"))
+env6 = MeshEnv(mesh=mesh6)
+cfg = dataclasses.replace(ARCHS[REFUSED].reduced(), dtype="float32")
+m = build_model(cfg)
+p = m.init(jax.random.PRNGKey(0))
+try:
+    with mesh6, set_env(env6):
+        m.prefill(p, {"tokens": jnp.asarray(inp[f"{REFUSED}/tokens"])}, env6,
+                  cache_len=40)
+    out["refused"] = np.asarray("")
+except ValueError as e:
+    out["refused"] = np.asarray(str(e))
 np.savez(dst_npz, **out)
 '''
 
@@ -326,32 +349,44 @@ def test_family_on_a_grid_matches_one_device(arch):
         assert _rel(b, a) < TOL
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_family_decode_on_a_serve_grid_matches_one_device(arch):
-    """The serve profile's layout on a (2, 4) grid (Megatron: ``wo``,
+@pytest.mark.parametrize("arch, profile", [
+    pytest.param(a, p, id=a if p == "serve" else f"{a}-{p}")
+    for p in ("serve", "train") for a in FAMILIES])
+def test_family_decode_on_a_serve_grid_matches_one_device(arch, profile):
+    """The prefill and 4 decode steps on a (2, 4) grid, the weights cut
+    into their pieces: in the serve profile's layout (Megatron: ``wo``,
     ``w_down`` and ``proj_in`` cut over ``model`` on their contraction dim,
     the other matrices on their output dim, the tables on the vocabulary
     only), where the decode step's row-parallel products add their
-    partial sums over ``model``: the prefill and 4 decode steps, the logits
-    and the caches within TOL of one device's."""
+    partial sums over ``model``, and in the train profile's.  The decode
+    math that reads no weight (the sLSTM step, the mLSTM readout, the
+    cross attention) runs on each ``model`` rank's block of the 4 heads.
+    The logits and every cache (the states all-gathered back to
+    ``cache_specs``' layout) within TOL of one device's, the greedy tokens
+    one device's."""
     cfg = _f32(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
+    env = MeshEnv([["cpu"] * 4] * 2, profile=profile)
+    cut = sh.pieces(params, env)
     batch = {k: v for k, v in _batch(cfg).items() if k != "labels"}
     with torch.inference_mode():
         l1, c1 = model.prefill(params, batch, cache_len=40)
-        l2, c2 = model.prefill(params, batch, cache_len=40, env=SERVE24)
+        l2, c2 = model.prefill(cut, batch, cache_len=40, env=env)
         assert _rel(l2, l1) < TOL
         for step in range(4):
             tok = l1[:, -1].argmax(-1)[:, None].to(torch.int32)
             l1, c1 = model.decode_step(params, c1, tok, 32 + step)
-            l2, c2 = model.decode_step(params, c2, tok, 32 + step,
-                                       env=SERVE24)
+            l2, c2 = model.decode_step(cut, c2, tok, 32 + step, env=env)
             assert _rel(l2, l1) < TOL, step
             assert torch.equal(l2[:, -1].argmax(-1), l1[:, -1].argmax(-1))
-        whole = model.gather_caches(c2, SERVE24)
+        whole = model.gather_caches(c2, env)
+        specs = sh.cache_specs(c1, env, 4)
         for i, c in enumerate(c1):
             for k in c:
+                got, want = (tuple(sp) + (None,) * (c[k].dim() - len(sp))
+                             for sp in (c2[i][k].spec, specs[i][k]))
+                assert got == want, (i, k)
                 assert _rel(whole[i][k], c[k]) < TOL, (i, k)
 
 
@@ -417,3 +452,65 @@ def test_constrain_lays_out_by_logical_names():
     assert cells[0].shape == (2, 6, 8)
     assert sh.logical_spec((4, 8, 6), ("dp", "sp", "tp"), env) == \
         ("data", "model", None)
+
+
+def test_jax_refuses_a_sequence_model_does_not_divide(jax_ref):
+    """JAX's own prefill on a (2, 3) mesh with 32 tokens: the ring's
+    ``shard_map`` raises ``ValueError``."""
+    _, out = jax_ref
+    assert "not evenly divisible" in str(out["refused"])
+
+
+def _no_embedding(*args, **kw):
+    raise AssertionError("the grid embedded a sequence it must refuse")
+
+
+@pytest.mark.parametrize("entry", ["prefill", "loss", "generate",
+                                   "frames"])
+def test_grid_refuses_a_sequence_model_does_not_divide(entry, monkeypatch):
+    """32 tokens over 3 ``model`` ranks (and whisper's 256 frames, its 36
+    tokens dividing): ``ValueError`` naming the argument, its length and
+    the axis's size, raised before the tables are gathered or anything is
+    embedded."""
+    arch = "whisper-tiny" if entry == "frames" else JAX_MODELS[0]
+    cfg = _f32(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    bt = _batch(cfg, s=36 if entry == "frames" else 32)
+    monkeypatch.setattr(type(model), "_grid_tables", _no_embedding)
+    monkeypatch.setattr(type(model), "_grid_embed", _no_embedding)
+    name, n = ("frames", bt["frames"].shape[1]) if entry == "frames" \
+        else ("tokens", 32)
+    with pytest.raises(ValueError, match=f"{name}: a sequence of length "
+                       f"{n} is not divisible by the grid's 'model' axis of "
+                       f"size 3"):
+        if entry == "loss":
+            model.loss(params, bt, env=GRID23)
+        elif entry == "generate":
+            generate(model, params, {"tokens": bt["tokens"]}, steps=2,
+                     cache_len=40, env=GRID23)
+        else:
+            model.prefill(params, {k: v for k, v in bt.items()
+                                   if k != "labels"}, cache_len=40,
+                          env=GRID23)
+
+
+def test_grid_holds_one_device_where_model_divides_the_sequence():
+    """36 tokens on the same (2, 3) grid: the prefill's logits and caches
+    and the loss within TOL of one device's."""
+    cfg = _f32(JAX_MODELS[0])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    bt = _batch(cfg, s=36)
+    tokens = {"tokens": bt["tokens"]}
+    with torch.inference_mode():
+        l1, c1 = model.prefill(params, tokens, cache_len=40)
+        l2, c2 = model.prefill(params, tokens, cache_len=40, env=GRID23)
+        assert _rel(l2, l1) < TOL
+        whole = model.gather_caches(c2, GRID23)
+        for i, c in enumerate(c1):
+            for k in c:
+                assert _rel(whole[i][k], c[k]) < TOL, (i, k)
+        loss1, _ = model.loss(params, bt)
+        loss2, _ = model.loss(params, bt, env=GRID23)
+    assert abs(float(loss2 - loss1)) < TOL * abs(float(loss1))

@@ -8,20 +8,27 @@ and (2, 2) grids of ``"cpu"``; each cell multiplies by its own piece (the
 products' FLOPs add up to the whole product's once, not once a cell).
 Then every reduced family's decode step is costed on the "node" grid of
 fake cards (``launch/dryrun.py``) under both profiles: it all-gathers no
-weight leaf but those ``Model._grid_decode`` names.
+weight leaf but those ``Model._grid_decode`` names.  An untied
+unembedding stays in its pieces in the prefill and the loss too: their
+records gather it over no ``model`` axis, and on a (2, 4) grid of
+``"cpu"`` the loss's gradient on each piece is one device's gradient cut
+by the piece's spec.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data.lm import make_batch  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.distributed.sharding import P, MeshEnv  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cost import OpCounter  # noqa: E402
 from repro_torch.launch.mesh import make_env  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
 
 TOL = 1e-6
 GRIDS = {"2x4": [["cpu"] * 4] * 2, "2x2": [["cpu"] * 2] * 2}
@@ -33,6 +40,7 @@ TABLE_SPECS = [P("model", "data"), P("model", None), P(None, "data"),
                P(None, None)]
 FAMILIES = ("qwen3-1.7b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
             "recurrentgemma-9b", "llava-next-34b", "whisper-tiny")
+UNTIED = tuple(a for a in FAMILIES if not ARCHS[a].tie_embeddings)
 
 
 def _rows(env, x, split):
@@ -124,3 +132,58 @@ def test_decode_step_gathers_no_weight_on_the_node(arch, profile):
                                            "prefill"), env, "node")
     assert dryrun.stray_decode_gathers(pre)
 
+
+
+@pytest.mark.parametrize("profile", ["train", "serve"])
+@pytest.mark.parametrize("arch", UNTIED)
+def test_prefill_and_loss_gather_no_unembedding_over_model(arch, profile):
+    """Costed on the node's fake cards, the prefill and the training step
+    read the untied unembedding in its pieces: all-gathered over ``data``
+    alone (its feature dim, train profile) or not at all (serve), never
+    over ``model``; the embedding is still gathered whole for the
+    lookup."""
+    cfg = ARCHS[arch].reduced()
+    env = make_env("node", profile)
+    for mode in ("prefill", "train"):
+        rec = dryrun.run_cell(cfg, ShapeConfig(f"{mode}_small", 32, 4, mode),
+                              env, "node")
+        axes = [key.split(" over ")[1].split("+")
+                for key in rec["weight_gathers"]
+                if key.split(" over ")[0] == "unembed"]
+        assert all("model" not in a for a in axes), (mode, axes)
+        assert bool(axes) == (profile == "train"), (mode, axes)
+        assert any(key.startswith("embed over ")
+                   for key in rec["weight_gathers"]), mode
+
+
+@pytest.mark.parametrize("profile", ["train", "serve"])
+@pytest.mark.parametrize("arch", UNTIED)
+def test_loss_gradient_on_the_unembedding_pieces(arch, profile):
+    """The loss on a (2, 4) grid of ``"cpu"`` in float32, the untied
+    unembedding given as its pieces (leaves of their own; a piece two
+    cells share is one tensor): each piece's gradient is one device's
+    gradient of the whole table cut by the piece's spec, within 1e-5 of
+    the largest."""
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="float32")
+    if cfg.is_moe:       # generous capacity: no drops on either side
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=4.0 * cfg.n_experts / cfg.moe_top_k)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v)
+             for k, v in make_batch(cfg, 4, 32, 0, 0).items()}
+    env = MeshEnv(GRIDS["2x4"], profile=profile)
+    whole = params["unembed"].clone().requires_grad_()
+    loss, _ = model.loss({**params, "unembed": whole}, batch)
+    (want,) = torch.autograd.grad(loss, [whole])
+    cut = sh.own_pieces(sh.pieces({"unembed": params["unembed"]},
+                                  env)["unembed"])
+    leaf = {id(t): t.detach().clone().requires_grad_() for t in cut}
+    pieces = sh.Sharded([leaf[id(t)] for t in cut], cut.spec)
+    uniq = list(leaf.values())
+    loss, _ = model.loss({**params, "unembed": pieces}, batch, env=env)
+    got = dict(zip(map(id, uniq), torch.autograd.grad(loss, uniq)))
+    ref = sh.shard(want, pieces.spec, env)
+    scale = float(want.abs().max())
+    for c, t in enumerate(pieces):
+        assert float((got[id(t)] - ref[c]).abs().max()) <= 1e-5 * scale, c
