@@ -1,0 +1,9 @@
+"""coalesce_width: queries per execution group the service drained in
+the window (its counters: width_sum over groups)."""
+
+
+def read(t):
+    groups = t.counters.get("groups", 0) if t is not None else 0
+    if groups <= 0:
+        return None
+    return t.counters["width_sum"] / groups
