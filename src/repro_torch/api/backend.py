@@ -33,6 +33,17 @@ through a table of pointers, with no copy.  ``merge_many`` still stacks
 each query's parts and the ragged wrapper concatenates the stacks: two
 device copies of every part before its launch.
 
+Spans (``repro_torch.obs.trace``, no-ops outside a traced span): a
+merge opens ``merge.fetch`` (the LRU gets, with a ``device.upload``
+child per miss — a volatile gap model is always one — and the stacks),
+``kernel.launch`` (the launch call alone), ``merge.readback`` (β's copy
+to the host, which waits for the launch) and ``merge.finish`` (the
+family's numpy finish); a kernel-route gap opens ``train.layout``
+(VB's doc-term matrix; Gibbs' is in ``cgs_fit_blocked``) and
+``train.readback``, and the fits open ``train.upload`` and
+``train.fit``.  The ``*_device_ms`` of ``BackendStats`` are host wall
+times of those stages, not device time.
+
 No path here sends a CUDA tensor to a plain version: on a CUDA device a
 kernel either launches or raises.  ``_device_guard`` maps out-of-memory
 and CUDA runtime errors raised by torch to ``DeviceLostError`` (the
@@ -97,6 +108,12 @@ _CUDA_ERRORS = tuple(
 Entry = Union[torch.Tensor, List[torch.Tensor]]
 
 
+def _volatile(parts: Sequence[MaterializedModel]) -> int:
+    """Parts with id −1: never in the store, so never cached: each
+    fetch uploads them again."""
+    return sum(1 for m in parts if m.model_id < 0)
+
+
 def _is_cuda_runtime_error(exc: BaseException) -> bool:
     if isinstance(exc, _CUDA_ERRORS):
         return True
@@ -121,10 +138,10 @@ class BackendStats:
     merges: int = 0
     device_launches: int = 0
     host_fallbacks: int = 0
-    merge_device_ms: float = 0.0
+    merge_device_ms: float = 0.0      # host wall time: fetch, launch, copy
     pad_rows: int = 0                 # zero-weight rows in batched launches
     pad_bytes: int = 0                # bytes those zero-weight rows carry
-    train_device_ms: float = 0.0      # kernel-route gap-training wall time
+    train_device_ms: float = 0.0      # kernel-route gap training, wall time
     gap_device_trains: int = 0        # gaps trained through a kernel route
     train_uploads: int = 0            # fresh gap models warmed into the LRU
     cache_resident_bytes: int = 0     # gauge: bytes resident right now
@@ -214,7 +231,7 @@ class ExecutionBackend:
 
     def kernel_route(self, kind: str) -> bool:
         """True when ``trainer(kind)`` runs through a device kernel (the
-        executor then attributes a trained gap's wall time to
+        executor then attributes a trained gap's host wall time to
         ``train_device_ms`` per query)."""
         return False
 
@@ -473,24 +490,29 @@ class DeviceBackend(ExecutionBackend):
             return get_merge(kind)(list(parts), cfg)
         stat_key, bias, base, finish = device_merge_params(fam, cfg)
         t0 = time.perf_counter()
-        with self._device_guard(), \
-                obs.span("kernel.launch", "backend", op="merge_topics",
-                         n_parts=len(parts), backend=self.name):
-            # the cached tensors go to the kernel as they are: no stacked
-            # copy, and the unit weights go by value
-            stats = [self._fetch(m, stat_key) for m in parts]
+        with self._device_guard():
+            with obs.span("merge.fetch", "backend", n_parts=len(parts),
+                          stacked_bytes=0, volatile=_volatile(parts)):
+                # the cached tensors go to the kernel as they are: no
+                # stacked copy, and the unit weights go by value
+                stats = [self._fetch(m, stat_key) for m in parts]
             with self._annotate("mlego.merge_topics"):
-                merged = merge_topics_parts(stats, [1.0] * len(parts),
-                                            bias=bias, base=base)
-                host = merged.cpu().numpy()      # waits for the launch
-            ms = (time.perf_counter() - t0) * 1e3
-            obs.set_attrs(merge_device_ms=ms)
-            if self.profile:
-                obs_profile.annotate_span("kernel", obs_profile.merge_features(
-                    len(stats), *stats[0].shape))
+                with obs.span("kernel.launch", "backend", op="merge_topics",
+                              n_parts=len(parts), backend=self.name):
+                    merged = merge_topics_parts(stats, [1.0] * len(parts),
+                                                bias=bias, base=base)
+                    if self.profile:
+                        obs_profile.annotate_span(
+                            "kernel", obs_profile.merge_features(
+                                len(stats), *stats[0].shape))
+                with obs.span("merge.readback", "backend",
+                              bytes=merged.numel() * merged.element_size()):
+                    host = merged.cpu().numpy()  # waits for the launch
+        ms = (time.perf_counter() - t0) * 1e3
         self._sync_cache_counters()
         self._count(merges=1, device_launches=1, merge_device_ms=ms)
-        return finish(host)
+        with obs.span("merge.finish", "backend", rows=1):
+            return finish(host)
 
     def merge_many(self, part_lists, kind, cfg):
         """§V.C batch merge stage: one ragged segmented launch.
@@ -507,29 +529,38 @@ class DeviceBackend(ExecutionBackend):
         maybe_fail(f"backend.merge.{self.name}")
         stat_key, bias, base, finish = device_merge_params(fam, cfg)
         t0 = time.perf_counter()
-        with self._device_guard(), \
-                obs.span("kernel.launch", "backend",
-                         op="merge_topics_ragged",
-                         n_plans=len(part_lists), backend=self.name):
-            stats_list, weights_list = [], []
-            for parts in part_lists:
-                stats_list.append(
-                    torch.stack([self._fetch(m, stat_key) for m in parts]))
-                weights_list.append(torch.ones(
-                    (len(parts),), dtype=torch.float32, device=self.device))
+        with self._device_guard():
+            with obs.span("merge.fetch", "backend",
+                          n_parts=sum(len(p) for p in part_lists),
+                          volatile=sum(_volatile(p) for p in part_lists)):
+                stats_list, weights_list = [], []
+                for parts in part_lists:
+                    stats_list.append(torch.stack(
+                        [self._fetch(m, stat_key) for m in parts]))
+                    weights_list.append(torch.ones(
+                        (len(parts),), dtype=torch.float32,
+                        device=self.device))
+                obs.set_attrs(stacked_bytes=sum(
+                    s.numel() * s.element_size() for s in stats_list))
             with self._annotate("mlego.merge_topics_ragged"):
-                merged, pad_rows, launches = merge_topics_ragged(
-                    stats_list, weights_list, bias=bias, base=base)
-                host = [row.cpu().numpy() for row in merged]
-            obs.set_attrs(merge_device_ms=(time.perf_counter() - t0) * 1e3,
-                          pad_rows=pad_rows)
+                with obs.span("kernel.launch", "backend",
+                              op="merge_topics_ragged",
+                              n_plans=len(part_lists), backend=self.name):
+                    merged, pad_rows, launches = merge_topics_ragged(
+                        stats_list, weights_list, bias=bias, base=base)
+                    obs.set_attrs(pad_rows=pad_rows)
+                with obs.span("merge.readback", "backend",
+                              bytes=sum(r.numel() * r.element_size()
+                                        for r in merged)):
+                    host = [row.cpu().numpy() for row in merged]
         ms = (time.perf_counter() - t0) * 1e3
         row_nbytes = stats_list[0][0].numel() * 4
         self._sync_cache_counters()
         self._count(merges=len(part_lists), device_launches=launches,
                     merge_device_ms=ms, pad_rows=pad_rows,
                     pad_bytes=pad_rows * row_nbytes)
-        return [finish(row) for row in host]
+        with obs.span("merge.finish", "backend", rows=len(host)):
+            return [finish(row) for row in host]
 
     def _sync_cache_counters(self) -> None:
         c = self.cache
@@ -571,11 +602,16 @@ class DeviceBackend(ExecutionBackend):
         from repro_torch.core.vb import vb_fit
         self._check_generator(gen)
         t0 = time.perf_counter()
-        x = doc_term_matrix(corpus)
+        with obs.span("train.layout", "train", tokens=corpus.n_tokens,
+                      docs=corpus.n_docs):
+            x = doc_term_matrix(corpus)
         with self._device_guard(), self._annotate("mlego.vb_estep"):
-            lam = vb_fit(x, gen, cfg, use_kernel=True).cpu().numpy()
+            lam = vb_fit(x, gen, cfg, use_kernel=True)
+            with obs.span("train.readback", "train",
+                          bytes=lam.numel() * lam.element_size()):
+                lam = lam.cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
-        obs.set_attrs(train_device_ms=ms, route="vb_estep")
+        obs.set_attrs(route="vb_estep")
         self._count(gap_device_trains=1, train_device_ms=ms)
         return {"lam": lam}
 
@@ -590,9 +626,11 @@ class DeviceBackend(ExecutionBackend):
             nkv = cgs_fit_blocked(corpus.tokens, corpus.doc_ids, cfg, gen,
                                   global_nkv=global_nkv,
                                   block_docs=self.gibbs_block_docs)
-            nkv = nkv.cpu().numpy()
+            with obs.span("train.readback", "train",
+                          bytes=nkv.numel() * nkv.element_size()):
+                nkv = nkv.cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
-        obs.set_attrs(train_device_ms=ms, route="gibbs_blocked")
+        obs.set_attrs(route="gibbs_blocked")
         self._count(gap_device_trains=1, train_device_ms=ms)
         return {"delta_nkv": nkv}
 
@@ -696,7 +734,6 @@ class ShardedDeviceBackend(DeviceBackend):
                     num_offset=device_norm_offset(fam, cfg), v_true=v_true)
                 host = self._allgather(beta)     # waits for the launches
             ms = (time.perf_counter() - t0) * 1e3
-            obs.set_attrs(merge_device_ms=ms)
         self._sync_cache_counters()
         self._count(merges=1, device_launches=1, merge_device_ms=ms)
         return host[:, :v_true]
@@ -728,7 +765,6 @@ class ShardedDeviceBackend(DeviceBackend):
                     v_true=v_true)
                 host = self._allgather(beta)     # waits for the launches
             ms = (time.perf_counter() - t0) * 1e3
-            obs.set_attrs(merge_device_ms=ms)
         self._sync_cache_counters()
         self._count(merges=len(part_lists), device_launches=1,
                     merge_device_ms=ms)

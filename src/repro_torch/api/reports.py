@@ -30,13 +30,16 @@ class QueryReport:
     the ``BatchReport``.
 
     ``backend`` names the execution backend that answered the query.
-    On the device backend, ``merge_device_ms`` is the wall time of the
-    fused kernel launch (upload + launch + sync; 0.0 on host),
-    ``train_device_ms`` the wall time of kernel-route gap training
-    (blocked Gibbs sweep / fused E-step; 0.0 on host or when no gap
-    was trained), ``cache_hits``/``cache_misses`` count device-cache
-    traffic for this query's parts, and ``cache_resident_bytes``
-    gauges the device model cache's residency right after the merge.
+    On the device backend, ``merge_device_ms`` is the host wall time
+    of the backend's merge — the LRU fetch with its uploads, the
+    launch, β's copy back (0.0 on host) — and ``train_device_ms`` the
+    host wall time of kernel-route gap training (blocked Gibbs sweep /
+    fused E-step, with the host's layout and copies; 0.0 on host or
+    when no gap was trained); neither is device time (the spans under
+    ``merge`` and ``train`` split them, ``api/README.md``).
+    ``cache_hits``/``cache_misses`` count device-cache traffic for this
+    query's parts, and ``cache_resident_bytes`` gauges the device model
+    cache's residency right after the merge.
     Inside a batch the launch is shared, so the traffic counters live
     on the ``BatchReport`` and stay zero here.
 
@@ -116,8 +119,8 @@ class BatchReport:
     shared_train_s: float
     materialized: List[MaterializedModel] = field(default_factory=list)
     backend: str = "host"
-    merge_device_ms: float = 0.0     # shared bucketed launches (batch total)
-    train_device_ms: float = 0.0     # kernel-route shared gap training
+    merge_device_ms: float = 0.0     # shared merge, wall time (batch total)
+    train_device_ms: float = 0.0     # kernel-route shared gap training, wall
     cache_hits: int = 0
     cache_misses: int = 0
     cache_resident_bytes: int = 0

@@ -31,6 +31,7 @@ order of operations.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -42,6 +43,7 @@ from repro_torch.kernels.gibbs_sweep.ops import (
     doc_index,
     gibbs_sweep,
 )
+from repro_torch.obs import trace as obs
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -169,22 +171,24 @@ def _blocked_sweeps(words: torch.Tensor, ldoc: torch.Tensor,
     dev = words.device
     b, t = words.shape
     vocab = global_nkv.shape[1]
-    z = _init_z(z0, (b, t), n_topics, gen, dev)
-    nkd = torch.zeros((b, block_docs, n_topics), dtype=torch.float32,
-                      device=dev)
-    blk = torch.arange(b, device=dev)[:, None].expand(b, t)
-    nkd.index_put_((blk.reshape(-1), ldoc.reshape(-1).long(),
-                    z.reshape(-1).long()), mask.reshape(-1), accumulate=True)
-    nkv = torch.zeros((n_topics, vocab), dtype=torch.float32, device=dev)
-    nkv.index_put_((z.reshape(-1).long(), words.reshape(-1).long()),
-                   mask.reshape(-1), accumulate=True)
-    gk = global_nkv.sum(dim=1)
-    idx = doc_index(ldoc, mask, block_docs)      # once per fit
-    for us in _draws(u, sweeps, (b, t), gen, dev):
-        prior = nkv + global_nkv + beta           # frozen for this sweep
-        prior_k = nkv.sum(dim=1) + gk + vocab * beta
-        z, nkd, nkv = gibbs_sweep(words, ldoc, mask, us, z, nkd, prior,
-                                  prior_k, alpha, idx)
+    with obs.span("train.fit", "train", sweeps=sweeps):
+        z = _init_z(z0, (b, t), n_topics, gen, dev)
+        nkd = torch.zeros((b, block_docs, n_topics), dtype=torch.float32,
+                          device=dev)
+        blk = torch.arange(b, device=dev)[:, None].expand(b, t)
+        nkd.index_put_((blk.reshape(-1), ldoc.reshape(-1).long(),
+                        z.reshape(-1).long()), mask.reshape(-1),
+                       accumulate=True)
+        nkv = torch.zeros((n_topics, vocab), dtype=torch.float32, device=dev)
+        nkv.index_put_((z.reshape(-1).long(), words.reshape(-1).long()),
+                       mask.reshape(-1), accumulate=True)
+        gk = global_nkv.sum(dim=1)
+        idx = doc_index(ldoc, mask, block_docs)      # once per fit
+        for us in _draws(u, sweeps, (b, t), gen, dev):
+            prior = nkv + global_nkv + beta           # frozen for this sweep
+            prior_k = nkv.sum(dim=1) + gk + vocab * beta
+            z, nkd, nkv = gibbs_sweep(words, ldoc, mask, us, z, nkd, prior,
+                                      prior_k, alpha, idx)
     return nkv
 
 
@@ -209,16 +213,26 @@ def cgs_fit_blocked(tokens: np.ndarray, doc_ids: np.ndarray, cfg: LDAConfig,
     if tokens.size == 0:
         return torch.zeros((cfg.n_topics, vocab), dtype=torch.float32,
                            device=dev)
-    gnkv = _global(cfg, global_nkv, vocab, dev)
-    if np.any(np.diff(doc_ids) < 0):
-        # blocked_layout needs the CSR doc-sorted stream cgs_fit does
-        # not; token order within a doc is immaterial to the sampler
-        order = np.argsort(doc_ids, kind="stable")
-        tokens, doc_ids = tokens[order], doc_ids[order]
-    n_docs = int(doc_ids.max()) + 1
-    words, ldoc, mask = blocked_layout(tokens, doc_ids, n_docs, block_docs)
+    with (obs.span("train.upload", "train",
+                   bytes=4 * cfg.n_topics * vocab)
+          if global_nkv is not None else nullcontext()):
+        gnkv = _global(cfg, global_nkv, vocab, dev)
+    with obs.span("train.layout", "train", tokens=int(tokens.size)):
+        if np.any(np.diff(doc_ids) < 0):
+            # blocked_layout needs the CSR doc-sorted stream cgs_fit does
+            # not; token order within a doc is immaterial to the sampler
+            order = np.argsort(doc_ids, kind="stable")
+            tokens, doc_ids = tokens[order], doc_ids[order]
+        n_docs = int(doc_ids.max()) + 1
+        words, ldoc, mask = blocked_layout(tokens, doc_ids, n_docs,
+                                           block_docs)
+        obs.set_attrs(docs=n_docs, blocks=words.shape[0],
+                      t_max=words.shape[1])
+    with obs.span("train.upload", "train",
+                  bytes=words.nbytes + ldoc.nbytes + mask.nbytes):
+        layout = (_as(words, torch.int32, dev), _as(ldoc, torch.int32, dev),
+                  _as(mask, torch.float32, dev))
     return _blocked_sweeps(
-        _as(words, torch.int32, dev), _as(ldoc, torch.int32, dev),
-        _as(mask, torch.float32, dev), gen, gnkv, cfg.n_topics, block_docs,
+        *layout, gen, gnkv, cfg.n_topics, block_docs,
         sweeps if sweeps is not None else cfg.gibbs_sweeps,
         cfg.alpha, cfg.eta, z0, u)

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.lda_default import LDAConfig
 from repro_torch.distributed.sharding import MeshEnv, all_reduce
+from repro_torch.obs import trace as obs
 
 
 def _exp_dirichlet_expectation(x: torch.Tensor) -> torch.Tensor:
@@ -88,24 +89,28 @@ def vb_fit(x: Union[np.ndarray, torch.Tensor], gen: torch.Generator,
     λ0 = Gamma(100)·0.01, drawn from ``gen`` unless ``lam0`` is given.
     """
     dev = gen.device
-    x = torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
+    x = torch.as_tensor(x, dtype=torch.float32)
+    with obs.span("train.upload", "train",
+                  bytes=x.numel() * x.element_size()):
+        x = x.to(dev).contiguous()
     k = cfg.n_topics
     d, v = x.shape
     lam = _initial_lambda(gen, k, v, lam0).to(dev)
     gamma0 = torch.ones((d, k), dtype=torch.float32, device=dev)
-    if use_kernel:
-        from repro_torch.kernels.vb_estep import ops as _ops
-        csr = _ops.doc_term_csr(x)       # its one sync stays out of the loop
+    with obs.span("train.fit", "train", iters=cfg.max_iters):
+        if use_kernel:
+            from repro_torch.kernels.vb_estep import ops as _ops
+            csr = _ops.doc_term_csr(x)   # its one sync stays out of the loop
 
-        def estep(eeb):
-            return _ops.vb_estep_csr(csr, eeb, gamma0, cfg.alpha,
-                                     cfg.e_step_iters)
-    else:
-        def estep(eeb):
-            return vb_estep(x, eeb, gamma0, cfg.alpha, cfg.e_step_iters)
-    for _ in range(cfg.max_iters):
-        _, sstats = estep(_exp_dirichlet_expectation(lam))
-        lam = cfg.eta + sstats
+            def estep(eeb):
+                return _ops.vb_estep_csr(csr, eeb, gamma0, cfg.alpha,
+                                         cfg.e_step_iters)
+        else:
+            def estep(eeb):
+                return vb_estep(x, eeb, gamma0, cfg.alpha, cfg.e_step_iters)
+        for _ in range(cfg.max_iters):
+            _, sstats = estep(_exp_dirichlet_expectation(lam))
+            lam = cfg.eta + sstats
     return lam
 
 

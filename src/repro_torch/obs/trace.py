@@ -23,7 +23,11 @@ Design rules, in priority order:
   hold a `Tracer` reference.
 * **Monotonic clocks.**  All timestamps are ``time.perf_counter()``
   seconds.  Chrome export rebases them onto the tracer's own epoch so
-  traces from one process line up; never mix wall-clock in.
+  traces from one process line up; never mix wall-clock in.  One paired
+  reading of the tracer's clock and ``time.time_ns()`` (the Unix-ns
+  clock ``torch.profiler``'s kineto events carry), taken when the tracer
+  is built, maps a span onto the profiler's clock: ``Tracer.unix_ns``,
+  and ``otherData["clock_anchor"]`` in the Chrome export.
 * **Explicit parents, implicit nesting.**  Entering ``tracer.span()``
   pushes the span onto the calling thread's context stack, so nested
   spans pick up their parent automatically.  Crossing a thread (a
@@ -166,9 +170,40 @@ class Tracer:
         self.dropped = 0
         self._clock = clock
         self._epoch = clock()
+        self._anchor = self._read_anchor(clock)
         self._buf: deque = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
+        self._thread_names: Dict[int, str] = {}
+
+    # -- clock -----------------------------------------------------------
+
+    @staticmethod
+    def _read_anchor(clock, reads: int = 5) -> Tuple[float, int]:
+        """(clock seconds, Unix ns) read together: of ``reads`` tries,
+        the Unix read bracketed by the two closest clock reads, paired
+        with their midpoint."""
+        best = None
+        for _ in range(reads):
+            a = clock()
+            ns = time.time_ns()
+            b = clock()
+            if best is None or b - a < best[0]:
+                best = (b - a, 0.5 * (a + b), ns)
+        return best[1], best[2]
+
+    def unix_ns(self, t: float) -> int:
+        """The tracer clock's reading ``t`` (a span's ``t0``/``t1``) as
+        Unix nanoseconds, the clock of ``torch.profiler``'s events."""
+        c, ns = self._anchor
+        return ns + round((t - c) * 1e9)
+
+    def _note_thread(self) -> int:
+        th = threading.current_thread()
+        ident = th.ident or 0
+        if ident not in self._thread_names:
+            self._thread_names[ident] = th.name
+        return ident
 
     # -- ids -------------------------------------------------------------
 
@@ -208,7 +243,7 @@ class Tracer:
                             else self.new_trace_id())
         sp = Span(name=name, kind=kind, trace_id=trace_id,
                   span_id=self.new_span_id(), parent_id=parent_id,
-                  t0=self._clock(), thread=threading.get_ident(),
+                  t0=self._clock(), thread=self._note_thread(),
                   attrs=dict(attrs) if attrs else {})
         stack.append((self, sp))
         try:
@@ -236,7 +271,7 @@ class Tracer:
         sp = Span(name=name, kind=kind, trace_id=trace_id,
                   span_id=span_id or self.new_span_id(),
                   parent_id=parent_id, t0=t0, t1=t1,
-                  thread=threading.get_ident(),
+                  thread=self._note_thread(),
                   attrs=dict(attrs) if attrs else {})
         self._append(sp)
         return sp
@@ -278,7 +313,11 @@ class Tracer:
         Durations become ``ph: "X"`` complete events, zero-duration
         spans become ``ph: "i"`` instants.  Timestamps are microseconds
         rebased on the tracer's epoch.  Span/trace/parent ids ride in
-        ``args`` so the tree can be reconstructed from the file.
+        ``args`` so the tree can be reconstructed from the file.  Each
+        thread that recorded a span gets a ``ph: "M"`` ``thread_name``
+        event.  ``otherData["clock_anchor"]`` holds ``epoch_unix_ns``,
+        the Unix ns of ``ts`` 0: add it (in µs) to every ``ts`` to lay
+        the spans on a ``torch.profiler`` capture of the same process.
         """
         events: List[Dict[str, Any]] = []
         for sp in self.spans():
@@ -299,7 +338,15 @@ class Tracer:
                 ev["ph"] = "i"
                 ev["s"] = "t"
             events.append(ev)
-        meta: Dict[str, Any] = {"spans": len(events), "dropped": self.dropped}
+        n_spans = len(events)
+        for tid, tname in sorted(dict(self._thread_names).items()):
+            events.append({"name": "thread_name", "ph": "M", "pid": 1,
+                           "tid": tid, "args": {"name": tname}})
+        c, ns = self._anchor
+        meta: Dict[str, Any] = {
+            "spans": n_spans, "dropped": self.dropped,
+            "clock_anchor": {"clock_s": c, "unix_ns": ns,
+                             "epoch_unix_ns": self.unix_ns(self._epoch)}}
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "otherData": meta}
 
