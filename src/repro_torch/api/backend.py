@@ -38,11 +38,12 @@ merge opens ``merge.fetch`` (the LRU gets, with a ``device.upload``
 child per miss — a volatile gap model is always one — and the stacks),
 ``kernel.launch`` (the launch call alone), ``merge.readback`` (β's copy
 to the host, which waits for the launch) and ``merge.finish`` (the
-family's numpy finish); a kernel-route gap opens ``train.layout``
-(VB's doc-term matrix; Gibbs' is in ``cgs_fit_blocked``) and
-``train.readback``, and the fits open ``train.upload`` and
-``train.fit``.  The ``*_device_ms`` of ``BackendStats`` are host wall
-times of those stages, not device time.
+family's numpy finish); a kernel-route gap opens ``train.readback``,
+VB's also ``train.upload`` (the tokens) and ``train.layout`` (their CSR
+built on the card), and the fits open ``train.fit`` (Gibbs'
+``cgs_fit_blocked`` also its layout and uploads).  The ``*_device_ms``
+of ``BackendStats`` are host wall times of those stages, not device
+time.
 
 No path here sends a CUDA tensor to a plain version: on a CUDA device a
 kernel either launches or raises.  ``_device_guard`` maps out-of-memory
@@ -77,7 +78,7 @@ from repro_torch.core.merge import (
     device_stat_key,
 )
 from repro_torch.core.store import ModelStore
-from repro_torch.data.corpus import Corpus, doc_term_matrix
+from repro_torch.data.corpus import Corpus
 from repro_torch.distributed.merge_collective import (
     merge_topics_ragged_sharded,
     merge_topics_sharded,
@@ -599,14 +600,27 @@ class DeviceBackend(ExecutionBackend):
 
     def _train_vb_kernel(self, corpus: Corpus, cfg: LDAConfig,
                          gen: torch.Generator) -> Dict[str, np.ndarray]:
+        """The gap's tokens go to the card and its CSR is built there:
+        the E-step reads only the nonzeros, so no dense (D, V) matrix is
+        made on either side."""
         from repro_torch.core.vb import vb_fit
+        from repro_torch.kernels.vb_estep.ops import doc_term_csr_from_tokens
         self._check_generator(gen)
         t0 = time.perf_counter()
-        with obs.span("train.layout", "train", tokens=corpus.n_tokens,
-                      docs=corpus.n_docs):
-            x = doc_term_matrix(corpus)
         with self._device_guard(), self._annotate("mlego.vb_estep"):
-            lam = vb_fit(x, gen, cfg, use_kernel=True)
+            host = [np.ascontiguousarray(a, np.int32)
+                    for a in (corpus.doc_ids, corpus.tokens)]
+            with obs.span("train.upload", "train",
+                          bytes=sum(a.nbytes for a in host)):
+                doc_ids, tokens = (torch.from_numpy(a).to(self.device)
+                                   for a in host)
+            with obs.span("train.layout", "train", tokens=corpus.n_tokens,
+                          docs=corpus.n_docs):
+                csr = doc_term_csr_from_tokens(doc_ids, tokens,
+                                               corpus.n_docs,
+                                               corpus.vocab_size)
+                obs.set_attrs(nnz=csr.nnz, max_row=csr.max_row)
+            lam = vb_fit(csr, gen, cfg, use_kernel=True)
             with obs.span("train.readback", "train",
                           bytes=lam.numel() * lam.element_size()):
                 lam = lam.cpu().numpy()

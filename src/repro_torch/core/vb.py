@@ -4,10 +4,11 @@ The E-step inner loop is two products per iteration over the doc-term
 matrix — LDA's compute hot spot.  ``use_kernel=True`` routes it through
 the sparse E-step's wrapper (``kernels/vb_estep``), which launches the
 CUDA kernel for CUDA tensors and runs its plain version for CPU ones;
-``vb_fit`` then converts x to CSR once per fit (one synchronisation) and
-every E-step call of the fit reuses it.  The plain path here is the
-counterpart of the JAX package's jnp path and takes CPU tensors only: on
-the card the E-step is the kernel.
+``vb_fit`` then converts x to CSR once per fit and every E-step call of
+the fit reuses it, or takes a CSR already built on the device (the
+device backend builds a window's from its tokens).  The plain path here
+is the counterpart of the JAX package's jnp path and takes CPU tensors
+only: on the card the E-step is the kernel.
 
 Randomness comes from an explicit ``torch.Generator``; the trainer
 runs on ``gen.device``.  ``lam0=`` injects the initial λ so a test can
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.lda_default import LDAConfig
 from repro_torch.distributed.sharding import MeshEnv, all_reduce
+from repro_torch.kernels.vb_estep.csr import DocTermCSR
 from repro_torch.obs import trace as obs
 
 
@@ -79,28 +81,39 @@ def _initial_lambda(gen: torch.Generator, k: int, v: int,
     return lam.to(torch.float32)
 
 
-def vb_fit(x: Union[np.ndarray, torch.Tensor], gen: torch.Generator,
-           cfg: LDAConfig, *, use_kernel: bool = False,
+def vb_fit(x: Union[np.ndarray, torch.Tensor, DocTermCSR],
+           gen: torch.Generator, cfg: LDAConfig, *, use_kernel: bool = False,
            lam0: Optional[Union[np.ndarray, torch.Tensor]] = None
            ) -> torch.Tensor:
-    """Batch VB on a dense doc-term matrix.  Returns λ (K, V) f32 on
+    """Batch VB on a dense doc-term matrix, or on its CSR already on
+    ``gen.device`` (the E-step kernel's input: ``use_kernel=True`` only;
+    nothing is uploaded or built).  Returns λ (K, V) f32 on
     ``gen.device``.
 
     λ0 = Gamma(100)·0.01, drawn from ``gen`` unless ``lam0`` is given.
     """
     dev = gen.device
-    x = torch.as_tensor(x, dtype=torch.float32)
-    with obs.span("train.upload", "train",
-                  bytes=x.numel() * x.element_size()):
-        x = x.to(dev).contiguous()
+    if isinstance(x, DocTermCSR):
+        if not use_kernel:
+            raise ValueError("a DocTermCSR is the E-step kernel's input: "
+                             "pass use_kernel=True")
+        csr = x
+        d, v = csr.shape
+    else:
+        x = torch.as_tensor(x, dtype=torch.float32)
+        with obs.span("train.upload", "train",
+                      bytes=x.numel() * x.element_size()):
+            x = x.to(dev).contiguous()
+        csr = None
+        d, v = x.shape
     k = cfg.n_topics
-    d, v = x.shape
     lam = _initial_lambda(gen, k, v, lam0).to(dev)
     gamma0 = torch.ones((d, k), dtype=torch.float32, device=dev)
     with obs.span("train.fit", "train", iters=cfg.max_iters):
         if use_kernel:
             from repro_torch.kernels.vb_estep import ops as _ops
-            csr = _ops.doc_term_csr(x)   # its one sync stays out of the loop
+            if csr is None:   # its sync stays out of the loop
+                csr = _ops.doc_term_csr(x)
 
             def estep(eeb):
                 return _ops.vb_estep_csr(csr, eeb, gamma0, cfg.alpha,

@@ -24,7 +24,9 @@ Full fp32, no TF32; K is not padded.
 longest document, unless a CTA would then hold more than
 ``DOC_ROW_BYTES`` of rows) and the CTA's shared memory.  ``vb_estep``
 keeps the dense signature and converts x per call; ``core.vb.vb_fit``
-converts once per fit (``doc_term_csr``) and calls ``vb_estep_csr``.
+converts once per fit (``doc_term_csr``), or takes a CSR that the
+device backend built from a window's tokens (``doc_term_csr_from_tokens``),
+and calls ``vb_estep_csr``.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to the kernel or raises.  ``launches`` counts kernel
@@ -39,7 +41,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.vb_estep.csr import DocTermCSR, doc_term_csr
+from repro_torch.kernels.vb_estep.csr import (
+    DocTermCSR, doc_term_csr, doc_term_csr_from_tokens)
 from repro_torch.kernels.vb_estep.ref import vb_estep_csr_ref
 
 MAX_TOPICS = 256          # largest K the kernel takes (a thread per topic)
@@ -47,8 +50,8 @@ DOC_ROW_BYTES = 48 * 1024  # eeβ rows a CTA may hold: >= 4 documents an SM
 
 launches = 0
 
-__all__ = ["DocTermCSR", "doc_term_csr", "estep_plan", "vb_estep",
-           "vb_estep_csr"]
+__all__ = ["DocTermCSR", "doc_term_csr", "doc_term_csr_from_tokens",
+           "estep_plan", "vb_estep", "vb_estep_csr"]
 
 
 def _round4(n: int) -> int:

@@ -222,6 +222,20 @@ def test_gs_gaps_train_against_the_stores_dsgs_prior(gs_split, monkeypatch):
     assert backend.kernel_route("gs") and backend.stats.gap_device_trains == 2
 
 
+def test_vb_route_builds_the_csr_from_the_tokens():
+    """The device route uploads a gap's tokens and builds its CSR there,
+    never the dense matrix; λ is the dense route's to the bit."""
+    from repro_torch.core.vb import vb_fit
+    cfg = LDAConfig(n_topics=5, vocab_size=90, max_iters=5, e_step_iters=4)
+    corpus, _ = make_corpus(200, 90, 5, mean_doc_len=25, seed=11)
+    gap = corpus.subset(corpus.attr[30], corpus.attr[170])
+    got = DeviceBackend(device="cpu")._train_vb_kernel(
+        gap, cfg, torch.Generator().manual_seed(4))["lam"]
+    want = vb_fit(doc_term_matrix(gap), torch.Generator().manual_seed(4),
+                  cfg, use_kernel=True).numpy()
+    assert got.shape == (5, 90) and np.array_equal(got, want)
+
+
 def test_gs_route_refuses_a_bad_block_size():
     with pytest.raises(ValueError, match="gibbs_block_docs"):
         DeviceBackend(device="cpu", gibbs_block_docs=0)

@@ -213,6 +213,56 @@ def test_every_gap_route_launches_the_estep_kernel(cuda, route):
     assert np.isfinite(rep.beta).all()
 
 
+def test_csr_from_tokens_at_the_capital_window(cuda):
+    """A 1,000-document window at NYTimes' V = 102,660, ~333 tokens a
+    document, two documents empty: the CSR built on the card from the
+    tokens is the dense route's, field for field, in at most two
+    synchronisations, and λ of a short fit is the same to the bit from
+    the CSR, from the dense matrix and from the device backend."""
+    import warnings
+    from repro_torch.api import DeviceBackend
+    from repro_torch.configs.lda_default import LDAConfig
+    from repro_torch.core.vb import vb_fit
+    from repro_torch.data.corpus import Corpus, doc_term_matrix
+    d, v = 1000, 102660
+    rng = np.random.default_rng(12)
+    lengths = rng.poisson(333, d)
+    lengths[[3, 500]] = 0
+    offsets = np.zeros(d + 1, np.int64)
+    offsets[1:] = np.cumsum(lengths)
+    doc_ids = np.repeat(np.arange(d, dtype=np.int32), lengths)
+    # terms skewed toward low ids, so many (document, term) pairs repeat
+    tokens = (rng.uniform(size=len(doc_ids)) ** 3 * v).astype(np.int32)
+    corpus = Corpus(tokens=tokens, doc_ids=doc_ids, doc_offsets=offsets,
+                    attr=np.arange(d, dtype=np.float64), vocab_size=v)
+    x = torch.from_numpy(doc_term_matrix(corpus)).to(cuda)
+    want = estep_ops.doc_term_csr(x)
+    dt, tt = (torch.from_numpy(a).to(cuda) for a in (doc_ids, tokens))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = estep_ops.doc_term_csr_from_tokens(dt, tt, d, v)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert 1 <= len(syncs) <= 2, syncs
+    assert got.shape == want.shape and got.max_row == want.max_row
+    for f in ("indptr", "indices", "values", "rows", "col_ptr", "perm"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert 0 < got.nnz < len(tokens) and got.indptr[4] == got.indptr[3]
+    cfg = LDAConfig(n_topics=100, vocab_size=v, max_iters=2, e_step_iters=5)
+    lams = [vb_fit(c, torch.Generator(cuda).manual_seed(9), cfg,
+                   use_kernel=True) for c in (got, x)]
+    assert torch.equal(lams[0], lams[1])
+    lam = DeviceBackend(device="cuda")._train_vb_kernel(
+        corpus, cfg, torch.Generator(cuda).manual_seed(9))["lam"]
+    assert np.array_equal(lam, lams[1].cpu().numpy())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     st = torch.ones((2, 4, 8), device=cuda)
     with pytest.raises(ValueError):

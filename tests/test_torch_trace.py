@@ -87,6 +87,11 @@ def test_train_range_splits_the_train_span(corpus, kind):
         fit = [s for s in kids if s.name == "train.fit"][0]
         if kind == "vb":
             assert fit.attrs["iters"] == CFG.max_iters
+            # one token upload, one CSR build on the card, one fit
+            for name in ("train.upload", "train.layout", "train.fit"):
+                assert [s.name for s in kids].count(name) == 1, name
+            assert 1 <= lay.attrs["nnz"] <= lay.attrs["tokens"]
+            assert lay.attrs["max_row"] >= 1
         else:
             assert fit.attrs["sweeps"] == CFG.gibbs_sweeps
             assert lay.attrs["blocks"] >= 1 and lay.attrs["t_max"] >= 1

@@ -5,7 +5,9 @@ E-step runs its Pallas kernel in interpret mode and its jnp reference;
 the port's wrapper runs its plain version on CPU tensors (the kernel's
 arithmetic over the CSR nonzeros, including the series digamma).
 Tolerance 2e-4, as the JAX package's own E-step test uses.  The CSR
-build (``doc_term_csr``) must give back x exactly, and the kernel's plan
+build (``doc_term_csr``) must give back x exactly, the build from a
+window's tokens (``doc_term_csr_from_tokens``) the same CSR, and the
+kernel's plan
 (``estep_plan``) is checked here too: the kernel itself runs only on the
 card (``tests/test_torch_cuda.py``).
 """
@@ -135,10 +137,39 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     assert ops.launches == before
 
 
-def _check_csr(x):
+CSR_FIELDS = ("indptr", "indices", "values", "rows", "col_ptr", "perm")
+
+
+def _tokens_of(x, rng, within_docs=True):
+    """(doc_ids, tokens) int32 of the counts x: each (doc, term) repeated
+    by its count, shuffled within each document as a corpus's tokens
+    are, or across the whole window."""
+    d, w = np.nonzero(x)
+    n = x[d, w].astype(np.int64)
+    docs, terms = np.repeat(d, n), np.repeat(w, n)
+    order = (np.lexsort((rng.permutation(len(docs)), docs)) if within_docs
+             else rng.permutation(len(docs)))
+    return (torch.from_numpy(docs[order].astype(np.int32)),
+            torch.from_numpy(terms[order].astype(np.int32)))
+
+
+def _assert_same_csr(got, want):
+    assert got.shape == want.shape and got.max_row == want.max_row
+    for f in CSR_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def _check_csr(x, within_docs=True):
     """doc_term_csr(x) gives back x exactly, rows in (d, v) order, and a
-    column view whose perm lists each column's entries in document order."""
+    column view whose perm lists each column's entries in document order;
+    doc_term_csr_from_tokens of x's tokens is the same CSR, field for
+    field."""
     csr = ops.doc_term_csr(torch.from_numpy(x))
+    doc_ids, tokens = _tokens_of(x, np.random.default_rng(x.size),
+                                 within_docs)
+    _assert_same_csr(ops.doc_term_csr_from_tokens(doc_ids, tokens,
+                                                  *x.shape), csr)
     d, v = x.shape
     nz = np.nonzero(x)
     assert csr.shape == (d, v) and csr.nnz == len(nz[0])
@@ -164,7 +195,10 @@ def _check_csr(x):
     return csr
 
 
-@pytest.mark.parametrize("d,v", [(7, 50), (1, 1), (5, 3), (40, 300)])
+@pytest.mark.parametrize("d,v", [(7, 50), (1, 1), (5, 3), (40, 300),
+                                 # a window of one term, a long thin one,
+                                 # and one with more documents than terms
+                                 (9, 1), (3, 2000), (120, 6)])
 def test_doc_term_csr_gives_back_x(d, v):
     """Empty rows and columns, one dense row, and repeated counts."""
     x = RNG.poisson(0.3, (d, v)).astype(np.float32)
@@ -173,6 +207,29 @@ def test_doc_term_csr_gives_back_x(d, v):
     x[-1] = RNG.integers(1, 4, v)
     _check_csr(x)
     _check_csr(np.zeros((d, v), np.float32))
+
+
+def test_csr_from_no_tokens_is_empty():
+    """A window with no tokens (or no documents): nnz 0, max_row 0, and
+    every offset 0."""
+    none = torch.zeros((0,), dtype=torch.int32)
+    for d, v in ((4, 7), (0, 7)):
+        csr = ops.doc_term_csr_from_tokens(none, none, d, v)
+        _assert_same_csr(csr, ops.doc_term_csr(torch.zeros((d, v))))
+        assert csr.nnz == 0 and csr.max_row == 0
+        assert not csr.indptr.any() and not csr.col_ptr.any()
+
+
+@pytest.mark.parametrize("doc,term", [(0, 5), (1, -1), (3, 0), (-1, 2)])
+def test_csr_from_tokens_refuses_an_out_of_range_token(doc, term):
+    """A term outside [0, V) or a document outside [0, n_docs) raises, as
+    the dense build's ``np.add.at`` raises on it (there IndexError)."""
+    doc_ids = torch.tensor([0, 2, doc], dtype=torch.int32)
+    tokens = torch.tensor([1, 4, term], dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        ops.doc_term_csr_from_tokens(doc_ids, tokens, 3, 5)
+    with pytest.raises(ValueError):
+        ops.doc_term_csr_from_tokens(doc_ids, tokens[:2], 3, 5)
 
 
 if HAVE_HYPOTHESIS:
@@ -188,6 +245,22 @@ if HAVE_HYPOTHESIS:
         if dense_row:
             x[rng.integers(d)] = rng.integers(1, 5, v)
         _check_csr(x)
+
+    @settings(max_examples=40, deadline=None)
+    @given(d=hst.integers(0, 30), v=hst.integers(1, 60),
+           density=hst.floats(0.0, 1.0), seed=hst.integers(0, 2 ** 16),
+           dense_row=hst.booleans())
+    def test_csr_from_tokens_in_any_order_at_random_shapes(d, v, density,
+                                                           seed, dense_row):
+        """The token build does not rely on a corpus's order: tokens
+        shuffled across documents give the same CSR (no documents, all
+        zeros and a dense row included)."""
+        rng = np.random.default_rng(seed)
+        x = (rng.uniform(size=(d, v)) < density) * rng.integers(1, 5, (d, v))
+        x = x.astype(np.float32)
+        if dense_row and d:
+            x[rng.integers(d)] = rng.integers(1, 5, v)
+        _check_csr(x, within_docs=False)
 
 
 @pytest.mark.parametrize("d,v,k", ESTEP_SHAPES)
@@ -249,6 +322,39 @@ def test_vb_fit_builds_the_csr_once_per_fit(small_cfg, small_corpus,
     tvb.vb_fit(x, torch.Generator().manual_seed(0), tcfg, use_kernel=True)
     assert builds == [x.shape]
     assert len(calls) == tcfg.max_iters and all(c is calls[0] for c in calls)
+
+
+def test_vb_fit_on_a_csr_builds_nothing(small_cfg, small_corpus,
+                                       monkeypatch):
+    """Handed a CSR, ``vb_fit`` uploads and builds nothing and passes
+    that same object to every E-step call; λ is the dense route's to the
+    bit.  Without the kernel it refuses the CSR."""
+    corpus, _ = small_corpus
+    sub = corpus.subset(corpus.attr[0], corpus.attr[60])
+    csr = ops.doc_term_csr_from_tokens(torch.from_numpy(sub.doc_ids),
+                                       torch.from_numpy(sub.tokens),
+                                       sub.n_docs, sub.vocab_size)
+    builds, calls = [], []
+    real_estep = ops.vb_estep_csr
+
+    def estep(c, *a, **kw):
+        calls.append(c)
+        return real_estep(c, *a, **kw)
+    for name in ("doc_term_csr", "doc_term_csr_from_tokens"):
+        monkeypatch.setattr(ops, name, lambda *a, **kw: builds.append(a))
+    monkeypatch.setattr(ops, "vb_estep_csr", estep)
+    tcfg = TorchCfg(**{f: getattr(small_cfg, f) for f in
+                       small_cfg.__dataclass_fields__})
+    lam = tvb.vb_fit(csr, torch.Generator().manual_seed(0), tcfg,
+                     use_kernel=True)
+    assert builds == []
+    assert len(calls) == tcfg.max_iters and all(c is csr for c in calls)
+    monkeypatch.undo()
+    want = tvb.vb_fit(doc_term_matrix(corpus, 0, 60),
+                      torch.Generator().manual_seed(0), tcfg, use_kernel=True)
+    assert torch.equal(lam, want)
+    with pytest.raises(ValueError, match="use_kernel"):
+        tvb.vb_fit(csr, torch.Generator(), tcfg)
 
 
 @pytest.mark.parametrize("k,max_row", [(100, 88), (100, 1000), (256, 137),
