@@ -1,0 +1,12 @@
+"""merge_stage_ms.explore: the program's "merge" spans (fetch, launch,
+the answers copied back and finished), summed, per answered query, in
+ms."""
+
+
+def read(t):
+    if t is None or t.answered <= 0:
+        return None
+    spans = [s for s in t.spans if s.name == "merge"]
+    if not spans:
+        return None
+    return sum(s.duration_s for s in spans) / t.answered * 1e3

@@ -17,6 +17,11 @@ Phases, each of which fails the run if anything in it fails:
    is held in its (n, K, V) form and in its parts form (n separate
    tensors, n = 1, 8 and 129: weights by value, and a pointer table on
    the device above 128 parts), five repeat calls giving the same bits.
+   The batch merge of the paths (``merge_topics_parts_segments``: R
+   separate parts in segments, by one pointer table) is held at K = 100,
+   counts [1, 3, 8, 2] at V = 8,192 and [1, 32, 7, 129] at V = 141,043,
+   equal bit for bit to the stacked ragged kernel and over five calls,
+   and timed at V = 141,043.
    The sparse E-step runs on ``doc_term_csr(x)`` and is held against the
    dense plain version at D = 2,048 and 1,000 (both timed, with the
    conversion timed apart), an edge shape and two shapes whose documents
@@ -45,8 +50,8 @@ Phases, each of which fails the run if anything in it fails:
    half-window edges (gaps trained by the E-step kernel) and a
    ``submit_many`` of four specs (one ragged launch); every kernel's
    launch count must grow, no report may fall back, β must be finite
-   with rows summing to 1, and the covered β must match the ``"host"``
-   backend over the same store;
+   with rows summing to 1, and the covered β and the four batch answers
+   must match the ``"host"`` backend over the same store at 1e-5;
 4. routes — a gap query on the ``"host"`` backend and a gap replayed on
    it after an injected device loss must both launch the E-step kernel;
 5. the ``"gs"`` path — the same corpus and widths with collapsed Gibbs
@@ -108,7 +113,7 @@ Phases, each of which fails the run if anything in it fails:
    4 workers (each worker's model against its merge on the card) and a
    quarantined window retrained on the E-step kernel; both merge kernels
    held to their plain versions on the path's slices (the 4 slice lists
-   of [0, 8,000), the 4 slice stacks of the batch at counts [4, 2, 8,
+   of [0, 8,000), the 4 slice lists of the batch at counts [4, 2, 8,
    1]) at ``MERGE_TOL``;
    ``vb_fit_sharded`` on a (2, 2) grid against ``vb_fit`` on the E-step
    kernel from one λ0 (2e-4 + 2e-4·|want| after one iteration, the
@@ -1110,7 +1115,7 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
 
     # 6. the merge kernels on the slices the path gave them, against
     # their plain versions (uncounted): each of the 4 slice lists of
-    # [0, 8·unit), and each slice stack of the batch
+    # [0, 8·unit), and each slice list of the batch
     kernel_errs = {"merge_topics": 0.0, "merge_topics_ragged": 0.0}
 
     def hold(got, want, what):
@@ -1141,17 +1146,18 @@ def sharded_phase(corpus, cfg, gcfg, vb_store, gs_store, device,
                                                   bias=bias, base=base),
                      merge_topics_ref(torch.stack(sl_), w_, bias, base),
                      f"{kind} merge_topics_parts, slice {s}"))
-            st = torch.stack([e[s] for e in batch])
-            w_ = torch.ones(st.shape[0], dtype=torch.float32, device=device)
+            rows = [e[s] for e in batch]
+            w_ = torch.ones(len(rows), dtype=torch.float32, device=device)
             kernel_errs["merge_topics_ragged"] = max(
                 kernel_errs["merge_topics_ragged"],
-                hold(merge_ops.merge_topics_segments(st, w_, counts, bias,
-                                                     base),
-                     merge_topics_segments_ref(st, w_, counts, bias, base),
-                     f"{kind} merge_topics_segments, slice {s}"))
+                hold(merge_ops.merge_topics_parts_segments(
+                    rows, counts, bias=bias, base=base),
+                     merge_topics_segments_ref(torch.stack(rows), w_,
+                                               counts, bias, base),
+                     f"{kind} merge_topics_parts_segments, slice {s}"))
         log(f"[sharded] {kind}: merge_topics_parts on the 4 slice lists of "
             f"{len(eight)} parts, {tuple(eight[0][0].shape)} each, and "
-            f"merge_topics_segments on the 4 slice stacks at counts "
+            f"merge_topics_parts_segments on the 4 slice lists at counts "
             f"{counts}, against their plain versions: max abs err "
             f"{kernel_errs['merge_topics']:.3g} / "
             f"{kernel_errs['merge_topics_ragged']:.3g} (tol {MERGE_TOL} + "
@@ -3278,38 +3284,67 @@ def main() -> int:
         ms_batched_b1=ms_b1, ms_after_reading_flush=ms_read,
         ms_batched_b1_after_reading_flush=ms_b1_read)
 
-    # merge_topics_ragged
-    counts = [1, 3, 8, 2]
-    k, v = 100, 8192
-    r = sum(counts)
-    st = torch.tensor(rng.gamma(1.0, 1.0, (r, k, v)), dtype=torch.float32,
-                      device=dev)
-    w = torch.tensor(rng.uniform(0.2, 2.0, r), dtype=torch.float32,
-                     device=dev)
-    eta = 0.01
-    got = merge_ops.merge_topics_segments(st, w, counts, eta, eta)
-    err = close(got, merge_topics_segments_ref(st, w, counts, eta, eta),
-                MERGE_TOL)
-    log(f"[kernels] merge_topics_ragged counts={counts} K={k} V={v}: max abs "
-        f"err {err:.3g} (tol {MERGE_TOL})")
-    seg = np.repeat(np.arange(len(counts)), counts)
-    a_np = np.zeros((len(counts), r), np.float32)
-    a_np[seg, np.arange(r)] = w.cpu().numpy()
-    a_mat = torch.tensor(a_np, device=dev)
-    c = (eta - eta * a_mat.sum(1, keepdim=True)).contiguous()
-    s2 = st.view(r, -1)
-    ms = time_ms(lambda: merge_ops.merge_topics_segments(st, w, counts, eta,
-                                                         eta), 20)
-    plain = time_ms(lambda: merge_topics_segments_ref(st, w, counts, eta,
-                                                      eta), 20)
-    lib = time_ms(lambda: torch.addmm(c, a_mat, s2), 20)
-    b_ms, b_by = merge_ops.segments_cost(counts, k, v).bound_ms()
+    # merge_topics_ragged: the batch merge of the main path, by pointer
+    # table (merge_topics_parts_segments: R separate (K, V) parts, one
+    # result a segment), at the main path's width and at PubMed's
+    # vocabulary with a segment above 128 parts; held at 1e-5, equal bit
+    # for bit to the stacked kernel (its parity reference) and over
+    # repeat calls, and timed at V = 141,043
+    errs = []
+    gen_r = torch.Generator(device=dev).manual_seed(1)
+    for counts, k, v in [([1, 3, 8, 2], 100, 8192),
+                         ([1, 32, 7, 129], 100, 141_043)]:
+        r = sum(counts)
+        parts = [torch.rand((k, v), generator=gen_r, device=dev) * 2.0
+                 for _ in range(r)]
+        w_host = rng.uniform(0.2, 2.0, r).astype(np.float32)
+        w = torch.tensor(w_host, device=dev)
+        eta = 0.01
+        got = merge_ops.merge_topics_parts_segments(parts, counts, w_host,
+                                                    eta, eta)
+        st = torch.stack(parts)
+        errs.append(close(got, merge_topics_segments_ref(st, w, counts, eta,
+                                                         eta), MERGE_TOL))
+        if not torch.equal(merge_ops.merge_topics_segments(
+                st, w, counts, eta, eta), got):
+            raise AssertionError("merge_topics_parts_segments gives other "
+                                 "bits than the stacked ragged kernel")
+        for _ in range(5):
+            if not torch.equal(merge_ops.merge_topics_parts_segments(
+                    parts, counts, w_host, eta, eta), got):
+                raise AssertionError("merge_topics_parts_segments gives "
+                                     "other bits on a repeat call")
+        log(f"[kernels] merge_topics_parts_segments counts={counts} K={k} "
+            f"V={v}: max abs err {errs[-1]:.3g} (tol {MERGE_TOL}); the "
+            f"stacked kernel's bits; same bits over 5 calls")
+        if v == 141_043:
+            seg = np.repeat(np.arange(len(counts)), counts)
+            a_np = np.zeros((len(counts), r), np.float32)
+            a_np[seg, np.arange(r)] = w_host
+            a_mat = torch.tensor(a_np, device=dev)
+            c = (eta - eta * a_mat.sum(1, keepdim=True)).contiguous()
+            s2 = st.view(r, -1)
+            table = merge_ops.parts_table(parts, counts, w_host)
+            ms = time_ms(lambda: merge_ops.merge_topics_parts_segments(
+                parts, counts, bias=eta, base=eta, table=table), 20)
+            ms_stacked = time_ms(lambda: merge_ops.merge_topics_segments(
+                st, w, counts, eta, eta), 20)
+            plain = time_ms(lambda: merge_topics_segments_ref(
+                st, w, counts, eta, eta), 20)
+            lib = time_ms(lambda: torch.addmm(c, a_mat, s2), 20)
+            b_ms, b_by = merge_ops.segments_cost(counts, k, v).bound_ms()
+            log(f"[kernels] merge_topics_parts_segments counts={counts} "
+                f"V={v}: {ms:.4f} ms by pointer table, {ms_stacked:.4f} ms "
+                f"over a stack, bound {b_ms:.4f} ms ({b_by})")
+            del a_mat, c, s2, table
+        del parts, st, got
+    torch.cuda.empty_cache()
     report["merge_topics_ragged"] = dict(
         name="merge_topics_ragged", route="cuda",
         source="src/repro_torch/kernels/csrc/merge_topics.cu",
         replaces="src/repro/kernels/merge_topics/merge_topics.py:112",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib)
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, ms_stacked=ms_stacked)
 
     # vb_estep: the CSR kernel on doc_term_csr(x) of real doc-term blocks
     # at the main path's widths, held against the dense plain version;
@@ -4041,6 +4076,19 @@ def main() -> int:
         raise AssertionError(f"device beta differs from host by {diff}")
     log(f"[main] covered beta: device vs host max abs diff {diff:.3g} "
         f"(tol 1e-5)")
+    # the batch's answers, merged by pointer table, against the host's
+    # merges of the same parts
+    batch_diff = 0.0
+    for r, r_host in zip(batch, host.submit_many(specs)):
+        if r_host.model_ids != r.model_ids:
+            raise AssertionError("host and device planned different parts "
+                                 "for a submit_many spec")
+        batch_diff = max(batch_diff, float(np.abs(r_host.beta - r.beta).max()))
+        if not np.allclose(r.beta, r_host.beta, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"device submit_many beta differs from "
+                                 f"host by {batch_diff}")
+    log(f"[main] submit_many betas: device vs host max abs diff "
+        f"{batch_diff:.3g} (tol 1e-5)")
 
     # in-sample fit of the covered answer against the generating topics
     x_in = doc_term_matrix(corpus, 0, 300).astype(np.float64)

@@ -28,14 +28,16 @@ shards (``distributed/merge_collective.py``).  Its byte accounting is
 per device: an entry counts at the bytes of the device that holds most
 of its slices.
 
-``DeviceBackend.merge`` hands the cached (K, V) tensors to the kernel
-through a table of pointers, with no copy.  ``merge_many`` still stacks
-each query's parts and the ragged wrapper concatenates the stacks: two
-device copies of every part before its launch.
+``DeviceBackend.merge`` and ``merge_many`` hand the cached (K, V)
+tensors to the kernel through a table of pointers, with no copy: a
+batch's table lists every query's parts in order with the segments'
+offsets (``merge_topics_parts_segments``), so the device holds the
+resident capital and, for each merge in flight, its outputs alone.
 
 Spans (``repro_torch.obs.trace``, no-ops outside a traced span): a
 merge opens ``merge.fetch`` (the LRU gets, with a ``device.upload``
-child per miss — a volatile gap model is always one — and the stacks),
+child per miss — a volatile gap model is always one — and, for a batch,
+a ``merge.table`` child: the pointer table built and uploaded),
 ``kernel.launch`` (the launch call alone), ``merge.readback`` (β's copy
 to the host, which waits for the launch) and ``merge.finish`` (the
 family's numpy finish); a kernel-route gap opens ``train.readback``,
@@ -88,7 +90,8 @@ from repro_torch.distributed.sharding import MeshEnv, local_mesh_env
 from repro_torch.kernels.common import KernelError, resolve_device
 from repro_torch.kernels.merge_topics.ops import (
     merge_topics_parts,
-    merge_topics_ragged,
+    merge_topics_parts_segments,
+    parts_table,
 )
 from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs
@@ -137,6 +140,7 @@ class BackendStats:
     cache_evictions: int = 0
     cache_invalidations: int = 0
     merges: int = 0
+    merge_parts: int = 0              # parts (models) the merges read
     device_launches: int = 0
     host_fallbacks: int = 0
     merge_device_ms: float = 0.0      # host wall time: fetch, launch, copy
@@ -260,7 +264,7 @@ class HostBackend(ExecutionBackend):
         maybe_fail("backend.merge.host")
         for _ in parts:
             maybe_fail("backend.fetch.host")
-        self._count(merges=1)
+        self._count(merges=1, merge_parts=len(parts))
         return get_merge(kind)(list(parts), cfg)
 
 
@@ -487,7 +491,7 @@ class DeviceBackend(ExecutionBackend):
         maybe_fail(f"backend.merge.{self.name}")
         fam = merge_family_name(kind)
         if fam is None:                  # custom merge callable: host only
-            self._count(merges=1, host_fallbacks=1)
+            self._count(merges=1, merge_parts=len(parts), host_fallbacks=1)
             return get_merge(kind)(list(parts), cfg)
         stat_key, bias, base, finish = device_merge_params(fam, cfg)
         t0 = time.perf_counter()
@@ -511,16 +515,18 @@ class DeviceBackend(ExecutionBackend):
                     host = merged.cpu().numpy()  # waits for the launch
         ms = (time.perf_counter() - t0) * 1e3
         self._sync_cache_counters()
-        self._count(merges=1, device_launches=1, merge_device_ms=ms)
+        self._count(merges=1, merge_parts=len(parts), device_launches=1,
+                    merge_device_ms=ms)
         with obs.span("merge.finish", "backend", rows=1):
             return finish(host)
 
     def merge_many(self, part_lists, kind, cfg):
         """§V.C batch merge stage: one ragged segmented launch.
 
-        Every query's part rows concatenate into a single CSR-style
-        ``(R, K, V)`` stack merged by the segmented kernel — zero pad
-        rows on any batch shape (``stats.pad_rows`` stays 0)."""
+        Every query's parts are read where the LRU holds them, through
+        one pointer table with the segments' offsets: no stacked or
+        concatenated copy (``stacked_bytes`` 0), zero pad rows on any
+        batch shape (``stats.pad_rows`` stays 0)."""
         fam = merge_family_name(kind)
         if fam is None:
             # per-list self.merge counts the merges and fallbacks
@@ -529,37 +535,34 @@ class DeviceBackend(ExecutionBackend):
             return [self.merge(part_lists[0], kind, cfg)]
         maybe_fail(f"backend.merge.{self.name}")
         stat_key, bias, base, finish = device_merge_params(fam, cfg)
+        counts = [len(parts) for parts in part_lists]
         t0 = time.perf_counter()
         with self._device_guard():
-            with obs.span("merge.fetch", "backend",
-                          n_parts=sum(len(p) for p in part_lists),
+            with obs.span("merge.fetch", "backend", n_parts=sum(counts),
+                          stacked_bytes=0,
                           volatile=sum(_volatile(p) for p in part_lists)):
-                stats_list, weights_list = [], []
-                for parts in part_lists:
-                    stats_list.append(torch.stack(
-                        [self._fetch(m, stat_key) for m in parts]))
-                    weights_list.append(torch.ones(
-                        (len(parts),), dtype=torch.float32,
-                        device=self.device))
-                obs.set_attrs(stacked_bytes=sum(
-                    s.numel() * s.element_size() for s in stats_list))
+                stats = [self._fetch(m, stat_key)
+                         for parts in part_lists for m in parts]
+                with obs.span("merge.table", "backend", n_parts=len(stats),
+                              segments=len(counts)):
+                    table = parts_table(stats, counts)
             with self._annotate("mlego.merge_topics_ragged"):
                 with obs.span("kernel.launch", "backend",
                               op="merge_topics_ragged",
-                              n_plans=len(part_lists), backend=self.name):
-                    merged, pad_rows, launches = merge_topics_ragged(
-                        stats_list, weights_list, bias=bias, base=base)
-                    obs.set_attrs(pad_rows=pad_rows)
+                              n_plans=len(part_lists), backend=self.name,
+                              pad_rows=0):
+                    merged = merge_topics_parts_segments(
+                        stats, counts, bias=bias, base=base, table=table)
                 with obs.span("merge.readback", "backend",
-                              bytes=sum(r.numel() * r.element_size()
-                                        for r in merged)):
+                              bytes=merged.numel() * merged.element_size()):
+                    # a row at a time: rows below the allocator's mmap
+                    # threshold reuse freed host memory; one (n, K, V)
+                    # copy page-faults a fresh mapping every batch
                     host = [row.cpu().numpy() for row in merged]
         ms = (time.perf_counter() - t0) * 1e3
-        row_nbytes = stats_list[0][0].numel() * 4
         self._sync_cache_counters()
-        self._count(merges=len(part_lists), device_launches=launches,
-                    merge_device_ms=ms, pad_rows=pad_rows,
-                    pad_bytes=pad_rows * row_nbytes)
+        self._count(merges=len(part_lists), merge_parts=len(stats),
+                    device_launches=1, merge_device_ms=ms)
         with obs.span("merge.finish", "backend", rows=len(host)):
             return [finish(row) for row in host]
 
@@ -657,9 +660,10 @@ class ShardedDeviceBackend(DeviceBackend):
     (``Vp = padded_vocab(V, shards)``; pad columns are masked out of the
     row sums, so their value never matters); an entry is the model's
     list of slices.  Merges run through ``distributed/merge_collective``:
-    every shard merges its slices with the merge kernels (one
-    ``merge_topics_parts`` launch a query, one ``merge_topics_segments``
-    launch a batch: the kernel modules count one launch per shard),
+    every shard merges its slices with the merge kernels by pointer
+    table (one ``merge_topics_parts`` launch a query, one
+    ``merge_topics_parts_segments`` launch a batch: the kernel modules
+    count one launch per shard),
     applies the family's finisher offset, and joins the (K,) row sums —
     the *only* cross-shard traffic, added in shard order on the first
     device.  β therefore comes back normalised and the host finisher is
@@ -749,7 +753,8 @@ class ShardedDeviceBackend(DeviceBackend):
                 host = self._allgather(beta)     # waits for the launches
             ms = (time.perf_counter() - t0) * 1e3
         self._sync_cache_counters()
-        self._count(merges=1, device_launches=1, merge_device_ms=ms)
+        self._count(merges=1, merge_parts=len(parts), device_launches=1,
+                    merge_device_ms=ms)
         return host[:, :v_true]
 
     def merge_many(self, part_lists, kind, cfg):
@@ -780,8 +785,8 @@ class ShardedDeviceBackend(DeviceBackend):
                 host = self._allgather(beta)     # waits for the launches
             ms = (time.perf_counter() - t0) * 1e3
         self._sync_cache_counters()
-        self._count(merges=len(part_lists), device_launches=1,
-                    merge_device_ms=ms)
+        self._count(merges=len(part_lists), merge_parts=len(entries),
+                    device_launches=1, merge_device_ms=ms)
         return [host[i, :, :v_true] for i in range(len(counts))]
 
     def _allgather(self, beta: List[torch.Tensor]) -> np.ndarray:

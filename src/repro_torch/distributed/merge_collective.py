@@ -13,9 +13,9 @@ holds one tensor per data rank and reduces with
 ``merge_topics_sharded`` / ``merge_topics_ragged_sharded`` are the
 *query-path* merges behind ``ShardedDeviceBackend``: every model is
 resident as contiguous vocabulary slices, one per model shard; each
-shard merges its own (n, K, Vp/shards) slice with the merge kernels
-(``merge_topics_parts`` for one query, ``merge_topics_segments`` for a
-batch), adds the family's finisher offset and masks the pad columns.
+shard merges its own (n, K, Vp/shards) slices with the merge kernels
+by pointer table (``merge_topics_parts`` for one query,
+``merge_topics_parts_segments`` for a batch), adds the family's finisher offset and masks the pad columns.
 Only the (K,) — or (b, K) — row sums cross shards: added in shard order
 on the first shard's device and sent back, each shard divides its slice
 by them.  The masking, row sums and division are plain torch, as they
@@ -31,7 +31,7 @@ import torch
 from repro_torch.distributed.sharding import MeshEnv, all_reduce
 from repro_torch.kernels.merge_topics.ops import (
     merge_topics_parts,
-    merge_topics_segments,
+    merge_topics_parts_segments,
 )
 from repro_torch.testing.faults import maybe_fail
 
@@ -171,9 +171,9 @@ def merge_topics_ragged_sharded(rows: Sequence[Sequence[torch.Tensor]],
 
     ``rows[s]`` holds every query's part slices of shard s, concatenated
     in query order (CSR); ``counts`` gives each query's number of rows
-    and ``weights`` the R row weights.  Each shard stacks its rows once
-    and merges them in one segmented launch; the cross-shard row sums
-    are (b, K), independent of V.  Returns β as one (b, K, Vp/shards)
+    and ``weights`` the R row weights.  Each shard merges its rows where
+    they lie, in one segmented launch by pointer table; the cross-shard
+    row sums are (b, K), independent of V.  Returns β as one (b, K, Vp/shards)
     slice per shard.
     """
     maybe_fail("collective.merge")
@@ -181,8 +181,7 @@ def merge_topics_ragged_sharded(rows: Sequence[Sequence[torch.Tensor]],
     vs = rows[0][0].shape[-1]
     nums = []
     for s, slices in enumerate(rows):
-        stack = torch.stack(list(slices))
-        w = torch.tensor(list(weights), dtype=torch.float32).to(stack.device)
-        merged = merge_topics_segments(stack, w, counts, bias, base)
+        merged = merge_topics_parts_segments(list(slices), counts,
+                                             list(weights), bias, base)
         nums.append(_masked_numerator(merged, num_offset, v_true, s * vs))
     return _normalize(nums)

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "mlego_merge_topics_ragged": (_P, _P, _P, _P, _I, _LL, _F, _F, _P),
     # host_ptrs, host_w, dev_table, dev_w, n, kv, bias, base, out, stream
     "mlego_merge_topics_parts": (_P, _P, _P, _P, _I, _LL, _F, _F, _P, _P),
+    # host_ptrs, dev_table, dev_w, dev_offsets, n, n_segments, kv, bias,
+    # base, out, stream
+    "mlego_merge_topics_parts_segments": (_P, _P, _P, _P, _I, _I, _LL, _F,
+                                          _F, _P, _P),
     # indptr, indices, values, eeb_t, gamma0, gamma, exp_elog_theta,
     # ratio, next_doc, D, K, R, alpha, n_iters, stream
     "mlego_vb_estep_csr_iters": (_P,) * 9 + (_I,) * 3 + (_F, _I, _P),

@@ -24,6 +24,16 @@
 // the CTAs that fit on the card at once.  The sum order is r = 0 .. n-1,
 // so every run gives the same bits.
 //
+// The segmented form of merge_parts merges several segments of
+// consecutive parts in one launch: a device table of R part pointers, R
+// weights and n_segments + 1 row offsets, uploaded together; blockIdx.y
+// is the segment and writes its own (K, V) result.  The grid is a CTA per
+// output tile of each segment (no cap at the resident CTAs): segments of
+// 1 and of 32 parts then share the card as the scheduler hands out tiles,
+// instead of the short segments' CTAs idling while the long ones stride.
+// Each segment's sum order is its rows in order, as in the ragged form
+// over a stacked copy, so both give the same bits.
+//
 // The ragged form gives one program to each (segment, output tile) and
 // loops over that segment's rows, read from CSR row offsets
 // (n_segments + 1,).  The TPU form relied on grid steps running in order
@@ -89,12 +99,14 @@ constexpr int kMaxParamParts = 128;
 constexpr int kChunk = 8;
 
 // The n parts of one merge.  With n <= kMaxParamParts the pointers (and,
-// unless w_dev is set, the weights) are the arrays in the struct, 1,552
+// unless w_dev is set, the weights) are the arrays in the struct, 1,560
 // bytes of the 4 KB kernel-parameter space; otherwise table points to n
-// part pointers on the device.
+// part pointers on the device.  With seg set, the parts are the table's
+// and seg holds the segments' n_segments + 1 row offsets on the device.
 struct Parts {
   const float* const* table;  // n part pointers on the device, or null
   const float* w_dev;         // n weights on the device, or null
+  const int* seg;             // segment row offsets on the device, or null
   const float* ptr[kMaxParamParts];
   float w[kMaxParamParts];
 };
@@ -115,22 +127,27 @@ __device__ __forceinline__ float4 plus(const float4& a, float b) {
 __device__ __forceinline__ float plus(float a, float b) { return a + b; }
 
 // T = float4 or float; CHUNK rows' loads are issued before their FMAs.
+// One merge sums rows [0, n) into out; with segments, blockIdx.y = s sums
+// rows [seg[s], seg[s + 1]) into out + s * items.
 template <typename T, int CHUNK>
 __global__ void __launch_bounds__(kThreads)
     merge_parts(const __grid_constant__ Parts p, int n, long long items,
                 float bias, float base, T* __restrict__ out) {
+  const int r_begin = p.seg ? p.seg[blockIdx.y] : 0;
+  const int r_end = p.seg ? p.seg[blockIdx.y + 1] : n;
+  out += (long long)blockIdx.y * items;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x;
        i0 < items; i0 += 2 * stride) {
     const long long i1 = i0 + stride;
     const bool has1 = i1 < items;
     T acc0{}, acc1{};
-    for (int r0 = 0; r0 < n; r0 += CHUNK) {
+    for (int r0 = r_begin; r0 < r_end; r0 += CHUNK) {
       T s0[CHUNK], s1[CHUNK];
       float w[CHUNK];
 #pragma unroll
       for (int j = 0; j < CHUNK; ++j) {
-        if (r0 + j < n) {
+        if (r0 + j < r_end) {
           const T* src = reinterpret_cast<const T*>(
               p.table ? p.table[r0 + j] : p.ptr[r0 + j]);
           w[j] = p.w_dev ? p.w_dev[r0 + j] : p.w[r0 + j];
@@ -140,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < CHUNK; ++j) {
-        if (r0 + j < n) {
+        if (r0 + j < r_end) {
           axpy(acc0, w[j], s0[j], base);
           if (has1) axpy(acc1, w[j], s1[j], base);
         }
@@ -164,16 +181,41 @@ int resident_ctas(K kernel) {
   return sms * per_sm;
 }
 
+constexpr long long kMaxGridX = 1 << 30;
+constexpr int kMaxSegments = 65535;  // gridDim.y
+
 template <typename T>
-int launch_parts(const Parts& p, int n, long long items, float bias,
-                 float base, T* out, cudaStream_t stream) {
+int launch_parts(const Parts& p, int n, int n_segments, long long items,
+                 float bias, float base, T* out, cudaStream_t stream) {
   static const int resident = resident_ctas(merge_parts<T, kChunk>);
   if (resident < 1) return (int)cudaErrorInvalidDevice;
   long long blocks = (items + 2 * kThreads - 1) / (2 * kThreads);
-  if (blocks > resident) blocks = resident;  // grid-stride covers the rest
-  merge_parts<T, kChunk><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      p, n, items, bias, base, out);
+  // one merge: the CTAs that fit at once, striding over the rest;
+  // segments: a CTA a tile (see the head of the file)
+  if (!p.seg && blocks > resident) blocks = resident;
+  if (blocks > kMaxGridX) blocks = kMaxGridX;  // grid-stride covers the rest
+  const dim3 grid((unsigned)blocks, (unsigned)n_segments);
+  merge_parts<T, kChunk><<<grid, kThreads, 0, stream>>>(p, n, items, bias,
+                                                        base, out);
   return (int)cudaGetLastError();
+}
+
+// 16-byte loads need kv % 4 == 0 and every pointer 16-byte aligned
+bool vec_parts(const void* const* host_ptrs, int n, long long kv,
+               const float* out) {
+  bool vec = kv % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  for (int r = 0; r < n && vec; ++r)
+    vec = reinterpret_cast<std::uintptr_t>(host_ptrs[r]) % 16 == 0;
+  return vec;
+}
+
+int run_parts(const Parts& p, const void* const* host_ptrs, int n,
+              int n_segments, long long kv, float bias, float base,
+              float* out, cudaStream_t s) {
+  if (vec_parts(host_ptrs, n, kv, out))
+    return launch_parts(p, n, n_segments, kv / 4, bias, base,
+                        reinterpret_cast<float4*>(out), s);
+  return launch_parts(p, n, n_segments, kv, bias, base, out, s);
 }
 
 int launch(const float* stats, const float* w, const int* row_offsets,
@@ -241,15 +283,31 @@ int mlego_merge_topics_parts(const void* const* host_ptrs,
     if (!dev_table || !dev_w) return (int)cudaErrorInvalidValue;
     p.table = static_cast<const float* const*>(dev_table);
   }
-  // 16-byte loads need kv % 4 == 0 and every pointer 16-byte aligned
-  bool vec = kv % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
-  for (int r = 0; r < n && vec; ++r)
-    vec = reinterpret_cast<std::uintptr_t>(host_ptrs[r]) % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec)
-    return launch_parts(p, n, kv / 4, bias, base,
-                        reinterpret_cast<float4*>(out), s);
-  return launch_parts(p, n, kv, bias, base, out, s);
+  return run_parts(p, host_ptrs, n, 1, kv, bias, base, out,
+                   (cudaStream_t)stream);
+}
+
+// Segmented merge of n parts in one launch: segment s merges parts
+// [offsets[s], offsets[s + 1]) into out + s * kv.  host_ptrs: the n part
+// pointers (host array, read for their alignment); dev_table: the same n
+// pointers on the device; dev_w: n weights and dev_offsets: n_segments + 1
+// row offsets, on the device.
+int mlego_merge_topics_parts_segments(const void* const* host_ptrs,
+                                      const void* dev_table,
+                                      const float* dev_w,
+                                      const int* dev_offsets, int n,
+                                      int n_segments, long long kv,
+                                      float bias, float base, float* out,
+                                      void* stream) {
+  if (n < 1 || kv < 1 || n_segments < 1 || n_segments > kMaxSegments ||
+      !host_ptrs || !dev_table || !dev_w || !dev_offsets)
+    return (int)cudaErrorInvalidValue;
+  Parts p{};
+  p.table = static_cast<const float* const*>(dev_table);
+  p.w_dev = dev_w;
+  p.seg = dev_offsets;
+  return run_parts(p, host_ptrs, n, n_segments, kv, bias, base, out,
+                   (cudaStream_t)stream);
 }
 
 const char* mlego_error_string(int status) {

@@ -4,8 +4,8 @@ Source note.  ``merge_topics`` and ``merge_topics_parts`` replace the
 Pallas kernel ``merge_topics_pallas`` (``src/repro/kernels/merge_topics/
 merge_topics.py:37``), ``merge_topics_batch`` replaces
 ``merge_topics_batched_pallas`` (same file, :66) and
-``merge_topics_ragged`` replaces ``merge_topics_ragged_pallas`` (same
-file, :112).  All are bound by
+``merge_topics_parts_segments`` replaces ``merge_topics_ragged_pallas``
+(same file, :112).  All are bound by
 device memory: the merge reads each of the n (K, V) float32 statistics
 once and writes the result once, (n+1)·K·V·4 bytes, for ~2 flops per
 element read.  The kernels keep each output element's running sum in a
@@ -19,11 +19,22 @@ so a merge of cached models copies nothing first, and each thread has a
 chunk of 8 rows' loads in flight before its first FMA.  ``merge_topics``
 keeps its (n, K, V) signature and passes the rows of ``stats``.
 
-The ragged form gives each (segment, output tile) its own program,
-looping over the segment's rows from CSR offsets built on the host: no
-atomics, one launch, zero pad rows, the same sum order on every run.
-The batched form is the same kernel with implicit uniform offsets
-[0, n, 2n, …] (no offsets array to copy).  Unlike the TPU wrapper there
+``merge_topics_parts_segments`` is the ragged merge by pointer table:
+R separate (K, V) tensors grouped into segments of consecutive parts,
+one (K, V) result a segment, in one launch of the same ``merge_parts``
+kernel.  The part pointers, the weights and the segments' row offsets
+go up in one pinned upload (``parts_table``, which a caller may build
+ahead of the launch), so a batch of merges over cached models copies no
+part; its sums equal the stacked ragged kernel's bit for bit.
+
+Each (segment, output tile) is its own program, looping over the
+segment's rows from CSR offsets built on the host: no atomics, one
+launch, zero pad rows, the same sum order on every run.
+``merge_topics_segments`` runs the same merge over one stacked
+(R, K, V) copy; no path calls it, and it stays as the pointer-table
+route's parity reference on the card.  The batched form is the stacked
+kernel with implicit uniform offsets [0, n, 2n, …] (no offsets array to
+copy).  Unlike the TPU wrapper there
 is no padding of K to 8 or V to 128; the kernels mask the flat K·V range
 themselves.
 
@@ -33,12 +44,15 @@ package, only as the parity reference of the ragged path.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA
 tensor goes to the kernel or raises.  ``merge_topics_launches`` (the
-single merge, from either wrapper), ``merge_topics_batch_launches`` and
-``merge_topics_ragged_launches`` count kernel launches.
+single merge, from either wrapper), ``merge_topics_ragged_launches``
+(the ragged merge by pointer table), ``merge_topics_segments_launches``
+(the stacked reference) and ``merge_topics_batch_launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +70,7 @@ MAX_PARAM_PARTS = 128   # parts whose pointers and weights go by value
 merge_topics_launches = 0
 merge_topics_batch_launches = 0
 merge_topics_ragged_launches = 0
+merge_topics_segments_launches = 0
 
 
 def cost(n: int, k: int, v: int) -> common.Cost:
@@ -69,7 +84,8 @@ def cost(n: int, k: int, v: int) -> common.Cost:
 
 
 def segments_cost(counts: Sequence[int], k: int, v: int) -> common.Cost:
-    """One ragged merge (``merge_topics_segments``) of segments of
+    """One ragged merge (``merge_topics_parts_segments``, or
+    ``merge_topics_segments`` over a stack) of segments of
     ``counts`` statistics: the statistics, weights and offsets read once,
     one (K, V) result per segment written once; 3 operations per input
     element."""
@@ -118,13 +134,7 @@ def merge_topics_parts(parts: Sequence[torch.Tensor],
     """
     parts = list(parts)
     n = len(parts)
-    if n == 0:
-        raise ValueError("merge_topics_parts needs at least one part")
-    shape = tuple(parts[0].shape)
-    if len(shape) != 2 or any(tuple(p.shape) != shape for p in parts):
-        raise ValueError(f"parts must all be (K, V), got "
-                         f"{sorted({tuple(p.shape) for p in parts})}")
-    dev = common.same_device(**{f"parts[{i}]": p for i, p in enumerate(parts)})
+    shape, dev = _parts_device(parts)
     on_device = isinstance(weights, torch.Tensor) and \
         weights.device.type != "cpu"
     if on_device:
@@ -162,6 +172,104 @@ def merge_topics_parts(parts: Sequence[torch.Tensor],
         table, dev_w, n, k * v,
         float(bias), float(base), out, common.stream_of(out))
     common.count_launch(globals(), "merge_topics_launches")
+    return out
+
+
+def _parts_device(parts: Sequence[torch.Tensor]
+                  ) -> Tuple[Tuple[int, int], torch.device]:
+    """((K, V), device) of n >= 1 parts of one shape on one device."""
+    if not parts:
+        raise ValueError("a merge needs at least one part")
+    shape = tuple(parts[0].shape)
+    if len(shape) != 2 or any(tuple(p.shape) != shape for p in parts):
+        raise ValueError(f"parts must all be (K, V), got "
+                         f"{sorted({tuple(p.shape) for p in parts})}")
+    dev = common.same_device(**{f"parts[{i}]": p for i, p in enumerate(parts)})
+    return shape, dev
+
+
+@dataclass(frozen=True)
+class PartsTable:
+    """What a segmented merge reads beside its parts.
+
+    ``ptrs`` the R part pointers (host copy), ``counts`` the segments'
+    part counts, ``weights`` the R float32 weights, ``blob`` the device
+    table: the pointers, the weights and the len(counts) + 1 int32 row
+    offsets, in that order (None on the CPU, whose route reads none)."""
+
+    ptrs: np.ndarray
+    counts: Tuple[int, ...]
+    weights: np.ndarray
+    blob: Optional[torch.Tensor]
+
+
+def parts_table(parts: Sequence[torch.Tensor], counts: Sequence[int],
+                weights: Union[Sequence[float], torch.Tensor, None] = None
+                ) -> PartsTable:
+    """The table ``merge_topics_parts_segments`` reads for ``parts``
+    grouped by ``counts`` (unit weights when ``weights`` is None), sent
+    to the parts' device in one pinned upload queued on the current
+    stream."""
+    parts = list(parts)
+    counts = tuple(int(c) for c in counts)
+    if not counts or min(counts) < 1 or sum(counts) != len(parts):
+        raise ValueError(f"counts {list(counts)} must be >= 1 and sum to "
+                         f"the {len(parts)} parts")
+    _, dev = _parts_device(parts)
+    n = len(parts)
+    w = np.ones(n, np.float32) if weights is None else np.asarray(
+        weights.numpy() if isinstance(weights, torch.Tensor) else weights,
+        np.float32)
+    if w.shape != (n,):
+        raise ValueError(f"weights must be ({n},), got {w.shape}")
+    ptrs = np.array([p.data_ptr() for p in parts], np.uint64)
+    blob = None
+    if dev.type != "cpu":
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        blob = torch.frombuffer(
+            bytearray(ptrs.tobytes() + w.tobytes() + offsets.tobytes()),
+            dtype=torch.uint8).pin_memory().to(dev, non_blocking=True)
+    return PartsTable(ptrs, counts, w, blob)
+
+
+def merge_topics_parts_segments(
+        parts: Sequence[torch.Tensor], counts: Sequence[int],
+        weights: Union[Sequence[float], torch.Tensor, None] = None,
+        bias: float = 0.0, base: float = 0.0,
+        table: Optional[PartsTable] = None) -> torch.Tensor:
+    """Segment s of ``counts`` merges its consecutive parts:
+    bias + Σ_r w_r (parts[r] − base) -> (len(counts), K, V) f32, in one
+    launch with no stacked copy of the parts.
+
+    ``weights``: R numbers (a sequence or a CPU tensor), ones when None;
+    or pass ``table``, built by ``parts_table`` from the same parts and
+    counts, which carries them."""
+    parts = list(parts)
+    if table is None:
+        table = parts_table(parts, counts, weights)
+    elif weights is not None:
+        raise ValueError("give the weights or a table, not both")
+    elif tuple(int(c) for c in counts) != table.counts or not np.array_equal(
+            table.ptrs, [p.data_ptr() for p in parts]):
+        raise ValueError("the table was built for other parts or counts")
+    (k, v), dev = _parts_device(parts)
+    if dev.type == "cpu":
+        w, out, r = torch.from_numpy(table.weights), [], 0
+        for c in table.counts:
+            out.append(merge_topics_ref(torch.stack(parts[r:r + c]),
+                                        w[r:r + c], bias, base))
+            r += c
+        return torch.stack(out)
+    for i, p in enumerate(parts):
+        common.require_cuda(f"parts[{i}]", p, dev)
+    n, segs = len(parts), len(table.counts)
+    at = table.blob.data_ptr()
+    out = torch.empty((segs, k, v), dtype=torch.float32, device=dev)
+    common.launch(
+        "merge_topics_parts_segments", "mlego_merge_topics_parts_segments",
+        dev, table.ptrs.ctypes.data, at, at + 8 * n, at + 12 * n, n, segs,
+        k * v, float(bias), float(base), out, common.stream_of(out))
+    common.count_launch(globals(), "merge_topics_ragged_launches")
     return out
 
 
@@ -218,7 +326,7 @@ def merge_topics_segments(stats: torch.Tensor, weights: torch.Tensor,
         "merge_topics_ragged", "mlego_merge_topics_ragged", dev,
         stats, weights, offsets, out, len(counts), k * v, float(bias),
         float(base), common.stream_of(stats))
-    common.count_launch(globals(), "merge_topics_ragged_launches")
+    common.count_launch(globals(), "merge_topics_segments_launches")
     return out
 
 
@@ -226,28 +334,6 @@ def segment_ids(counts: Sequence[int]) -> torch.Tensor:
     """CSR row->segment map for a ragged batch: (sum(counts),) int32."""
     return torch.from_numpy(
         np.repeat(np.arange(len(counts)), list(counts)).astype(np.int32))
-
-
-def merge_topics_ragged(stats_list: Sequence[torch.Tensor],
-                        weights_list: Sequence[torch.Tensor],
-                        bias: float = 0.0, base: float = 0.0
-                        ) -> Tuple[List[torch.Tensor], int, int]:
-    """Ragged batch of merges: one segmented launch, zero pad rows.
-
-    ``stats_list[i]`` is query i's ``(n_i, K, V)`` stack,
-    ``weights_list[i]`` its ``(n_i,)`` weights.  The stacks concatenate
-    into one ``(R, K, V)`` row stack (a copy) merged in one launch.
-    Returns ``(merged, pad_rows, launches)``: ``pad_rows`` is always 0
-    and ``launches`` always 1.
-    """
-    counts = [int(s.shape[0]) for s in stats_list]
-    if len(counts) == 1:
-        return [merge_topics(stats_list[0], weights_list[0],
-                             bias=bias, base=base)], 0, 1
-    stats = torch.cat(list(stats_list), dim=0)
-    weights = torch.cat([w.to(torch.float32) for w in weights_list])
-    merged = merge_topics_segments(stats, weights, counts, bias, base)
-    return list(merged.unbind(0)), 0, 1
 
 
 def merge_topics_bucketed(stats_list: Sequence[torch.Tensor],

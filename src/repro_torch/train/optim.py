@@ -48,7 +48,7 @@ held beside them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -101,16 +101,18 @@ def _flatten_up_to(structure: Tree, tree: Tree) -> List[Any]:
 def unflatten(structure: Tree, values: List[Any]) -> Tree:
     """A tree shaped like ``structure`` (dicts, lists, tuples) holding
     ``values`` in ``leaves`` order."""
-    it = iter(values)
+    return _build(structure, iter(values))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)) and not isinstance(node, Sharded):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(structure)
+def _build(node: Tree, it: Iterator[Any]) -> Tree:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, and its iterator would hold ``values`` (a step's
+    # gradients, say) until the garbage collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)) and not isinstance(node, Sharded):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:

@@ -190,6 +190,79 @@ def test_parts_merge_kernel_reads_misaligned_parts(cuda):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_segmented_parts_merge_equals_the_stacked_ragged_kernel(cuda):
+    """The ragged merge by pointer table at PubMed's width (K = 100,
+    V = 141,043; a segment above 128 parts) gives the stacked ragged
+    kernel's bits, one launch, the same bits over repeat calls."""
+    k, v, counts = 100, 141043, [1, 32, 7, 129]
+    r = sum(counts)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    parts = [torch.rand((k, v), generator=gen, device=cuda) * 40.0 + 0.01
+             for _ in range(r)]
+    w = torch.rand(r, generator=gen, device=cuda) + 0.5
+    before = merge_ops.merge_topics_ragged_launches
+    got = merge_ops.merge_topics_parts_segments(parts, counts, w.cpu(),
+                                                bias=0.01, base=0.01)
+    torch.cuda.synchronize()
+    assert merge_ops.merge_topics_ragged_launches == before + 1
+    stacked = merge_ops.merge_topics_segments(torch.stack(parts), w, counts,
+                                              0.01, 0.01)
+    assert torch.equal(got, stacked)
+    del stacked
+    for _ in range(3):
+        assert torch.equal(merge_ops.merge_topics_parts_segments(
+            parts, counts, w.cpu(), bias=0.01, base=0.01), got)
+
+
+@pytest.mark.parametrize("k,v,misaligned", [(12, 128, False), (5, 7, False),
+                                            (12, 64, True)])
+def test_segmented_parts_merge_matches_plain(cuda, k, v, misaligned):
+    """K·V not a multiple of 4, or a part off a 16-byte boundary: the
+    scalar path."""
+    counts = [2, 1, 3]
+    parts = [_t(RNG.gamma(1.0, 1.0, (k, v)), cuda) for _ in range(6)]
+    if misaligned:
+        flat = _t(RNG.normal(size=(k * v + 1,)), cuda)
+        parts[4] = flat[1:].view(k, v)
+    w = RNG.uniform(0.2, 2.0, 6).astype(np.float32)
+    got = merge_ops.merge_topics_parts_segments(parts, counts, w)
+    want = merge_topics_segments_ref(torch.stack(parts), _t(w, cuda), counts)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_device_merge_many_allocates_no_stack_of_its_parts(cuda):
+    """A batch of 69 cached parts allocates its (3, K, V) outputs and its
+    pointer table, and no (R, K, V) stack; each answer is the host
+    merge's."""
+    from repro_torch.api.backend import DeviceBackend
+    from repro_torch.configs.lda_default import LDAConfig
+    from repro_torch.core.lda import MaterializedModel, topics_from_vb
+    from repro_torch.core.merge import merge_vb
+    from repro_torch.core.plans import Interval
+    k, v = 100, 8192
+    cfg = LDAConfig(n_topics=k, vocab_size=v, eta=0.01)
+    gen = torch.Generator().manual_seed(9)
+    models = [MaterializedModel(i, Interval(i, i + 1), 10, 100, "vb", {
+        "lam": (torch.rand((k, v), generator=gen) * 9.0 + 0.01).numpy()})
+        for i in range(69)]
+    lists = [models[:32], models[32:64], models[64:]]
+    backend = DeviceBackend(capacity=128, device=cuda)
+    for m in models:
+        backend.note_trained(m)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = backend.merge_many(lists, "vb", cfg)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - held
+    outputs = 3 * k * v * 4
+    assert outputs <= grew <= outputs + (1 << 20), (grew, outputs)
+    assert backend.stats.merge_parts == 69
+    for parts, beta in zip(lists, got):
+        np.testing.assert_allclose(beta, topics_from_vb(merge_vb(parts, cfg)),
+                                   rtol=1e-5, atol=1e-9)
+
+
 @pytest.mark.parametrize("route", ["host", "device_lost_replay"])
 def test_every_gap_route_launches_the_estep_kernel(cuda, route):
     """A gap trained by the "host" backend, and one replayed on it after

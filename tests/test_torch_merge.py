@@ -76,6 +76,11 @@ def _batch(counts, k, v):
     return stats, weights
 
 
+def _parts(stats):
+    """Every query's rows as separate (K, V) tensors, in query order."""
+    return [p for s in stats for p in torch.from_numpy(s).unbind(0)]
+
+
 @pytest.mark.parametrize("counts", [
     [1],                  # n' = 1: single row, single segment
     [1, 1, 1],            # all-equal width 1
@@ -87,11 +92,9 @@ def _batch(counts, k, v):
 @pytest.mark.parametrize("bias,base", [(0.05, 0.05), (0.0, 0.0)])
 def test_ragged_matches_jax(counts, k, v, bias, base):
     stats, weights = _batch(counts, k, v)
-    out, pad_rows, launches = ops.merge_topics_ragged(
-        [torch.from_numpy(s) for s in stats],
-        [torch.from_numpy(w) for w in weights], bias=bias, base=base)
-    assert (pad_rows, launches) == (0, 1)
-    assert len(out) == len(counts)
+    out = ops.merge_topics_parts_segments(
+        _parts(stats), counts, np.concatenate(weights), bias=bias, base=base)
+    assert out.shape == (len(counts), k, v) and out.dtype == torch.float32
     jax_out, _, _ = jax_ops.merge_topics_ragged(
         [jnp.asarray(s) for s in stats], [jnp.asarray(w) for w in weights],
         bias=bias, base=base, interpret=True)
@@ -144,9 +147,8 @@ def test_bucketed_matches_jax(counts, bias, base):
         [jnp.asarray(s) for s in stats], [jnp.asarray(w) for w in weights],
         bias=bias, base=base, interpret=True)
     assert (pad_rows, launches) == (jax_pad, jax_launches)
-    ragged, _, _ = ops.merge_topics_ragged(
-        [torch.from_numpy(s) for s in stats],
-        [torch.from_numpy(w) for w in weights], bias=bias, base=base)
+    ragged = ops.merge_topics_parts_segments(
+        _parts(stats), counts, np.concatenate(weights), bias=bias, base=base)
     assert len(out) == len(counts)
     for got, want, seg in zip(out, jax_out, ragged):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -206,12 +208,14 @@ def test_merge_gs_stats_matches_host_alg2():
 
 
 def test_cpu_tensors_never_count_a_kernel_launch():
-    before = (ops.merge_topics_launches, ops.merge_topics_ragged_launches,
-              ops.merge_topics_batch_launches)
+    counters = ("merge_topics_launches", "merge_topics_ragged_launches",
+                "merge_topics_segments_launches",
+                "merge_topics_batch_launches")
+    before = [getattr(ops, c) for c in counters]
     st = torch.ones((2, 3, 4))
     ops.merge_topics(st, torch.ones(2))
     ops.merge_topics_parts(list(st), [1.0, 1.0])
-    ops.merge_topics_ragged([st, st], [torch.ones(2), torch.ones(2)])
+    ops.merge_topics_parts_segments(list(st) * 2, [1, 3])
+    ops.merge_topics_segments(st, torch.ones(2), [1, 1])
     ops.merge_topics_bucketed([st, st], [torch.ones(2), torch.ones(2)])
-    assert (ops.merge_topics_launches, ops.merge_topics_ragged_launches,
-            ops.merge_topics_batch_launches) == before
+    assert [getattr(ops, c) for c in counters] == before

@@ -337,7 +337,8 @@ def _planted_kernel_error(*args, **kwargs):
 # a kernel wrapper that the fused group reaches, and specs that reach it:
 # covered specs merge in one ragged launch; gapped ones train on the E-step
 BROKEN = {
-    "ragged merge": ("repro_torch.api.backend", "merge_topics_ragged",
+    "ragged merge": ("repro_torch.api.backend",
+                     "merge_topics_parts_segments",
                      [_spec(tapi, s) for s in COVERED[:3]]),
     "E-step": ("repro_torch.kernels.vb_estep.ops", "vb_estep_csr",
                [_spec(tapi, [(50.0, 250.0)], 0.0, "volatile"),

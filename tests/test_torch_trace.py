@@ -132,8 +132,11 @@ def test_submit_many_splits_the_ragged_merge_span(corpus):
     kids = _assert_nested(spans, merges[0], MERGE_CHILDREN)
     fetch = [s for s in kids if s.name == "merge.fetch"][0]
     assert fetch.attrs["n_parts"] == 3
-    assert fetch.attrs["stacked_bytes"] == 3 * 4 * CFG.n_topics \
-        * CFG.vocab_size
+    # the parts are read where the LRU holds them: no stacked copy
+    assert fetch.attrs["stacked_bytes"] == 0
+    (table,) = [s for s in spans if s.name == "merge.table"
+                and s.parent_id == fetch.span_id]
+    assert (table.attrs["n_parts"], table.attrs["segments"]) == (3, 2)
     launch = [s for s in kids if s.name == "kernel.launch"][0]
     assert launch.attrs["op"] == "merge_topics_ragged"
     assert launch.attrs["pad_rows"] == 0
